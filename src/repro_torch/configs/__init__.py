@@ -1,0 +1,2 @@
+"""Per-architecture configuration files (copies of ``repro.configs``)."""
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
