@@ -6,25 +6,38 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, the CUDA version, and
-   the time to build the split-KV decode kernel from
-   src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu with
-   nvcc for sm_90a (into build/repro_torch/);
-2. kernels against their plain PyTorch versions on the card, at yi-9b's
-   decode shapes (hq 32, hkv 4, d 128, page 16, 16 slots, contexts 512 and
-   2048, splits 1 and planned, bf16 and fp32): tolerance (TOL) fp32 2e-3,
-   bf16 4e-3 + 2^-7 |want|, paged == dense bitwise, the reference's
-   property cases, and
-   device timings (CUDA graph replay, CUDA events) of kernel, plain
-   version, SDPA over the gathered view (the library yardstick) and the
-   memory bound;
+   the time to build the three CUDA kernels (split-KV decode attention,
+   flash attention, fused norm, one nvcc each, started together) from
+   src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/;
+2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
+   tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
+   * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
+     page 16, 16 slots, contexts 512 and 2048, splits 1 and planned),
+     paged == dense bitwise, the reference's property cases;
+   * flash attention at the prefill's main shape (16 x 1024 causal), at
+     the serve path's ragged shape (pad 1024 over a 2048-position page
+     view, per-slot offsets, key and query lengths, parked slots; paged ==
+     dense bitwise) and a prefix attach (a 512-token suffix at offset 512
+     over shared pages) against the whole prompt's rows;
+   * fused norm at 16 x 1024 x 4096 and 16 x 1 x 4096 (RMS with and
+     without residual, LayerNorm with bias);
+   with device timings (CUDA graph replay, CUDA events) of kernel, plain
+   version, the nearest PyTorch library call and the least time the work
+   can take (the bound);
 3. serve yi-9b at its published config (48 layers, bf16, random weights
    from a seed) through ServeEngine over a paged pool: 48 greedy requests,
-   launch counts checked, then the same requests under pallas_gather with
-   bitwise-equal token streams;
-   followed by a torch.profiler trace of one decode chunk (device busy
-   time, idle share, kernels by device time);
-4. the kernel path against the plain path end to end: yi-9b's width at 4
-   layers in fp32, prefill plus decode steps, logits within 2e-3.
+   every kernel's launch count checked (decode 48 x steps, flash 48 x
+   waves, fused norm 97 x (waves + steps), 0 plain calls), then the first
+   16 of those requests under pallas_gather with bitwise-equal streams;
+   a torch.profiler trace of one decode chunk and of one admission wave
+   (device busy time, idle share, kernels by device time);
+4. prefix sharing and preemption at the same width: 48 requests on four
+   shared 512-token system prompts over a 256-page pool, invariants
+   checked after every wave, hits and preemptions required, no page left
+   held; the same requests with sharing off for comparison;
+5. the kernel path against the plain path end to end: yi-9b's width at 4
+   layers in fp32, prefill, decode steps and a continuation prefill at a
+   nonzero cursor, logits within 2e-3.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -58,13 +71,22 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense peaks
 # measured at the main shape (9.8e-4).
 TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (4e-3, 2 ** -7)}
 HQ, HKV, D, PSZ, SLOTS, MAX_LEN = 32, 4, 128, 16, 16, 2048
-KERNEL_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+SOURCES = {
+    "decode_attention":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "fused_norm": "src/repro_torch/kernels/fused_norm/csrc/fused_norm.cu",
+}
 TPU_SITES = {
     "paged_decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:274",
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:106",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:129",
+    "fused_norm": "src/repro/kernels/fused_norm/fused_norm.py:73",
 }
+PREFILL_PAD = 1024          # the serve traffic's widest prefill bucket
 
 
 def emit(obj) -> None:
@@ -338,6 +360,260 @@ def property_cases(gen) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2 (cont.): flash attention and fused norm
+# ---------------------------------------------------------------------------
+
+def _esize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _flash_bound(dtype, q_len, kv_need, pairs, b, sq, hq, hkv, d):
+    """Least time for one flash call: the valid query rows and the keys
+    the run needs read once, the whole output written once, against
+    4 * d flops per valid (query head, key) pair at the type's peak."""
+    es = _esize(dtype)
+    nbytes = (int(q_len.sum()) * hq * d * es          # q rows read
+              + b * sq * hq * d * es                  # out written
+              + 2 * int(kv_need.sum()) * hkv * d * es  # K and V read
+              + 12 * b)                               # per-slot vectors
+    ops = 4 * int(pairs) * hq * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _flash_work(off, q_len, kv_len):
+    """(keys needed per slot, valid causal query-key pairs) of a call."""
+    off, q_len, kv_len = (x.long().cpu() for x in (off, q_len, kv_len))
+    pairs, need = 0, []
+    for o, n, t in zip(off.tolist(), q_len.tolist(), kv_len.tolist()):
+        rows = torch.arange(n)
+        pairs += int(torch.clamp(torch.minimum(o + rows + 1,
+                                               torch.tensor(t)), min=0).sum())
+        need.append(max(0, min(t, o + n)) if n else 0)
+    return torch.tensor(need), pairs
+
+
+def _paged_pool(gen, dtype, b, n_table, n_pages):
+    kp = torch.randn(n_pages, PSZ, HKV, D, generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn(n_pages, PSZ, HKV, D, generator=gen,
+                     device="cuda").to(dtype)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    return kp, vp, perm[:b * n_table].reshape(b, n_table).to(torch.int32)
+
+
+def phase_flash(gpu: str, seed: int) -> dict:
+    """Flash attention on the card: the prefill's main shape (timed against
+    SDPA), the serve path's ragged paged shape (paged == dense bitwise)
+    and a prefix attach, each against the plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models.common import gather_pages
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    rows, err = [], 0.0
+    b, sq = SLOTS, PREFILL_PAD
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(b, HQ, sq, D, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(b, HKV, sq, D, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, HKV, sq, D, generator=gen, device="cuda").to(dtype)
+
+        def kernel():
+            return fk.flash_attention_cuda(q, k, v, causal=True)
+
+        def plain():
+            return fk.flash_attention_plain(q, k, v, causal=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        e = check_close(f"flash main {dtype}", got, want, dtype)
+        err = max(err, e)
+        full = torch.full((b,), sq, dtype=torch.int32)
+        need, pairs = _flash_work(torch.zeros(b), full, full)
+        bound_ms, bound_by = _flash_bound(dtype, full, need, pairs, b, sq,
+                                          HQ, HKV, D)
+        row = {"case": "main", "dtype": str(dtype).removeprefix("torch."),
+               "shape": [b, HQ, HKV, sq, sq, D], "causal": True,
+               "err": e, "library_err": (library().float() - want.float()
+                                         ).abs().max().item(),
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5),
+               "library_ms": time_ms(library), "bound_ms": bound_ms,
+               "bound_by": bound_by, "gflop": 4 * pairs * HQ * D / 1e9}
+        rows.append(row)
+        if dtype == torch.bfloat16:
+            main = row
+        del q, k, v, got, want
+    # The serve path's ragged prefill: slots at random cursors with random
+    # suffix lengths (two parked), K/V read through a 2048-position table.
+    n_table = MAX_LEN // PSZ
+    for dtype in (torch.bfloat16, torch.float32):
+        kp, vp, pages = _paged_pool(gen, dtype, b, n_table, b * n_table)
+        off = torch.randint(0, MAX_LEN - sq + 1, (b,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        q_len = torch.randint(1, sq + 1, (b,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        q_len[3] = 0
+        q_len[7] = 0
+        kv_len = (off + q_len).to(torch.int32)
+        mapped = (kv_len.long() + PSZ - 1) // PSZ
+        pages = torch.where(torch.arange(n_table, device="cuda")[None]
+                            < mapped[:, None], pages, -1).to(torch.int32)
+        pages = pages.contiguous()
+        q = torch.randn(b, sq, HQ, D, generator=gen,
+                        device="cuda").to(dtype).transpose(1, 2)
+        kd = gather_pages(kp, pages).transpose(1, 2)
+        vd = gather_pages(vp, pages).transpose(1, 2)
+        kw = dict(q_offset=off, kv_len=kv_len, q_len=q_len)
+
+        def paged():
+            return fk.paged_flash_attention_cuda(q, kp, vp, pages, **kw)
+
+        def dense():
+            return fk.flash_attention_cuda(q, kd, vd, **kw)
+
+        def plain():
+            return fk.paged_flash_attention_plain(q, kp, vp, pages, **kw)
+
+        kdc, vdc = kd.contiguous(), vd.contiguous()
+        kpos = torch.arange(kd.shape[2], device="cuda")
+        qpos = off[:, None].long() + torch.arange(sq, device="cuda")
+        mask = ((kpos[None, None] < kv_len[:, None, None])
+                & (kpos[None, None] <= qpos[:, :, None]))[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(q, kdc, vdc,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+
+        out_p, out_d, want = paged(), dense(), plain()
+        torch.cuda.synchronize()
+        check_equal(f"flash ragged paged == dense {dtype}", out_p, out_d)
+        e = check_close(f"flash ragged {dtype}", out_p, want, dtype)
+        if bool(out_p[3].abs().max() != 0) or bool(out_p[7].abs().max() != 0):
+            raise AssertionError("flash: a parked slot must give zeros")
+        err = max(err, e)
+        need, pairs = _flash_work(off, q_len, kv_len)
+        bound_ms, bound_by = _flash_bound(dtype, q_len.cpu(), need, pairs, b,
+                                          sq, HQ, HKV, D)
+        rows.append({"case": "ragged_paged",
+                     "dtype": str(dtype).removeprefix("torch."),
+                     "q_len": q_len.tolist(), "q_offset": off.tolist(),
+                     "err": e, "paged_equals_dense": True,
+                     "ms": time_ms(paged), "dense_ms": time_ms(dense),
+                     "plain_ms": time_ms(plain, reps=5),
+                     "library_ms": time_ms(library),
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+        del kp, vp, q, kd, vd, kdc, vdc, mask, out_p, out_d, want
+    # Prefix attach: each slot's table starts with one of four shared
+    # 512-token prefixes (32 pages another slot's prefill wrote) and ends
+    # in its own suffix pages; the suffix at q_offset 512 must give the
+    # rows the whole prompt gives.
+    dtype, pre = torch.bfloat16, 512
+    n_own = (sq - pre) // PSZ
+    n_pages = 4 * (pre // PSZ) + b * n_own
+    kp, vp, perm = _paged_pool(gen, dtype, 1, n_pages, n_pages)
+    perm = perm[0]
+    shared = perm[:4 * (pre // PSZ)].reshape(4, pre // PSZ)
+    own = perm[4 * (pre // PSZ):].reshape(b, n_own)
+    pages = torch.cat([shared[torch.arange(b, device="cuda") % 4], own],
+                      dim=1).to(torch.int32).contiguous()
+    q = torch.randn(b, HQ, sq, D, generator=gen, device="cuda").to(dtype)
+    full = torch.full((b,), sq, dtype=torch.int32, device="cuda")
+    whole = fk.paged_flash_attention_cuda(q, kp, vp, pages, kv_len=full)
+    attached = fk.paged_flash_attention_cuda(
+        q[:, :, pre:], kp, vp, pages,
+        q_offset=torch.full((b,), pre, dtype=torch.int32, device="cuda"),
+        kv_len=full)
+    torch.cuda.synchronize()
+    e_attach = check_close("flash prefix attach", attached,
+                           whole[:, :, pre:], dtype)
+    e_plain = check_close(
+        "flash prefix attach vs plain", attached,
+        fk.paged_flash_attention_plain(
+            q[:, :, pre:], kp, vp, pages,
+            q_offset=torch.full((b,), pre, dtype=torch.int32, device="cuda"),
+            kv_len=full), dtype)
+    err = max(err, e_attach, e_plain)
+    rows.append({"case": "prefix_attach", "dtype": "bfloat16",
+                 "prefix": pre, "suffix": sq - pre, "err": e_attach,
+                 "plain_err": e_plain,
+                 "bitwise_equal": bool(torch.equal(attached,
+                                                   whole[:, :, pre:]))})
+    emit({"phase": "kernels_flash", "gpu": gpu, "rows": rows})
+    return {"main": main, "err": err}
+
+
+def phase_norm(gpu: str, seed: int) -> dict:
+    """Fused norm on the card at the prefill and decode shapes of yi-9b
+    (d 4096): RMS with and without residual, LayerNorm with bias, against
+    the plain version, timed against F.rms_norm / F.layer_norm."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_norm import fused_norm as nk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    d, eps = 4096, 1e-5
+    rows, err, main = [], 0.0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((SLOTS, PREFILL_PAD, d), (SLOTS, 1, d)):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            r = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(d, generator=gen, device="cuda")
+            bias = torch.randn(d, generator=gen, device="cuda")
+            w_lib, b_lib = w.to(dtype), bias.to(dtype)   # F.* take x's type
+            for kind, b_, r_ in (("rms", None, None), ("rms", None, r),
+                                 ("layer", bias, None)):
+                kw = dict(eps=eps, kind=kind)
+
+                def kernel():
+                    return nk.fused_norm_cuda(x, w, b_, r_, **kw)
+
+                def plain():
+                    return nk.fused_norm_plain(x, w, b_, r_, **kw)
+
+                library = None
+                if r_ is None and kind == "rms":
+                    def library():
+                        return F.rms_norm(x, (d,), w_lib, eps)
+                elif r_ is None:
+                    def library():
+                        return F.layer_norm(x, (d,), w_lib, b_lib, eps)
+
+                got = kernel()
+                torch.cuda.synchronize()
+                e = check_close(f"norm {kind} {shape} {dtype}", got, plain(),
+                                dtype)
+                err = max(err, e)
+                es = _esize(dtype)
+                nbytes = (x.numel() * es * (3 if r_ is not None else 2)
+                          + 4 * d * (2 if b_ is not None else 1))
+                ops = x.numel() * (8 if kind == "layer" else 5)
+                t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+                row = {"dtype": str(dtype).removeprefix("torch."),
+                       "shape": list(shape), "kind": kind,
+                       "residual": r_ is not None, "bias": b_ is not None,
+                       "err": e, "ms": time_ms(kernel),
+                       "plain_ms": time_ms(plain),
+                       "library_ms": (time_ms(library) if library
+                                      else None),
+                       "bound_ms": max(t_b, t_o) * 1e3,
+                       "bound_by": "bytes" if t_b >= t_o else "operations"}
+                rows.append(row)
+                if (dtype == torch.bfloat16 and shape[1] == PREFILL_PAD
+                        and kind == "rms" and r_ is None):
+                    main = row
+    emit({"phase": "kernels_norm", "gpu": gpu, "rows": rows})
+    return {"main": main, "err": err}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve yi-9b at full width
 # ---------------------------------------------------------------------------
 
@@ -349,11 +625,11 @@ def _requests(Request, vocab: int, seed: int, n: int = 48):
                     max_new_tokens=int(k)) for m, k in zip(lens, budgets)]
 
 
-def _serve(cfg, params, reqs):
+def _serve(cfg, params, reqs, n_pages=None):
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
-                      chunk_size=8)
+                      chunk_size=8, n_pages=n_pages)
     chunk_s = []
     run_chunk = eng._run_chunk
 
@@ -369,14 +645,65 @@ def _serve(cfg, params, reqs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = eng.serve_stats()
+    held = (eng.n_pages - eng.allocator.free_count()) if eng.paged else 0
     del eng
-    return wall, chunk_s, stats
+    return wall, chunk_s, stats, held
+
+
+def _kernel_modules():
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.fused_norm import fused_norm as nk
+
+    return dk, fk, nk
+
+
+def reset_counts() -> None:
+    """Zero every kernel's launch and plain-call counters."""
+    for mod in _kernel_modules():
+        mod.reset_counters()
+
+
+def counts() -> dict:
+    dk, fk, nk = _kernel_modules()
+    return {"decode_paged": dk.paged_decode_attention.launches,
+            "decode_dense": dk.decode_attention.launches,
+            "flash_paged": fk.paged_flash_attention.launches,
+            "flash_dense": fk.flash_attention.launches,
+            "fused_norm": nk.fused_norm.launches,
+            "plain": (dk.paged_decode_attention_plain.calls
+                      + dk.decode_attention_plain.calls
+                      + fk.paged_flash_attention_plain.calls
+                      + fk.flash_attention_plain.calls
+                      + nk.fused_norm_plain.calls)}
+
+
+def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
+    """Every prefill launches one flash kernel a layer, every decode step
+    one decode kernel a layer, and both 2 norms a layer plus the final
+    one; nothing takes a plain version."""
+    L, steps = cfg.n_layers, stats["chunks"] * 8
+    waves = stats["admission_waves"]
+    paged = cfg.decode_kernel == "pallas_paged"
+    want = {"decode_paged": L * steps if paged else 0,
+            "decode_dense": 0 if paged else L * steps,
+            "flash_paged": L * waves if paged else 0,
+            "flash_dense": 0 if paged else L * waves,
+            "fused_norm": (2 * L + 1) * (waves + steps), "plain": 0}
+    if got != want:
+        raise AssertionError(f"{arm} arm: launch counts {got} != {want}")
+
+
+def check_streams(arm: str, reqs, cfg) -> None:
+    for r in reqs:
+        if len(r.generated) != r.max_new_tokens or not all(
+                0 <= t < cfg.padded_vocab for t in r.generated):
+            raise AssertionError(f"{arm} arm: request {r.id}: bad stream")
 
 
 def phase_serve(gpu: str, seed: int) -> dict:
     from repro_torch import convert
     from repro_torch.configs import yi_9b
-    from repro_torch.kernels.decode_attention import decode_attention as dk
     from repro_torch.serve.engine import Request
 
     cfg = dataclasses.replace(
@@ -392,44 +719,28 @@ def phase_serve(gpu: str, seed: int) -> dict:
             Request(prompt=np.arange(9, dtype=np.int32), max_new_tokens=3)]
     _serve(cfg, params, warm)
 
-    def counts():
-        return {"paged": dk.paged_decode_attention.launches,
-                "dense": dk.decode_attention.launches,
-                "plain_paged": dk.paged_decode_attention_plain.calls,
-                "plain_dense": dk.decode_attention_plain.calls}
-
     # Each arm's counts are zeroed just before its run and read just after.
     reqs = _requests(Request, cfg.vocab, seed)
     torch.cuda.reset_peak_memory_stats()
-    dk.reset_counters()                         # the paged main path
-    wall, chunk_s, stats = _serve(cfg, params, reqs)
+    reset_counts()                              # the paged main path
+    wall, chunk_s, stats, _ = _serve(cfg, params, reqs)
     counts_paged = counts()
-    steps = stats["chunks"] * 8
-    if counts_paged != {"paged": cfg.n_layers * steps, "dense": 0,
-                        "plain_paged": 0, "plain_dense": 0}:
-        raise AssertionError(f"paged arm: launch counts {counts_paged} != "
-                             f"{cfg.n_layers} x {steps} paged launches only")
+    check_counts("paged", counts_paged, cfg, stats)
+    check_streams("paged", reqs, cfg)
     tokens = sum(len(r.generated) for r in reqs)
-    for r in reqs:
-        if len(r.generated) != r.max_new_tokens or not all(
-                0 <= t < cfg.padded_vocab for t in r.generated):
-            raise AssertionError(f"request {r.id}: bad stream")
     peak = torch.cuda.max_memory_allocated()
 
+    # The bitwise twin over the first 16 requests (the first wave's): each
+    # slot's arithmetic does not depend on what the other slots hold.
     gcfg = dataclasses.replace(cfg, decode_kernel="pallas_gather")
-    greqs = _requests(Request, cfg.vocab, seed)
-    dk.reset_counters()                         # the pallas_gather path
-    gwall, gchunk_s, gstats = _serve(gcfg, params, greqs)
+    greqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
+    reset_counts()                              # the pallas_gather path
+    gwall, gchunk_s, gstats, _ = _serve(gcfg, params, greqs)
     counts_gather = counts()
-    gsteps = gstats["chunks"] * 8
-    if counts_gather != {"paged": 0, "dense": cfg.n_layers * gsteps,
-                         "plain_paged": 0, "plain_dense": 0}:
-        raise AssertionError(f"gather arm: launch counts {counts_gather} != "
-                             f"{cfg.n_layers} x {gsteps} dense launches only")
-    if [r.generated for r in greqs] != [r.generated for r in reqs]:
+    check_counts("gather", counts_gather, gcfg, gstats)
+    if [r.generated for r in greqs] != [r.generated for r in reqs[:SLOTS]]:
         raise AssertionError("pallas_gather streams differ from pallas_paged")
-    launches = {"paged_decode_attention": counts_paged["paged"],
-                "decode_attention": counts_gather["dense"]}
+    gtokens = sum(len(r.generated) for r in greqs)
     emit({
         "phase": "serve", "gpu": gpu, "arch": cfg.arch,
         "n_layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -439,25 +750,51 @@ def phase_serve(gpu: str, seed: int) -> dict:
         "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
         "ms_per_chunk": 1e3 * statistics.mean(chunk_s),
         "ms_per_chunk_median": 1e3 * statistics.median(chunk_s),
-        "decode_steps": steps, "host_syncs": stats["host_syncs"],
+        "decode_steps": stats["chunks"] * 8,
+        "host_syncs": stats["host_syncs"],
         "host_syncs_per_token": stats["host_syncs_per_token"],
         "admission_waves": stats["admission_waves"],
         "peak_pages_held": stats["peak_pages_held"],
         "max_memory_allocated": peak, "launch_counts": counts_paged,
-        "gather": {"wall_s": gwall, "tok_per_s": tokens / gwall,
+        "gather": {"requests": len(greqs), "tokens": gtokens,
+                   "wall_s": gwall, "tok_per_s": gtokens / gwall,
                    "ms_per_chunk": 1e3 * statistics.mean(gchunk_s),
                    "launch_counts": counts_gather, "streams_equal": True},
     })
     phase_trace(gpu, cfg, params, seed)
-    del params
-    torch.cuda.empty_cache()
-    return launches
+    return {"cfg": cfg, "params": params, "launches": counts_paged,
+            "gather_launches": counts_gather}
+
+
+def _profile_rows(prof):
+    """Device-side events only (kernels, copies): an operator's own device
+    time repeats the kernels it launched."""
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    return rows
+
+
+def _trace_line(what: str, wall: float, traced_wall: float, rows) -> dict:
+    # A profiler that records no device activity reports "not measured"
+    # (null) rather than an idle card.  The idle share is taken against the
+    # untraced run's wall time (tracing slows the host).
+    busy_ms = sum(r[0] for r in rows) / 1e3 if rows else None
+    return {"what": what, "wall_ms": 1e3 * wall,
+            "traced_wall_ms": 1e3 * traced_wall, "device_busy_ms": busy_ms,
+            "device_idle_share": (None if busy_ms is None
+                                  else 1 - busy_ms / (1e3 * wall)),
+            "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                    for us, k, c in rows[:10]]}
 
 
 def phase_trace(gpu: str, cfg, params, seed: int) -> None:
-    """One decode chunk at full width (16 slots of 512 prompt tokens) timed
-    untraced, then the next one traced with torch.profiler: device busy
-    time, idle share and the kernels that take the time."""
+    """One decode chunk at full width (16 slots of 512 prompt tokens), then
+    one admission wave (16 prompts of 1000 tokens, pad 1024), each timed
+    untraced and then traced with torch.profiler: device busy time, idle
+    share and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request, ServeEngine
@@ -465,39 +802,132 @@ def phase_trace(gpu: str, cfg, params, seed: int) -> None:
     rng = np.random.default_rng(seed + 2)
     eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
                       chunk_size=8)
-    eng.submit([Request(prompt=rng.integers(0, cfg.vocab, 512).astype(
-        np.int32), max_new_tokens=25) for _ in range(SLOTS)])
+
+    def prompts(n_tokens, budget):
+        return [Request(prompt=rng.integers(0, cfg.vocab, n_tokens).astype(
+            np.int32), max_new_tokens=budget) for _ in range(SLOTS)]
+
+    eng.submit(prompts(512, 25))
     eng.step()                      # admission wave + one warm chunk
     t0 = time.perf_counter()
     eng._run_chunk()                # ends in the chunk's device-to-host copy
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng._run_chunk()
+        eng._run_chunk()            # the last: every budget runs out
         traced_wall = time.perf_counter() - t0
-    # Device-side events only (kernels, copies): an operator's own device
-    # time repeats the kernels it launched.
-    rows = [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU
-            and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    # A profiler that records no device activity reports "not measured"
-    # (null) rather than an idle card.  The idle share is taken against the
-    # untraced chunk's wall time (tracing slows the host).
-    busy_ms = sum(r[0] for r in rows) / 1e3 if rows else None
+    chunk = _trace_line("decode_chunk", wall, traced_wall,
+                        _profile_rows(prof))
+    waves = []
+    for traced in (False, True):
+        for _, r in eng._live():    # vacate the slots for a full wave
+            eng.cancel(r.id)
+        eng._sweep_lifecycle()
+        eng.submit(prompts(1000, 2))
+        torch.cuda.synchronize()
+        if traced:
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                eng._admit_wave()   # ends in the wave's device-to-host copy
+                waves.append(time.perf_counter() - t0)
+        else:
+            t0 = time.perf_counter()
+            eng._admit_wave()
+            waves.append(time.perf_counter() - t0)
+    wave = _trace_line("admission_wave", waves[0], waves[1],
+                       _profile_rows(prof))
     emit({"phase": "trace", "gpu": gpu, "chunk_steps": 8,
-          "chunk_wall_ms": 1e3 * wall, "traced_wall_ms": 1e3 * traced_wall,
-          "device_busy_ms": busy_ms,
-          "device_idle_share": (None if busy_ms is None
-                                else 1 - busy_ms / (1e3 * wall)),
-          "top": [{"name": k[:80], "ms": us / 1e3, "count": c}
-                  for us, k, c in rows[:10]]})
+          "wave_slots": SLOTS, "wave_prompt": 1000, "chunk": chunk,
+          "wave": wave})
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: kernel path against the plain path, end to end
+# Phase 4: prefix sharing and preemption at full width
+# ---------------------------------------------------------------------------
+
+PREFIX_POOL = 256           # pages of 16: below the 16 slots' worst case
+
+
+def _prefix_requests(Request, vocab: int, seed: int, n: int = 48):
+    """Each request is one of four 512-token system prompts plus a unique
+    suffix of 16-256 tokens, with a budget of 32-128."""
+    rng = np.random.default_rng(seed + 3)
+    system = [rng.integers(0, vocab, 512).astype(np.int32) for _ in range(4)]
+    out = []
+    for _ in range(n):
+        head = system[int(rng.integers(0, 4))]
+        tail = rng.integers(0, vocab, int(rng.integers(16, 257)))
+        out.append(Request(prompt=np.concatenate(
+            [head, tail.astype(np.int32)]),
+            max_new_tokens=int(rng.integers(32, 129))))
+    return out
+
+
+def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
+    """Serve the shared-prompt traffic with prefix sharing and preemption
+    over a 256-page pool, invariants checked after every wave; then the
+    same requests with sharing off."""
+    from repro_torch.serve.engine import Request
+
+    pcfg = dataclasses.replace(cfg, prefix_sharing=True, preemption=True,
+                               strict_invariants=True)
+    reqs = _prefix_requests(Request, cfg.vocab, seed)
+    reset_counts()                              # the prefix arm
+    wall, chunk_s, stats, held = _serve(pcfg, params, reqs,
+                                        n_pages=PREFIX_POOL)
+    got = counts()
+    check_counts("prefix", got, pcfg, stats)
+    check_streams("prefix", reqs, pcfg)
+    if stats["prefix_hits_fresh"] <= 0 or stats["preempted"] <= 0:
+        raise AssertionError(f"prefix arm: hits {stats['prefix_hits_fresh']}"
+                             f", preemptions {stats['preempted']}: both "
+                             "must be > 0")
+    if held:
+        raise AssertionError(f"prefix arm: {held} pages held after drain")
+    if stats["invariant_checks"] < stats["admission_waves"]:
+        raise AssertionError("prefix arm: invariants not checked every wave")
+    tokens = sum(len(r.generated) for r in reqs)
+
+    ocfg = dataclasses.replace(pcfg, prefix_sharing=False)
+    oreqs = _prefix_requests(Request, cfg.vocab, seed)
+    owall, _, ostats, oheld = _serve(ocfg, params, oreqs,
+                                     n_pages=PREFIX_POOL)
+    check_streams("sharing-off", oreqs, ocfg)
+    equal = sum(a.generated == b.generated for a, b in zip(reqs, oreqs))
+    first_equal = sum(a.generated[0] == b.generated[0]
+                      for a, b in zip(reqs, oreqs))
+    emit({"phase": "prefix", "gpu": gpu, "arch": cfg.arch,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "requests": len(reqs), "pool_pages": PREFIX_POOL,
+          "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+          "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
+          "ms_per_chunk": 1e3 * statistics.mean(chunk_s),
+          "prefix_hits_fresh": stats["prefix_hits_fresh"],
+          "prefix_hit_rate": stats["prefix_hit_rate"],
+          "prefix_tokens_shared": stats["prefix_tokens_shared"],
+          "prefill_work_tokens": stats["prefill_work_tokens"],
+          "preempted": stats["preempted"],
+          "recompute_tokens": stats["recompute_tokens"],
+          "admission_waves": stats["admission_waves"],
+          "invariant_checks": stats["invariant_checks"],
+          "peak_pages_held": stats["peak_pages_held"],
+          "pages_held_after_drain": held, "launch_counts": got,
+          "sharing_off": {"wall_s": owall,
+                          "tok_per_s": tokens / owall,
+                          "mean_ttft_ms": 1e3 * statistics.mean(
+                              r.ttft_s for r in oreqs),
+                          "preempted": ostats["preempted"],
+                          "prefill_work_tokens":
+                              ostats["prefill_work_tokens"],
+                          "admission_waves": ostats["admission_waves"],
+                          "pages_held_after_drain": oheld},
+          "streams_equal_sharing_off": equal,
+          "first_tokens_equal_sharing_off": first_equal})
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: kernel path against the plain path, end to end
 # ---------------------------------------------------------------------------
 
 def phase_e2e(gpu: str, seed: int) -> None:
@@ -544,8 +974,41 @@ def phase_e2e(gpu: str, seed: int) -> None:
             errs.append(check_close(f"e2e decode {step}",
                                     logits["pallas_paged"], logits["xla"],
                                     torch.float32))
+        # A continuation prefill at each slot's nonzero cursor (the flash
+        # kernel's q_offset case), slot 1 parked: a parked slot's logits
+        # are garbage by contract (the kernel gives its rows zeros, the
+        # plain path attends), so only the others are compared.
+        more = torch.from_numpy(rng.integers(
+            0, base.vocab, size=(b, 32)).astype(np.int32)).to("cuda")
+        seg2 = torch.tensor([32, 0, 17, 9], dtype=torch.int32,
+                            device="cuda")
+        for kern, m in models.items():
+            logits[kern], caches[kern] = m.prefill(params, caches[kern],
+                                                   more, seg_lens=seg2)
+        live = seg2 > 0
+        errs.append(check_close("e2e continuation prefill",
+                                logits["pallas_paged"][live],
+                                logits["xla"][live], torch.float32))
+        check_equal("e2e cursors", caches["pallas_paged"]["lengths"],
+                    caches["xla"]["lengths"])
     emit({"phase": "e2e", "gpu": gpu, "arch": base.arch, "n_layers": 4,
+          "steps": ["prefill", "decode x 4", "continuation prefill"],
           "dtype": "float32", "max_abs_err": max(errs), "tol": 2e-3})
+
+
+def build_kernels() -> float:
+    """Build every kernel (one nvcc per source, started together), then
+    load each; returns the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.common import build_library
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build_library, (ROOT / s for s in SOURCES.values())))
+    for mod in _kernel_modules():
+        mod._kernel()
+    return time.perf_counter() - t0
 
 
 def main() -> int:
@@ -556,29 +1019,43 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels.decode_attention import decode_attention as dk
-
     gpu = card_line()
-    t0 = time.perf_counter()
-    dk._kernel()
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0})
+          "cuda": torch.version.cuda, "build_s": build_kernels()})
     kern = phase_kernels(gpu, args.seed)
-    launches = phase_serve(gpu, args.seed)
+    flash = phase_flash(gpu, args.seed)
+    norm = phase_norm(gpu, args.seed)
+    serve = phase_serve(gpu, args.seed)
+    phase_prefix(gpu, args.seed, serve["cfg"], serve["params"])
+    del serve["params"]
+    torch.cuda.empty_cache()
     phase_e2e(gpu, args.seed)
-    main_row = kern["main"]
+    dec, launches = kern["main"], serve["launches"]
     summary = []
-    for name, ms_key, plain_key in (
-            ("paged_decode_attention", "paged_ms", "plain_ms"),
-            ("decode_attention", "dense_ms", "dense_plain_ms")):
+    for name, ms_key, plain_key, count in (
+            ("paged_decode_attention", "paged_ms", "plain_ms",
+             launches["decode_paged"]),
+            ("decode_attention", "dense_ms", "dense_plain_ms",
+             serve["gather_launches"]["decode_dense"])):
         summary.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_SITES[name], "launches": launches[name],
-            "max_abs_err": kern["errs"][name], "ms": main_row[ms_key],
-            "plain_ms": main_row[plain_key],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"],
+            "name": name, "route": "cuda",
+            "source": SOURCES["decode_attention"],
+            "replaces": TPU_SITES[name], "launches": count,
+            "max_abs_err": kern["errs"][name], "ms": dec[ms_key],
+            "plain_ms": dec[plain_key], "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+        })
+    for name, res, count in (
+            ("flash_attention", flash,
+             launches["flash_paged"] + launches["flash_dense"]),
+            ("fused_norm", norm, launches["fused_norm"])):
+        row = res["main"]
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_SITES[name], "launches": count,
+            "max_abs_err": res["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     emit({"kernels": summary})
     print(gpu, flush=True)

@@ -2,19 +2,26 @@
 
 A field-for-field copy of ``repro.configs.base`` so that a config value
 built for the JAX package runs unchanged in the port.  The port reads
-``decode_kernel`` as follows:
+``decode_kernel`` as the route through every hand-written kernel, not only
+the decode step's:
 
-* ``"xla"``: the plain-PyTorch attention path (``models.common._sdpa``
-  over the gathered view), the port's counterpart of the XLA path;
-* ``"pallas_paged"``: the hand-written CUDA split-KV kernel reading the
-  page pool in place through the page table;
-* ``"pallas_gather"``: the same CUDA kernel over the gathered dense view,
-  the bit-identity reference of the paged path.
+* ``"xla"``: all plain PyTorch, the port's counterpart of the XLA path:
+  ``models.common._sdpa`` over the gathered view for prefill and decode,
+  and the plain norm;
+* ``"pallas_paged"``: the CUDA kernels, reading the page pool in place
+  through the page table: split-KV decode attention on the ``s == 1``
+  step, flash attention on every prefill, the fused norm in every
+  ``apply_norm``;
+* ``"pallas_gather"``: the same CUDA kernels over the gathered dense view,
+  the bit-identity reference of the paged route.
 
-Serving knobs whose engine slice is not ported yet (prefix sharing,
-speculative decode, chaos, integrity, adaptive, non-greedy sampling) are
-kept so configs stay interchangeable; ``serve.engine.ServeEngine`` raises
-on them.
+On CPU tensors each kernel's wrapper takes its plain version, so the
+routes differ on the CPU only in how the plain attention is decomposed.
+
+Serving knobs whose engine slice is not ported yet (speculative decode,
+KV integrity and page corruption, crash points, adaptive, non-greedy
+sampling) are kept so configs stay interchangeable;
+``serve.engine.ServeEngine`` raises on them.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Shared helpers for the port's CUDA kernels: shape arithmetic, the masking
-sentinel, and the ``nvcc`` build + ``ctypes`` loader.
+sentinel, the page gather, and the ``nvcc`` build + ``ctypes`` loader.
 
 Kernels are plain-C-interface shared libraries compiled for ``sm_90a`` at
 first use into ``build/repro_torch/`` at the repository root (a few seconds
@@ -30,6 +30,17 @@ _lock = threading.Lock()
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def gather_pages(pool, pages):
+    """(N, page_size, ...) pool + (b, P) table -> dense (b, P*page_size, ...).
+    Unmapped entries clamp to page 0; their rows are masked by the caller's
+    ``kv_len``.  The paged kernels' addressing, as a copy: the gather arm
+    of the model and the plain paged versions read it."""
+    N, psz = pool.shape[0], pool.shape[1]
+    b, P = pages.shape
+    g = pool[pages.to(pool.device).long().clamp(0, N - 1)]   # (b, P, psz, ...)
+    return g.reshape((b, P * psz) + tuple(pool.shape[2:]))
 
 
 def _nvcc() -> str:

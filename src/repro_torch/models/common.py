@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.common import gather_pages
 
 Params = dict[str, Any]
 
@@ -109,6 +110,14 @@ def embed_init_params(gen, cfg: ModelConfig, device) -> Params:
 # ---------------------------------------------------------------------------
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMS or LayerNorm in fp32, output in ``x.dtype``.  The kernel routes
+    (``decode_kernel != "xla"``) go through the fused-norm kernel (its
+    plain version on CPU tensors); ``"xla"`` stays plain torch."""
+    if cfg.decode_kernel != "xla":
+        from repro_torch.kernels.fused_norm import ops as norm_ops
+
+        return norm_ops.fused_norm(x, p["w"], p.get("b"), eps=cfg.norm_eps,
+                                   kind=cfg.norm_kind)
     h = x.float()
     if cfg.norm_kind == "layer":
         mu = h.mean(dim=-1, keepdim=True)
@@ -336,16 +345,6 @@ def append_kv_paged(pool: torch.Tensor, new: torch.Tensor,
     )
 
 
-def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
-    """(N, page_size, ...) pool + (b, P) table -> dense (b, P*page_size, ...).
-    Unmapped entries clamp to page 0; their rows are masked by the caller's
-    ``kv_len``."""
-    N, psz = pool.shape[0], pool.shape[1]
-    b, P = pages.shape
-    g = pool[pages.long().clamp(0, N - 1)]                 # (b, P, psz, ...)
-    return g.reshape((b, P * psz) + tuple(pool.shape[2:]))
-
-
 def _decode_step_kernel(q, kc, vc, kv_len, cfg, pages):
     """Route the s == 1 decode step through the split-KV CUDA kernels.
 
@@ -383,6 +382,29 @@ def _decode_step_kernel(q, kc, vc, kv_len, cfg, pages):
     return out[:, None]                                # (b, 1, hq, dh)
 
 
+def _prefill_kernel(q, kc, vc, lengths, kv_len, seg_lens, cfg, pages):
+    """Route an s > 1 block (prefill) through the flash-attention kernel.
+
+    Query row i of slot b sits at ``lengths[b] + i`` and sees keys below
+    ``kv_len[b]``; rows at or past ``seg_lens[b]`` are padding (a parked
+    slot has 0) and come out as zeros.  ``pallas_paged`` reads the pool in
+    place through the page table; ``pallas_gather`` runs the same kernel
+    over the gathered dense view (the bitwise reference of the paged
+    path); a contiguous cache is read from the ring by strides."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    qh = q.transpose(1, 2)                             # (b, hq, s, dh) view
+    kw = dict(causal=True, q_offset=lengths, kv_len=kv_len, q_len=seg_lens)
+    if pages is not None and cfg.decode_kernel == "pallas_paged":
+        out = fa_ops.paged_flash_attention(qh, kc, vc, pages, **kw)
+    else:
+        if pages is not None:
+            kc, vc = gather_pages(kc, pages), gather_pages(vc, pages)
+        out = fa_ops.flash_attention(qh, kc.transpose(1, 2),
+                                     vc.transpose(1, 2), **kw)
+    return out.transpose(1, 2)                         # (b, s, hq, dh)
+
+
 def apply_attn(
     p: Params,
     x: torch.Tensor,                  # (b, s, d)
@@ -418,6 +440,9 @@ def apply_attn(
     kv_len = lengths + (s if seg_lens is None else seg_lens)
     if cfg.decode_kernel != "xla" and s == 1:
         out = _decode_step_kernel(q, kc, vc, kv_len, cfg, pages)
+    elif cfg.decode_kernel != "xla":
+        out = _prefill_kernel(q, kc, vc, lengths, kv_len, seg_lens, cfg,
+                              pages)
     else:
         if pages is not None:
             kc, vc = gather_pages(kc, pages), gather_pages(vc, pages)

@@ -1,9 +1,9 @@
 """Refcounted host-side page allocator for the paged KV pool.
 
 A copy of ``repro.serve.alloc`` (pure Python): the port keeps its own so
-it never imports the JAX package.  The core engine slice uses ``alloc`` /
-``release`` only; sharing, quarantine and the warm tier wait for the
-engine slices that drive them.
+it never imports the JAX package.  The engine uses ``alloc``, ``share``
+and ``release``; quarantine and the warm tier wait for the engine slices
+that drive them (KV integrity, the adaptive policy).
 """
 from __future__ import annotations
 

@@ -82,8 +82,10 @@ def test_planned_splits_paged_equals_gather(params):
 
 
 def test_small_pool_gates_admission_without_changing_streams(params):
-    full, full_eng = _serve(_port(), params)
-    small, eng = _serve(_port(), params, n_pages=3)
+    """With preemption off, a short pool makes the head wait (PR 11's
+    head-of-line gate); the streams do not change."""
+    full, full_eng = _serve(_port(preemption=False), params)
+    small, eng = _serve(_port(preemption=False), params, n_pages=3)
     assert small == full
     assert eng.stats["peak_pages_held"] <= 3 < full_eng.stats["peak_pages_held"]
     assert eng.stats["admission_waves"] > full_eng.stats["admission_waves"]
@@ -125,8 +127,9 @@ def test_no_device_without_cuda_raises(params):
 
 
 @pytest.mark.parametrize("change", [
-    dict(prefix_sharing=True), dict(spec_k=2), dict(chaos_preempt_p=0.1),
-    dict(kv_integrity=True), dict(adaptive=True), dict(sampling="top_p"),
+    dict(chaos_corrupt_p=0.1), dict(spec_k=2),
+    dict(chaos_crash_after_wave=1), dict(kv_integrity=True),
+    dict(adaptive=True), dict(sampling="top_p"),
 ])
 def test_unported_config_raises(params, change):
     with pytest.raises(NotImplementedError):
