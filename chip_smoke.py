@@ -6,9 +6,10 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, the CUDA version, and
-   the time to build the three CUDA kernels (split-KV decode attention,
-   flash attention, fused norm, one nvcc each, started together) from
-   src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/;
+   the time to build the four CUDA kernels (split-KV decode attention,
+   flash attention, fused norm, the Mamba-2 SSD scan, one nvcc each,
+   started together) from src/repro_torch/kernels/*/csrc/*.cu for sm_90a
+   into build/repro_torch/;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
@@ -37,7 +38,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    held; the same requests with sharing off for comparison;
 5. the kernel path against the plain path end to end: yi-9b's width at 4
    layers in fp32, prefill, decode steps and a continuation prefill at a
-   nonzero cursor, logits within 2e-3.
+   nonzero cursor, logits within 2e-3;
+6. the SSD scan kernel against its plain version, bf16 and fp32, at
+   mamba2-1.3b's prefill shape (16 x 1024, 64 heads of 64, state 128) and
+   zamba2-2.7b's (80 heads, state 64) and a grouped case, each from a
+   nonzero initial state with ragged dt-zero tails and a parked slot whose
+   state must come back bitwise; timed beside its bound (no PyTorch call
+   computes the scan, so no library time);
+7. decode and flash attention at zamba2's shapes (32 query and 32 KV heads,
+   head dim 80), paged == dense bitwise, timed beside SDPA;
+8. serve zamba2-2.7b at its published config (54 Mamba-2 layers and 9
+   shared-attention invocations, bf16, random weights) over a paged pool:
+   the same 48 requests, launch counts checked (ssd 54 x waves, flash
+   9 x waves, decode 9 x steps, fused norm 73 x (waves + steps), 0 plain
+   calls), the first 16 under pallas_gather with bitwise-equal streams, a
+   trace of one decode chunk and one admission wave; then the 48 requests
+   on a 256-page pool with preemption and invariants after every wave;
+9. serve mamba2-1.3b at its published config (48 layers, bf16) with a paged
+   layout requested: the engine falls back to contiguous bookkeeping;
+   launch counts ssd 48 x waves, fused norm 49 x (waves + steps), no
+   attention, 0 plain calls;
+10. kernel path against plain path end to end for mamba2 (full width, 4
+   layers) and zamba2 (full width, 12 layers: two groups), fp32, as in 5.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -77,6 +99,7 @@ SOURCES = {
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "fused_norm": "src/repro_torch/kernels/fused_norm/csrc/fused_norm.cu",
+    "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
 TPU_SITES = {
     "paged_decode_attention":
@@ -85,6 +108,7 @@ TPU_SITES = {
         "src/repro/kernels/decode_attention/decode_attention.py:106",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:129",
     "fused_norm": "src/repro/kernels/fused_norm/fused_norm.py:73",
+    "ssd": "src/repro/kernels/ssd/ssd.py:110",
 }
 PREFILL_PAD = 1024          # the serve traffic's widest prefill bucket
 
@@ -159,13 +183,13 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
 # Phase 2: kernels
 # ---------------------------------------------------------------------------
 
-def _pool_case(gen, dtype, lengths, n_table, n_pages):
+def _pool_case(gen, dtype, lengths, n_table, n_pages, hq=HQ, hkv=HKV, d=D):
     """Random q and pools, and page tables mapping distinct pages (a
     seeded permutation) up to each slot's length, -1 beyond."""
     b = lengths.shape[0]
-    q = torch.randn(b, HQ, D, generator=gen, device="cuda").to(dtype)
-    kp = torch.randn(n_pages, PSZ, HKV, D, generator=gen, device="cuda").to(dtype)
-    vp = torch.randn(n_pages, PSZ, HKV, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(n_pages, PSZ, hkv, d, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(n_pages, PSZ, hkv, d, generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(n_pages, generator=gen, device="cuda")
     pages = perm[: b * n_table].reshape(b, n_table).to(torch.int32)
     mapped = (lengths.long() + PSZ - 1) // PSZ
@@ -174,15 +198,15 @@ def _pool_case(gen, dtype, lengths, n_table, n_pages):
     return q, kp, vp, pages
 
 
-def _bound(dtype, lengths, b, n_mapped):
+def _bound(dtype, lengths, b, n_mapped, hq=HQ, hkv=HKV, d=D):
     """Least time for one call: bytes each input read once and the output
     written once, against operations at the input type's peak."""
     esize = torch.empty((), dtype=dtype).element_size()
     tokens = int(lengths.sum())
-    nbytes = (2 * tokens * HKV * D * esize          # valid K and V
-              + b * HQ * D * esize * 2              # q in, out written
+    nbytes = (2 * tokens * hkv * d * esize          # valid K and V
+              + b * hq * d * esize * 2              # q in, out written
               + 4 * (n_mapped + b))                 # page entries, lengths
-    ops = 4 * tokens * HQ * D                       # QK^T and PV
+    ops = 4 * tokens * hq * d                       # QK^T and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -614,6 +638,197 @@ def phase_norm(gpu: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the SSD scan; phase 7: attention at zamba2's shapes
+# ---------------------------------------------------------------------------
+
+# (name, b, l, h, dh, g, ds): the two models' prefill shapes at the serve
+# traffic's widest bucket, and a grouped case with a ragged length.
+SSD_CASES = (("mamba2", SLOTS, PREFILL_PAD, 64, 64, 1, 128),
+             ("zamba2", SLOTS, PREFILL_PAD, 80, 64, 1, 64),
+             ("grouped", 4, 300, 8, 64, 2, 64))
+
+
+def _ssd_inputs(gen, dtype, b, l, h, dh, g, ds):
+    """Inputs shaped as the model makes them: x, B and C strided views of
+    one conv output, dt softplus'ed, A from the init's range, a nonzero
+    initial state; slot 1 parked (dt = 0), the other odd slots with a
+    ragged dt-zero tail."""
+    xbc = torch.randn(b, l, h * dh + 2 * g * ds, generator=gen,
+                      device="cuda").to(dtype)
+    di = h * dh
+    x = xbc[..., :di].reshape(b, l, h, dh)
+    B = xbc[..., di:di + g * ds].reshape(b, l, g, ds)
+    C = xbc[..., di + g * ds:].reshape(b, l, g, ds)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, generator=gen, device="cuda") - 1.0)
+    tails = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+    keep = torch.arange(l, device="cuda")[None, :] < tails[:, None]
+    keep[::2] = True
+    keep[1] = False
+    dt = dt * keep[..., None]
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    D = torch.randn(h, generator=gen, device="cuda")
+    S0 = torch.randn(b, h, ds, dh, generator=gen, device="cuda")
+    return x, dt, A, B, C, D, S0
+
+
+def _ssd_bound(dtype, b, l, h, dh, g, ds):
+    """Least time for one scan: x and B, C, dt read and y written once,
+    the state read and written once (fp32), against the flops of the
+    chunked algorithm at the kernel's 64-row tile (C B^T, the causal half
+    of M x, C S and the state update) at the input type's peak."""
+    es, q = _esize(dtype), 64
+    nbytes = (2 * b * l * h * dh * es + 2 * b * l * g * ds * es
+              + 4 * b * l * h + 8 * h + 2 * 4 * b * h * ds * dh)
+    nc = -(-l // q)
+    ops = b * h * nc * (2 * q * q * ds + q * (q + 1) * dh + 4 * q * ds * dh)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops / 1e9)
+
+
+def phase_ssd(gpu: str, seed: int) -> dict:
+    """The SSD kernel against its plain version (the reference's chunk
+    rule), bf16 and fp32; parked slots' states bitwise; timed (bf16 and
+    fp32 at the models' shapes) beside the bound."""
+    from repro_torch.kernels.ssd import ssd as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    rows, err, main = [], 0.0, {}
+    for name, b, l, h, dh, g, ds in SSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, B, C, D, S0 = _ssd_inputs(gen, dtype, b, l, h, dh, g, ds)
+            chunk = min(max(128, l // 16), 1024)
+
+            def kernel():
+                return sk.ssd_cuda(x, dt, A, B, C, D, init_state=S0)
+
+            def plain():
+                return sk.ssd_plain(x, dt, A, B, C, D, chunk=chunk,
+                                    init_state=S0)
+
+            (y, S), (yp, Sp) = kernel(), plain()
+            torch.cuda.synchronize()
+            tag = f"ssd {name} {dtype}"
+            e = max(check_close(tag + " y", y, yp, dtype),
+                    check_close(tag + " state", S, Sp, torch.float32))
+            check_equal(tag + " parked state", S[1], S0[1])
+            err = max(err, e)
+            bound_ms, bound_by, gflop = _ssd_bound(dtype, b, l, h, dh, g, ds)
+            row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
+                   "shape": [b, l, h, dh, g, ds], "err": e,
+                   "parked_state_bitwise": True, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "gflop": gflop, "library_ms": None}
+            if name != "grouped":
+                row |= {"ms": time_ms(kernel), "plain_ms": time_ms(plain,
+                                                                   reps=5)}
+            rows.append(row)
+            if name == "mamba2" and dtype == torch.bfloat16:
+                main = row
+            del x, dt, B, C, S0, y, S, yp, Sp
+    emit({"phase": "kernels_ssd", "gpu": gpu, "rows": rows,
+          "kernel_chunk": sk.KERNEL_CHUNK,
+          "smem_bytes": {"mamba2": sk.smem_bytes(64, 128),
+                         "zamba2": sk.smem_bytes(64, 64)}})
+    return {"main": main, "err": err}
+
+
+def phase_attn_zamba2(gpu: str, seed: int) -> dict:
+    """Decode and flash attention at zamba2-2.7b's shared block: 32 query
+    and 32 KV heads (group 1), head dim 80.  Decode over a paged pool of
+    16 slots x 2048 positions (paged == dense bitwise), flash at 16 x 1024
+    causal, each against its plain version and timed beside SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention.ops import plan_splits
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models.common import gather_pages
+
+    hq = hkv = 32
+    d = 80
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    n_table = MAX_LEN // PSZ
+    rows, out = [], {"decode_err": 0.0, "flash_err": 0.0}
+    splits = plan_splits(n_table * PSZ, PSZ)
+    for dtype in (torch.bfloat16, torch.float32):
+        lengths = torch.full((SLOTS,), MAX_LEN, dtype=torch.int32,
+                             device="cuda")
+        q, kp, vp, pages = _pool_case(gen, dtype, lengths, n_table,
+                                      SLOTS * n_table, hq=hq, hkv=hkv, d=d)
+        kd = gather_pages(kp, pages).transpose(1, 2)
+        vd = gather_pages(vp, pages).transpose(1, 2)
+
+        def paged():
+            return dk.paged_decode_attention_cuda(q, kp, vp, pages, lengths,
+                                                  splits=splits)
+
+        def dense():
+            return dk.decode_attention_cuda(q, kd, vd, lengths, bkv=PSZ,
+                                            splits=splits)
+
+        def plain():
+            return dk.paged_decode_attention_plain(q, kp, vp, pages, lengths,
+                                                   splits=splits)
+
+        kdc, vdc = kd.contiguous(), vd.contiguous()
+
+        def library():
+            return F.scaled_dot_product_attention(q[:, :, None], kdc, vdc)
+
+        out_p, out_d, want = paged(), dense(), plain()
+        torch.cuda.synchronize()
+        e = check_close(f"decode d80 {dtype}", out_p, want, dtype)
+        check_equal(f"decode d80 paged == dense {dtype}", out_p, out_d)
+        out["decode_err"] = max(out["decode_err"], e)
+        bound_ms, bound_by = _bound(dtype, lengths, SLOTS,
+                                    int((pages >= 0).sum()), hq, hkv, d)
+        row = {"kernel": "decode", "dtype": str(dtype).removeprefix("torch."),
+               "shape": [SLOTS, hq, hkv, MAX_LEN, d], "splits": splits,
+               "err": e, "paged_equals_dense": True,
+               "ms": time_ms(paged), "dense_ms": time_ms(dense),
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        if dtype == torch.bfloat16:
+            out["decode"] = row
+        del q, kp, vp, kd, vd, kdc, vdc
+        sq = PREFILL_PAD
+        q, k, v = (torch.randn(SLOTS, h, sq, d, generator=gen,
+                               device="cuda").to(dtype)
+                   for h in (hq, hkv, hkv))
+
+        def fkernel():
+            return fk.flash_attention_cuda(q, k, v, causal=True)
+
+        def fplain():
+            return fk.flash_attention_plain(q, k, v, causal=True)
+
+        def flibrary():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        got, want = fkernel(), fplain()
+        torch.cuda.synchronize()
+        e = check_close(f"flash d80 {dtype}", got, want, dtype)
+        out["flash_err"] = max(out["flash_err"], e)
+        full = torch.full((SLOTS,), sq, dtype=torch.int32)
+        need, pairs = _flash_work(torch.zeros(SLOTS), full, full)
+        bound_ms, bound_by = _flash_bound(dtype, full, need, pairs, SLOTS, sq,
+                                          hq, hkv, d)
+        row = {"kernel": "flash", "dtype": str(dtype).removeprefix("torch."),
+               "shape": [SLOTS, hq, hkv, sq, sq, d], "causal": True, "err": e,
+               "ms": time_ms(fkernel), "plain_ms": time_ms(fplain, reps=5),
+               "library_ms": time_ms(flibrary), "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        rows.append(row)
+        if dtype == torch.bfloat16:
+            out["flash"] = row
+        del q, k, v, got, want
+    emit({"phase": "kernels_attn_zamba2", "gpu": gpu, "rows": rows})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve yi-9b at full width
 # ---------------------------------------------------------------------------
 
@@ -644,7 +859,7 @@ def _serve(cfg, params, reqs, n_pages=None):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = eng.serve_stats()
+    stats = eng.serve_stats() | {"paged": eng.paged}
     held = (eng.n_pages - eng.allocator.free_count()) if eng.paged else 0
     del eng
     return wall, chunk_s, stats, held
@@ -654,8 +869,9 @@ def _kernel_modules():
     from repro_torch.kernels.decode_attention import decode_attention as dk
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.fused_norm import fused_norm as nk
+    from repro_torch.kernels.ssd import ssd as sk
 
-    return dk, fk, nk
+    return dk, fk, nk, sk
 
 
 def reset_counts() -> None:
@@ -665,31 +881,38 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    dk, fk, nk = _kernel_modules()
+    dk, fk, nk, sk = _kernel_modules()
     return {"decode_paged": dk.paged_decode_attention.launches,
             "decode_dense": dk.decode_attention.launches,
             "flash_paged": fk.paged_flash_attention.launches,
             "flash_dense": fk.flash_attention.launches,
             "fused_norm": nk.fused_norm.launches,
+            "ssd": sk.ssd.launches,
             "plain": (dk.paged_decode_attention_plain.calls
                       + dk.decode_attention_plain.calls
                       + fk.paged_flash_attention_plain.calls
                       + fk.flash_attention_plain.calls
-                      + nk.fused_norm_plain.calls)}
+                      + nk.fused_norm_plain.calls + sk.ssd_plain.calls)}
 
 
 def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
-    """Every prefill launches one flash kernel a layer, every decode step
-    one decode kernel a layer, and both 2 norms a layer plus the final
-    one; nothing takes a plain version."""
+    """Every prefill launches one flash kernel per attention layer and one
+    SSD kernel per Mamba-2 layer, every decode step one decode kernel per
+    attention layer, and both one fused norm per norm (two per attention
+    block, one per Mamba-2 layer, plus the final one); nothing takes a
+    plain version.  Attention layers: all of a dense model's, the shared
+    block's invocations of zamba2, none of mamba2's."""
     L, steps = cfg.n_layers, stats["chunks"] * 8
     waves = stats["admission_waves"]
+    attn, ssm = {"dense": (L, 0), "ssm": (0, L),
+                 "hybrid": (L // max(cfg.shared_attn_every, 1), L)}[cfg.family]
     paged = cfg.decode_kernel == "pallas_paged"
-    want = {"decode_paged": L * steps if paged else 0,
-            "decode_dense": 0 if paged else L * steps,
-            "flash_paged": L * waves if paged else 0,
-            "flash_dense": 0 if paged else L * waves,
-            "fused_norm": (2 * L + 1) * (waves + steps), "plain": 0}
+    want = {"decode_paged": attn * steps if paged else 0,
+            "decode_dense": 0 if paged else attn * steps,
+            "flash_paged": attn * waves if paged else 0,
+            "flash_dense": 0 if paged else attn * waves,
+            "fused_norm": (2 * attn + ssm + 1) * (waves + steps),
+            "ssd": ssm * waves, "plain": 0}
     if got != want:
         raise AssertionError(f"{arm} arm: launch counts {got} != {want}")
 
@@ -701,14 +924,14 @@ def check_streams(arm: str, reqs, cfg) -> None:
             raise AssertionError(f"{arm} arm: request {r.id}: bad stream")
 
 
-def phase_serve(gpu: str, seed: int) -> dict:
+def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
+    """Serve the 48 requests at ``cfg`` (a paged pallas_paged config) with
+    every launch count checked; for a model with attention, then the first
+    16 requests under pallas_gather (streams bitwise equal) and the
+    decode-chunk and admission-wave trace."""
     from repro_torch import convert
-    from repro_torch.configs import yi_9b
     from repro_torch.serve.engine import Request
 
-    cfg = dataclasses.replace(
-        yi_9b.CONFIG, cache_layout="paged", kv_page_size=PSZ,
-        decode_kernel="pallas_paged")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     params = convert.init(cfg, gen, "cuda")
@@ -725,24 +948,12 @@ def phase_serve(gpu: str, seed: int) -> dict:
     reset_counts()                              # the paged main path
     wall, chunk_s, stats, _ = _serve(cfg, params, reqs)
     counts_paged = counts()
-    check_counts("paged", counts_paged, cfg, stats)
-    check_streams("paged", reqs, cfg)
+    check_counts(name, counts_paged, cfg, stats)
+    check_streams(name, reqs, cfg)
     tokens = sum(len(r.generated) for r in reqs)
     peak = torch.cuda.max_memory_allocated()
-
-    # The bitwise twin over the first 16 requests (the first wave's): each
-    # slot's arithmetic does not depend on what the other slots hold.
-    gcfg = dataclasses.replace(cfg, decode_kernel="pallas_gather")
-    greqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
-    reset_counts()                              # the pallas_gather path
-    gwall, gchunk_s, gstats, _ = _serve(gcfg, params, greqs)
-    counts_gather = counts()
-    check_counts("gather", counts_gather, gcfg, gstats)
-    if [r.generated for r in greqs] != [r.generated for r in reqs[:SLOTS]]:
-        raise AssertionError("pallas_gather streams differ from pallas_paged")
-    gtokens = sum(len(r.generated) for r in greqs)
-    emit({
-        "phase": "serve", "gpu": gpu, "arch": cfg.arch,
+    line = {
+        "phase": name, "gpu": gpu, "arch": cfg.arch,
         "n_layers": cfg.n_layers, "dtype": cfg.dtype,
         "params": cfg.param_count(), "init_s": init_s,
         "requests": len(reqs), "tokens": tokens, "wall_s": wall,
@@ -754,16 +965,38 @@ def phase_serve(gpu: str, seed: int) -> dict:
         "host_syncs": stats["host_syncs"],
         "host_syncs_per_token": stats["host_syncs_per_token"],
         "admission_waves": stats["admission_waves"],
+        "engine_paged": stats["paged"],
         "peak_pages_held": stats["peak_pages_held"],
         "max_memory_allocated": peak, "launch_counts": counts_paged,
-        "gather": {"requests": len(greqs), "tokens": gtokens,
-                   "wall_s": gwall, "tok_per_s": gtokens / gwall,
-                   "ms_per_chunk": 1e3 * statistics.mean(gchunk_s),
-                   "launch_counts": counts_gather, "streams_equal": True},
-    })
+    }
+    out = {"cfg": cfg, "params": params, "launches": counts_paged,
+           "reqs": reqs}
+    if cfg.family == "ssm":
+        if stats["paged"]:
+            raise AssertionError(f"{name}: a cache with no pages must run "
+                                 "contiguous bookkeeping")
+        emit(line)
+        return out
+
+    # The bitwise twin over the first 16 requests (the first wave's): each
+    # slot's arithmetic does not depend on what the other slots hold.
+    gcfg = dataclasses.replace(cfg, decode_kernel="pallas_gather")
+    greqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
+    reset_counts()                              # the pallas_gather path
+    gwall, gchunk_s, gstats, _ = _serve(gcfg, params, greqs)
+    counts_gather = counts()
+    check_counts(name + " gather", counts_gather, gcfg, gstats)
+    if [r.generated for r in greqs] != [r.generated for r in reqs[:SLOTS]]:
+        raise AssertionError(f"{name}: pallas_gather streams differ from "
+                             "pallas_paged")
+    gtokens = sum(len(r.generated) for r in greqs)
+    line["gather"] = {"requests": len(greqs), "tokens": gtokens,
+                      "wall_s": gwall, "tok_per_s": gtokens / gwall,
+                      "ms_per_chunk": 1e3 * statistics.mean(gchunk_s),
+                      "launch_counts": counts_gather, "streams_equal": True}
+    emit(line)
     phase_trace(gpu, cfg, params, seed)
-    return {"cfg": cfg, "params": params, "launches": counts_paged,
-            "gather_launches": counts_gather}
+    return out | {"gather_launches": counts_gather}
 
 
 def _profile_rows(prof):
@@ -837,7 +1070,7 @@ def phase_trace(gpu: str, cfg, params, seed: int) -> None:
             waves.append(time.perf_counter() - t0)
     wave = _trace_line("admission_wave", waves[0], waves[1],
                        _profile_rows(prof))
-    emit({"phase": "trace", "gpu": gpu, "chunk_steps": 8,
+    emit({"phase": "trace", "gpu": gpu, "arch": cfg.arch, "chunk_steps": 8,
           "wave_slots": SLOTS, "wave_prompt": 1000, "chunk": chunk,
           "wave": wave})
 
@@ -926,20 +1159,63 @@ def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
           "first_tokens_equal_sharing_off": first_equal})
 
 
+def phase_preempt(gpu: str, seed: int, cfg, params, unpressured) -> None:
+    """The serve arm's 48 requests on a 256-page pool (below the 16 slots'
+    worst case of up to 72 pages a request), preemption on and invariants
+    checked after every wave; recurrent state is rebuilt by the recompute
+    restore.  Streams and first tokens equal to the unpressured run's are
+    reported, not required: restore prefills run at other bf16 shapes."""
+    from repro_torch.serve.engine import Request
+
+    pcfg = dataclasses.replace(cfg, preemption=True, strict_invariants=True)
+    reqs = _requests(Request, cfg.vocab, seed)
+    reset_counts()                              # the preemption arm
+    wall, chunk_s, stats, held = _serve(pcfg, params, reqs,
+                                        n_pages=PREFIX_POOL)
+    got = counts()
+    check_counts("preempt", got, pcfg, stats)
+    check_streams("preempt", reqs, pcfg)
+    if stats["preempted"] <= 0:
+        raise AssertionError("preempt arm: no preemption on a short pool")
+    if held:
+        raise AssertionError(f"preempt arm: {held} pages held after drain")
+    if stats["invariant_checks"] < stats["admission_waves"]:
+        raise AssertionError("preempt arm: invariants not checked every wave")
+    tokens = sum(len(r.generated) for r in reqs)
+    emit({"phase": "preempt_" + cfg.arch.split("-")[0], "gpu": gpu,
+          "arch": cfg.arch, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "requests": len(reqs), "pool_pages": PREFIX_POOL,
+          "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+          "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
+          "ms_per_chunk": 1e3 * statistics.mean(chunk_s),
+          "preempted": stats["preempted"],
+          "readmitted": stats["readmitted"],
+          "recompute_tokens": stats["recompute_tokens"],
+          "admission_waves": stats["admission_waves"],
+          "invariant_checks": stats["invariant_checks"],
+          "peak_pages_held": stats["peak_pages_held"],
+          "pages_held_after_drain": held, "launch_counts": got,
+          "streams_equal_unpressured": sum(
+              a.generated == b.generated for a, b in zip(reqs, unpressured)),
+          "first_tokens_equal_unpressured": sum(
+              a.generated[0] == b.generated[0]
+              for a, b in zip(reqs, unpressured))})
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: kernel path against the plain path, end to end
 # ---------------------------------------------------------------------------
 
-def phase_e2e(gpu: str, seed: int) -> None:
+def phase_e2e(gpu: str, seed: int, base) -> None:
+    """The kernel route (pallas_paged) against the plain route (xla) on
+    ``base``, an fp32 config cut in depth: a ragged prefill, 4 decode
+    steps with a slot parking every other step, and a continuation prefill
+    at nonzero cursors with one slot parked, logits within 2e-3."""
     from repro_torch import convert
-    from repro_torch.configs import yi_9b
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    base = dataclasses.replace(
-        yi_9b.CONFIG, n_layers=4, dtype="float32", cache_layout="paged",
-        kv_page_size=PSZ)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     params = convert.init(base, gen, "cuda")
     b, max_len = 4, 256
@@ -954,9 +1230,10 @@ def phase_e2e(gpu: str, seed: int) -> None:
             m = build_model(dataclasses.replace(base, decode_kernel=kern),
                             "cuda")
             c = m.init_cache(params, batch=b, max_len=max_len)
-            c["pages"] = torch.arange(
-                c["pages"].numel(), dtype=torch.int32,
-                device="cuda").reshape(c["pages"].shape)
+            if "pages" in c:
+                c["pages"] = torch.arange(
+                    c["pages"].numel(), dtype=torch.int32,
+                    device="cuda").reshape(c["pages"].shape)
             models[kern], caches[kern] = m, c
         logits = {}
         for kern, m in models.items():
@@ -991,7 +1268,12 @@ def phase_e2e(gpu: str, seed: int) -> None:
                                 logits["xla"][live], torch.float32))
         check_equal("e2e cursors", caches["pallas_paged"]["lengths"],
                     caches["xla"]["lengths"])
-    emit({"phase": "e2e", "gpu": gpu, "arch": base.arch, "n_layers": 4,
+        if "ssm" in caches["xla"]:
+            errs.append(check_close("e2e ssm state",
+                                    caches["pallas_paged"]["ssm"],
+                                    caches["xla"]["ssm"], torch.float32))
+    emit({"phase": "e2e", "gpu": gpu, "arch": base.arch,
+          "n_layers": base.n_layers, "cache_layout": base.cache_layout,
           "steps": ["prefill", "decode x 4", "continuation prefill"],
           "dtype": "float32", "max_abs_err": max(errs), "tol": 2e-3})
 
@@ -1019,43 +1301,76 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import mamba2_13b, yi_9b, zamba2_27b
+
     gpu = card_line()
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_kernels()})
     kern = phase_kernels(gpu, args.seed)
     flash = phase_flash(gpu, args.seed)
     norm = phase_norm(gpu, args.seed)
-    serve = phase_serve(gpu, args.seed)
+    ssd = phase_ssd(gpu, args.seed)
+    phase_attn_zamba2(gpu, args.seed)
+    served = {}                 # each main path's launch counts
+    paged = dict(cache_layout="paged", kv_page_size=PSZ,
+                 decode_kernel="pallas_paged")
+    serve = phase_serve(gpu, args.seed,
+                        dataclasses.replace(yi_9b.CONFIG, **paged))
     phase_prefix(gpu, args.seed, serve["cfg"], serve["params"])
+    served["yi-9b"] = serve
     del serve["params"]
     torch.cuda.empty_cache()
-    phase_e2e(gpu, args.seed)
-    dec, launches = kern["main"], serve["launches"]
+    zserve = phase_serve(gpu, args.seed,
+                         dataclasses.replace(zamba2_27b.CONFIG, **paged),
+                         "serve_zamba2")
+    phase_preempt(gpu, args.seed, zserve["cfg"], zserve["params"],
+                  zserve["reqs"])
+    served["zamba2-2.7b"] = zserve
+    del zserve["params"]
+    torch.cuda.empty_cache()
+    mserve = phase_serve(gpu, args.seed,
+                         dataclasses.replace(mamba2_13b.CONFIG, **paged),
+                         "serve_mamba2")
+    served["mamba2-1.3b"] = mserve
+    del mserve["params"]
+    torch.cuda.empty_cache()
+    fp32 = dict(dtype="float32", cache_layout="paged", kv_page_size=PSZ)
+    phase_e2e(gpu, args.seed,
+              dataclasses.replace(yi_9b.CONFIG, n_layers=4, **fp32))
+    phase_e2e(gpu, args.seed,
+              dataclasses.replace(mamba2_13b.CONFIG, n_layers=4, **fp32))
+    phase_e2e(gpu, args.seed,
+              dataclasses.replace(zamba2_27b.CONFIG, n_layers=12, **fp32))
+
+    def launched(*keys, runs="launches"):
+        """(total, by path) of the main paths' launches of ``keys``."""
+        by_path = {arch: sum(run[runs][k] for k in keys)
+                   for arch, run in served.items() if runs in run}
+        return sum(by_path.values()), by_path
+
+    dec = kern["main"]
+    rows = [("paged_decode_attention", "decode_attention",
+             launched("decode_paged"), kern["errs"]["paged_decode_attention"],
+             dict(dec, ms=dec["paged_ms"])),
+            ("decode_attention", "decode_attention",
+             launched("decode_dense", runs="gather_launches"),
+             kern["errs"]["decode_attention"],
+             dict(dec, ms=dec["dense_ms"], plain_ms=dec["dense_plain_ms"])),
+            ("flash_attention", "flash_attention",
+             launched("flash_paged", "flash_dense"), flash["err"],
+             flash["main"]),
+            ("fused_norm", "fused_norm", launched("fused_norm"), norm["err"],
+             norm["main"]),
+            ("ssd", "ssd", launched("ssd"), ssd["err"], ssd["main"])]
     summary = []
-    for name, ms_key, plain_key, count in (
-            ("paged_decode_attention", "paged_ms", "plain_ms",
-             launches["decode_paged"]),
-            ("decode_attention", "dense_ms", "dense_plain_ms",
-             serve["gather_launches"]["decode_dense"])):
+    for name, source, (count, by_path), err, row in rows:
         summary.append({
-            "name": name, "route": "cuda",
-            "source": SOURCES["decode_attention"],
+            "name": name, "route": "cuda", "source": SOURCES[source],
             "replaces": TPU_SITES[name], "launches": count,
-            "max_abs_err": kern["errs"][name], "ms": dec[ms_key],
-            "plain_ms": dec[plain_key], "bound_ms": dec["bound_ms"],
-            "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
-        })
-    for name, res, count in (
-            ("flash_attention", flash,
-             launches["flash_paged"] + launches["flash_dense"]),
-            ("fused_norm", norm, launches["fused_norm"])):
-        row = res["main"]
-        summary.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_SITES[name], "launches": count,
-            "max_abs_err": res["err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launches_by_path": by_path, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
         })
     emit({"kernels": summary})
     print(gpu, flush=True)

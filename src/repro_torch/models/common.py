@@ -497,3 +497,30 @@ def reset_lengths(cache: Params, mask: torch.Tensor) -> Params:
     cache["lengths"] = torch.where(
         mask, 0, cache["lengths"]).to(torch.int32)
     return cache
+
+
+def reset_recurrent(cache: Params, mask: torch.Tensor,
+                    state_keys: tuple = ("ssm", "conv")) -> Params:
+    """reset_lengths plus zeroed recurrent-state leaves.
+
+    Unlike KV buffers, SSM/conv state has no validity mask: a re-admitted
+    slot must start from zero state.  Each ``state_keys`` entry is a key
+    (batch on axis 1, the (L, b, ...) stacked-layer layout) or a
+    ``(key, axis)`` pair; the leaf's shape is checked against the mask so a
+    layout with its batch elsewhere raises instead of zeroing the wrong
+    rows.  Leaves not named (zamba2's "kv") pass through untouched."""
+    out = reset_lengths(cache, mask)
+    b = mask.shape[0]
+    keep = ~mask
+    for entry in state_keys:
+        key, axis = entry if isinstance(entry, tuple) else (entry, 1)
+        leaf = cache[key]
+        if leaf.dim() <= axis or leaf.shape[axis] != b:
+            raise ValueError(
+                f"reset_recurrent: cache leaf '{key}' has shape "
+                f"{tuple(leaf.shape)} but the batch axis ({axis}) must have "
+                f"size {b}; pass (key, axis) in state_keys for this layout")
+        shape = [1] * leaf.dim()
+        shape[axis] = b
+        out[key] = leaf * keep.to(leaf.dtype).reshape(shape)
+    return out

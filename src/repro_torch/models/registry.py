@@ -10,17 +10,20 @@ from repro_torch.models import common as cm
 _CONFIG_MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "qwen2.5-32b": "repro_torch.configs.qwen25_32b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_27b",
 }
 
 ARCHS = tuple(_CONFIG_MODULES)
 
-# Families the port does not run yet, with the ROADMAP.md item porting them.
-_PENDING = {
-    "moe": "queue 1 item 9 (MoE)",
-    "ssm": "queue 1 item 8 (mamba2/zamba2)",
-    "hybrid": "queue 1 item 8 (mamba2/zamba2)",
-    "encdec": "queue 1 item 10 (whisper, VLM)",
-    "vlm": "queue 1 item 10 (whisper, VLM)",
+# Families the port does not run yet, with the title of the ROADMAP.md
+# queue 1 item porting them (titles, not item numbers, which shift).
+_WHISPER_VLM = "models/whisper.py (encdec) and the VLM cross-attention layers"
+_PENDING = {"moe": "MoE", "encdec": _WHISPER_VLM, "vlm": _WHISPER_VLM}
+_MODULES = {
+    "dense": "repro_torch.models.transformer",
+    "ssm": "repro_torch.models.mamba2",
+    "hybrid": "repro_torch.models.zamba2",
 }
 
 
@@ -32,13 +35,12 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 def build_model(cfg: ModelConfig, device=None) -> cm.ModelApply:
     """The model for ``cfg`` on ``device`` (default: the CUDA card; raises
     without one unless ``device="cpu"`` is given)."""
-    if cfg.family != "dense":
+    if cfg.family not in _MODULES:
         if cfg.family in _PENDING:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP.md "
-                f"{_PENDING[cfg.family]}"
+                f"queue 1, the item {_PENDING[cfg.family]!r}"
             )
         raise ValueError(f"unknown family: {cfg.family}")
-    from repro_torch.models import transformer
-
-    return transformer.build(cfg, resolve_device(device))
+    module = importlib.import_module(_MODULES[cfg.family])
+    return module.build(cfg, resolve_device(device))

@@ -37,10 +37,14 @@ adaptive policy.
   it stops making progress.  With ``preemption=False`` a gated head waits.
 * **Chaos** (``serve.chaos``).  Seeded alloc and share refusals and forced
   preemptions, drawn as the reference draws them.
+* **Recurrent families** (mamba2, zamba2).  Re-admission zeroes a slot's
+  SSM state and conv window (``reset_slots``); a paged config whose cache
+  has no pages (mamba2) runs contiguous bookkeeping.
 
 Not ported yet, and refused at construction: speculative decode, KV
 integrity and page corruption, crash points, the adaptive policy, the
-request journal, non-greedy sampling and non-dense families.
+request journal and non-greedy sampling (and, through ``build_model``, the
+MoE, encdec and VLM families).
 """
 from __future__ import annotations
 
@@ -171,21 +175,27 @@ class ServeEngine:
             self.page_size = psz
             self.pages_per_slot, self.n_pages = paged_kv_spec(
                 batch_slots, max_len, psz, n_pages)
-            self.allocator = self._make_allocator()
-            self.page_table = np.full(
-                (batch_slots, self.pages_per_slot), -1, np.int32)
-            self._slot_pages: list[list[int]] = [[] for _ in range(batch_slots)]
-        # Prefix sharing rides the paged pool (pure-KV decoders only).
-        self.prefix_sharing = (bool(cfg.prefix_sharing) and self.paged
-                               and cfg.family in ("dense", "moe"))
-        self.prefix = (PrefixIndex(self.page_size) if self.prefix_sharing
-                       else None)
         # The decode kernels' split count is cfg.decode_splits, or planned by
         # the decode-attention ops at each step (plan_splits, no engine plan).
         self.model = build_model(cfg, self.device)
         self.cache = self.model.init_cache(
             params, batch=batch_slots, max_len=max_len,
             n_pages=self.n_pages if self.paged else None)
+        # A cache with no KV to page (mamba2's decode state is O(1) per
+        # slot) falls back to contiguous bookkeeping: no allocator, no page
+        # table, no admission gated on a phantom pool.
+        self.paged = self.paged and "pages" in self.cache
+        if self.paged:
+            self.allocator = self._make_allocator()
+            self.page_table = np.full(
+                (batch_slots, self.pages_per_slot), -1, np.int32)
+            self._slot_pages: list[list[int]] = [[] for _ in range(batch_slots)]
+        # Prefix sharing rides the paged pool, pure-KV decoders only: the
+        # recurrent state of mamba2/zamba2 is not page-shareable.
+        self.prefix_sharing = (bool(cfg.prefix_sharing) and self.paged
+                               and cfg.family in ("dense", "moe"))
+        self.prefix = (PrefixIndex(self.page_size) if self.prefix_sharing
+                       else None)
         # Device-resident per-slot loop state: last sampled token and
         # remaining budget (0 == parked or free).
         self.cur_tok = torch.zeros(batch_slots, dtype=torch.int32,

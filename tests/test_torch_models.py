@@ -225,6 +225,8 @@ def test_init_draws_reference_distributions():
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(get_config("yi-9b", smoke=True), family="ssm")
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True), family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="'moe'"):
+        convert.from_jax({"layers": {}}, cfg, "cpu")
