@@ -6,10 +6,10 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. card and build: the card's name and power limit, the CUDA version, and
-   the time to build the four CUDA kernels (split-KV decode attention,
-   flash attention, fused norm, the Mamba-2 SSD scan, one nvcc each,
-   started together) from src/repro_torch/kernels/*/csrc/*.cu for sm_90a
-   into build/repro_torch/;
+   the time to build the five CUDA kernels (split-KV decode attention,
+   flash attention, fused norm, the Mamba-2 SSD scan, the MoE grouped GEMM,
+   one nvcc each, started together) from src/repro_torch/kernels/*/csrc/*.cu
+   for sm_90a into build/repro_torch/;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
@@ -59,7 +59,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launch counts ssd 48 x waves, fused norm 49 x (waves + steps), no
    attention, 0 plain calls;
 10. kernel path against plain path end to end for mamba2 (full width, 4
-   layers) and zamba2 (full width, 12 layers: two groups), fp32, as in 5.
+   layers) and zamba2 (full width, 12 layers: two groups), fp32, as in 5;
+11. the MoE grouped GEMM against its plain version, bf16 and fp32, at
+   olmoe-1b-7b's expert products: a dense-dispatch prefill wave through
+   wg/wu and through wd, a decode step, a sorted-dispatch wave's capacity
+   buffers with counts (rows past each count exactly 0) and ragged shapes,
+   timed beside its bound and torch.bmm;
+12. serve olmoe-1b-7b at its published config (16 layers, 64 experts top 8,
+   bf16, random weights) over a paged pool under dense dispatch: the same
+   48 requests, launch counts checked (grouped GEMM 3 x 16 x (waves +
+   steps), flash 16 x waves, decode 16 x steps, fused norm 33 x (waves +
+   steps), 0 plain calls), the first 16 under pallas_gather with
+   bitwise-equal streams, a trace of one decode chunk and one admission
+   wave;
+13. olmoe end to end at full width (4 layers, fp32): kernel route against
+   plain route under dense and under sorted dispatch (there with a
+   prefill free of padding rows, which would contend for capacity), and
+   sorted dispatch (capacity factor 8, nothing dropped) against dense, as
+   in 5.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -100,6 +117,7 @@ SOURCES = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "fused_norm": "src/repro_torch/kernels/fused_norm/csrc/fused_norm.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+    "moe_gmm": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
 }
 TPU_SITES = {
     "paged_decode_attention":
@@ -109,6 +127,7 @@ TPU_SITES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:129",
     "fused_norm": "src/repro/kernels/fused_norm/fused_norm.py:73",
     "ssd": "src/repro/kernels/ssd/ssd.py:110",
+    "grouped_matmul": "src/repro/kernels/moe_gmm/moe_gmm.py:78",
 }
 PREFILL_PAD = 1024          # the serve traffic's widest prefill bucket
 
@@ -829,6 +848,100 @@ def phase_attn_zamba2(gpu: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the MoE grouped GEMM
+# ---------------------------------------------------------------------------
+
+# (name, e, c, k, n, with counts): olmoe-1b-7b's expert products (64
+# experts, d 2048, d_ff 1024) at the serve path's shapes: a dense-dispatch
+# prefill wave (every expert multiplies all 16 x 1024 tokens) through
+# wg/wu and through wd, a decode step (16 tokens), a sorted-dispatch
+# wave's capacity buffers (16384 x 8 x 1.25 / 64 = 2560 rows an expert)
+# with counts, the reference test's ragged shape and a ragged k.
+GMM_CASES = (("prefill", 64, 16384, 2048, 1024, False),
+             ("prefill_wd", 64, 16384, 1024, 2048, False),
+             ("decode", 64, 16, 2048, 1024, False),
+             ("decode_wd", 64, 16, 1024, 2048, False),
+             ("sorted", 64, 2560, 2048, 1024, True),
+             ("ragged", 8, 100, 200, 130, True),
+             ("ragged_k", 5, 77, 130, 96, True))
+
+
+def phase_gmm(gpu: str, seed: int) -> dict:
+    """The grouped GEMM against its plain version, bf16 and fp32, at
+    olmoe's shapes; rows past each count exactly 0; timed beside its
+    bound, the plain version and torch.bmm."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as gk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    rows, err, main = [], 0.0, None
+    for name, e, c, k, n, with_counts in GMM_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(e, c, k, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(e, k, n, generator=gen, device="cuda")
+                 * k ** -0.5).to(dtype)
+            counts = None
+            if with_counts:
+                counts = torch.randint(0, c + 1, (e,), generator=gen,
+                                       device="cuda", dtype=torch.int32)
+                counts[0], counts[1] = 0, c
+
+            def kernel():
+                return gk.grouped_matmul_cuda(x, w, counts)
+
+            def plain():
+                return gk.grouped_matmul_plain(x, w, counts)
+
+            def library():
+                return torch.bmm(x, w)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            tag = f"gmm {name} {dtype}"
+            e_k = check_close(tag, got, want, dtype)
+            live = (torch.full((e,), c, device="cuda") if counts is None
+                    else counts.clamp(0, c)).long()
+            if counts is not None:
+                dead = (torch.arange(c, device="cuda")[None, :]
+                        >= live[:, None])
+                if bool(got[dead].float().abs().max() != 0):
+                    raise AssertionError(f"{tag}: rows past the counts are "
+                                         "not exactly 0")
+            lib_err = (library().float() - want.float())
+            if counts is not None:
+                lib_err = lib_err[~dead]
+            lib_err = lib_err.abs().max().item()
+            del got, want
+            err = max(err, e_k)
+            es = _esize(dtype)
+            n_rows = int(live.sum())
+            nbytes = (n_rows * k * es + int((live > 0).sum()) * k * n * es
+                      + e * c * n * es + (4 * e if counts is not None else 0))
+            ops = 2 * n_rows * k * n
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+            big = c * k * n * e > 1e11 and dtype == torch.float32
+            timing = dict(reps=3, warm=1) if big else {}
+            row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
+                   "shape": [e, c, k, n],
+                   "counts": None if counts is None else counts.tolist(),
+                   "err": e_k, "library_err": lib_err,
+                   "rows_past_counts_zero": counts is not None,
+                   "ms": time_ms(kernel, **timing),
+                   "plain_ms": time_ms(plain, reps=3, warm=1),
+                   "library_ms": time_ms(library, **timing),
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "gflop": ops / 1e9}
+            row["tflop_per_s"] = ops / row["ms"] / 1e9
+            rows.append(row)
+            if dtype == torch.bfloat16 and name == "prefill":
+                main = row
+            del x, w, counts
+            torch.cuda.empty_cache()
+    emit({"phase": "kernels_gmm", "gpu": gpu, "rows": rows})
+    return {"main": main, "err": err}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve yi-9b at full width
 # ---------------------------------------------------------------------------
 
@@ -869,9 +982,10 @@ def _kernel_modules():
     from repro_torch.kernels.decode_attention import decode_attention as dk
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.fused_norm import fused_norm as nk
+    from repro_torch.kernels.moe_gmm import moe_gmm as gk
     from repro_torch.kernels.ssd import ssd as sk
 
-    return dk, fk, nk, sk
+    return dk, fk, nk, sk, gk
 
 
 def reset_counts() -> None:
@@ -881,38 +995,43 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    dk, fk, nk, sk = _kernel_modules()
+    dk, fk, nk, sk, gk = _kernel_modules()
     return {"decode_paged": dk.paged_decode_attention.launches,
             "decode_dense": dk.decode_attention.launches,
             "flash_paged": fk.paged_flash_attention.launches,
             "flash_dense": fk.flash_attention.launches,
             "fused_norm": nk.fused_norm.launches,
             "ssd": sk.ssd.launches,
+            "grouped_matmul": gk.grouped_matmul.launches,
             "plain": (dk.paged_decode_attention_plain.calls
                       + dk.decode_attention_plain.calls
                       + fk.paged_flash_attention_plain.calls
                       + fk.flash_attention_plain.calls
-                      + nk.fused_norm_plain.calls + sk.ssd_plain.calls)}
+                      + nk.fused_norm_plain.calls + sk.ssd_plain.calls
+                      + gk.grouped_matmul_plain.calls)}
 
 
 def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
     """Every prefill launches one flash kernel per attention layer and one
     SSD kernel per Mamba-2 layer, every decode step one decode kernel per
-    attention layer, and both one fused norm per norm (two per attention
-    block, one per Mamba-2 layer, plus the final one); nothing takes a
-    plain version.  Attention layers: all of a dense model's, the shared
-    block's invocations of zamba2, none of mamba2's."""
+    attention layer, both one fused norm per norm (two per attention
+    block, one per Mamba-2 layer, plus the final one) and three grouped
+    GEMMs per MoE layer; nothing takes a plain version.  Attention layers:
+    all of a dense or MoE model's, the shared block's invocations of
+    zamba2, none of mamba2's."""
     L, steps = cfg.n_layers, stats["chunks"] * 8
     waves = stats["admission_waves"]
-    attn, ssm = {"dense": (L, 0), "ssm": (0, L),
+    attn, ssm = {"dense": (L, 0), "moe": (L, 0), "ssm": (0, L),
                  "hybrid": (L // max(cfg.shared_attn_every, 1), L)}[cfg.family]
+    moe = L if cfg.family == "moe" else 0
     paged = cfg.decode_kernel == "pallas_paged"
     want = {"decode_paged": attn * steps if paged else 0,
             "decode_dense": 0 if paged else attn * steps,
             "flash_paged": attn * waves if paged else 0,
             "flash_dense": 0 if paged else attn * waves,
             "fused_norm": (2 * attn + ssm + 1) * (waves + steps),
-            "ssd": ssm * waves, "plain": 0}
+            "ssd": ssm * waves,
+            "grouped_matmul": 3 * moe * (waves + steps), "plain": 0}
     if got != want:
         raise AssertionError(f"{arm} arm: launch counts {got} != {want}")
 
@@ -1206,11 +1325,22 @@ def phase_preempt(gpu: str, seed: int, cfg, params, unpressured) -> None:
 # Phase 5: kernel path against the plain path, end to end
 # ---------------------------------------------------------------------------
 
-def phase_e2e(gpu: str, seed: int, base) -> None:
-    """The kernel route (pallas_paged) against the plain route (xla) on
-    ``base``, an fp32 config cut in depth: a ragged prefill, 4 decode
-    steps with a slot parking every other step, and a continuation prefill
-    at nonzero cursors with one slot parked, logits within 2e-3."""
+def phase_e2e(gpu: str, seed: int, base, want=None,
+              compare: str = "pallas_paged vs xla",
+              ragged: bool = True) -> None:
+    """The kernel route (pallas_paged) on ``base``, an fp32 config cut in
+    depth, against ``want`` (default: the plain route, xla, of the same
+    config): a ragged prefill (``ragged`` False: every row valid), 4
+    decode steps with a slot parking every other step, and a continuation
+    prefill at nonzero cursors with one slot parked, logits within 2e-3.
+
+    Padding rows are garbage by contract, and the two routes' garbage
+    differs (the flash kernel writes zeros there, the plain path
+    attends).  Under sorted MoE dispatch those rows contend for expert
+    capacity, so two routes can drop different real tokens: the sorted
+    kernel-vs-plain check prefills without padding (``ragged`` False).
+    Its later blocks (4 and 128 tokens) cannot overflow the 128-row
+    capacity floor."""
     from repro_torch import convert
     from repro_torch.models import build_model
 
@@ -1220,36 +1350,39 @@ def phase_e2e(gpu: str, seed: int, base) -> None:
     params = convert.init(base, gen, "cuda")
     b, max_len = 4, 256
     rng = np.random.default_rng(seed)
-    seg = torch.tensor([100, 37, 64, 5], dtype=torch.int32, device="cuda")
+    seg = torch.tensor([100, 37, 64, 5] if ragged else [128] * 4,
+                       dtype=torch.int32, device="cuda")
     toks = torch.from_numpy(
         rng.integers(0, base.vocab, size=(b, 128)).astype(np.int32)).to("cuda")
     errs = []
     with torch.inference_mode():
         models, caches = {}, {}
-        for kern in ("pallas_paged", "xla"):
-            m = build_model(dataclasses.replace(base, decode_kernel=kern),
-                            "cuda")
+        arms = {"got": dataclasses.replace(base, decode_kernel="pallas_paged"),
+                "want": want or dataclasses.replace(base,
+                                                    decode_kernel="xla")}
+        for arm, cfg in arms.items():
+            m = build_model(cfg, "cuda")
             c = m.init_cache(params, batch=b, max_len=max_len)
             if "pages" in c:
                 c["pages"] = torch.arange(
                     c["pages"].numel(), dtype=torch.int32,
                     device="cuda").reshape(c["pages"].shape)
-            models[kern], caches[kern] = m, c
+            models[arm], caches[arm] = m, c
         logits = {}
-        for kern, m in models.items():
-            logits[kern], caches[kern] = m.prefill(params, caches[kern], toks,
+        for arm, m in models.items():
+            logits[arm], caches[arm] = m.prefill(params, caches[arm], toks,
                                                    seg_lens=seg)
-        errs.append(check_close("e2e prefill", logits["pallas_paged"],
-                                logits["xla"], torch.float32))
+        errs.append(check_close("e2e prefill", logits["got"],
+                                logits["want"], torch.float32))
         for step in range(4):
-            nxt = logits["xla"][:, -1].argmax(-1).to(torch.int32)[:, None]
+            nxt = logits["want"][:, -1].argmax(-1).to(torch.int32)[:, None]
             active = torch.tensor([1, 1, step % 2, 1], dtype=torch.int32,
                                   device="cuda")
-            for kern, m in models.items():
-                logits[kern], caches[kern] = m.decode_step(
-                    params, caches[kern], nxt, seg_lens=active)
+            for arm, m in models.items():
+                logits[arm], caches[arm] = m.decode_step(
+                    params, caches[arm], nxt, seg_lens=active)
             errs.append(check_close(f"e2e decode {step}",
-                                    logits["pallas_paged"], logits["xla"],
+                                    logits["got"], logits["want"],
                                     torch.float32))
         # A continuation prefill at each slot's nonzero cursor (the flash
         # kernel's q_offset case), slot 1 parked: a parked slot's logits
@@ -1259,21 +1392,22 @@ def phase_e2e(gpu: str, seed: int, base) -> None:
             0, base.vocab, size=(b, 32)).astype(np.int32)).to("cuda")
         seg2 = torch.tensor([32, 0, 17, 9], dtype=torch.int32,
                             device="cuda")
-        for kern, m in models.items():
-            logits[kern], caches[kern] = m.prefill(params, caches[kern],
+        for arm, m in models.items():
+            logits[arm], caches[arm] = m.prefill(params, caches[arm],
                                                    more, seg_lens=seg2)
         live = seg2 > 0
         errs.append(check_close("e2e continuation prefill",
-                                logits["pallas_paged"][live],
-                                logits["xla"][live], torch.float32))
-        check_equal("e2e cursors", caches["pallas_paged"]["lengths"],
-                    caches["xla"]["lengths"])
-        if "ssm" in caches["xla"]:
+                                logits["got"][live],
+                                logits["want"][live], torch.float32))
+        check_equal("e2e cursors", caches["got"]["lengths"],
+                    caches["want"]["lengths"])
+        if "ssm" in caches["want"]:
             errs.append(check_close("e2e ssm state",
-                                    caches["pallas_paged"]["ssm"],
-                                    caches["xla"]["ssm"], torch.float32))
-    emit({"phase": "e2e", "gpu": gpu, "arch": base.arch,
+                                    caches["got"]["ssm"],
+                                    caches["want"]["ssm"], torch.float32))
+    emit({"phase": "e2e", "gpu": gpu, "arch": base.arch, "compare": compare,
           "n_layers": base.n_layers, "cache_layout": base.cache_layout,
+          "ragged_prefill": ragged,
           "steps": ["prefill", "decode x 4", "continuation prefill"],
           "dtype": "float32", "max_abs_err": max(errs), "tol": 2e-3})
 
@@ -1301,7 +1435,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import mamba2_13b, yi_9b, zamba2_27b
+    from repro_torch.configs import mamba2_13b, olmoe_1b_7b, yi_9b, zamba2_27b
 
     gpu = card_line()
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
@@ -1311,6 +1445,7 @@ def main() -> int:
     norm = phase_norm(gpu, args.seed)
     ssd = phase_ssd(gpu, args.seed)
     phase_attn_zamba2(gpu, args.seed)
+    gmm = phase_gmm(gpu, args.seed)
     served = {}                 # each main path's launch counts
     paged = dict(cache_layout="paged", kv_page_size=PSZ,
                  decode_kernel="pallas_paged")
@@ -1334,6 +1469,12 @@ def main() -> int:
     served["mamba2-1.3b"] = mserve
     del mserve["params"]
     torch.cuda.empty_cache()
+    oserve = phase_serve(gpu, args.seed,
+                         dataclasses.replace(olmoe_1b_7b.CONFIG, **paged),
+                         "serve_olmoe")
+    served["olmoe-1b-7b"] = oserve
+    del oserve["params"]
+    torch.cuda.empty_cache()
     fp32 = dict(dtype="float32", cache_layout="paged", kv_page_size=PSZ)
     phase_e2e(gpu, args.seed,
               dataclasses.replace(yi_9b.CONFIG, n_layers=4, **fp32))
@@ -1341,6 +1482,16 @@ def main() -> int:
               dataclasses.replace(mamba2_13b.CONFIG, n_layers=4, **fp32))
     phase_e2e(gpu, args.seed,
               dataclasses.replace(zamba2_27b.CONFIG, n_layers=12, **fp32))
+    olmoe = dataclasses.replace(olmoe_1b_7b.CONFIG, n_layers=4, **fp32)
+    phase_e2e(gpu, args.seed, olmoe, compare="pallas_paged vs xla, dense")
+    olmoe_sorted = dataclasses.replace(olmoe, moe_dispatch="sorted")
+    phase_e2e(gpu, args.seed, olmoe_sorted,
+              compare="pallas_paged vs xla, sorted", ragged=False)
+    # Capacity factor 8: no expert can overflow, so sorted equals dense.
+    phase_e2e(gpu, args.seed,
+              dataclasses.replace(olmoe_sorted, capacity_factor=8.0),
+              want=dataclasses.replace(olmoe, decode_kernel="pallas_paged"),
+              compare="sorted (capacity factor 8) vs dense, pallas_paged")
 
     def launched(*keys, runs="launches"):
         """(total, by path) of the main paths' launches of ``keys``."""
@@ -1361,7 +1512,9 @@ def main() -> int:
              flash["main"]),
             ("fused_norm", "fused_norm", launched("fused_norm"), norm["err"],
              norm["main"]),
-            ("ssd", "ssd", launched("ssd"), ssd["err"], ssd["main"])]
+            ("ssd", "ssd", launched("ssd"), ssd["err"], ssd["main"]),
+            ("grouped_matmul", "moe_gmm", launched("grouped_matmul"),
+             gmm["err"], gmm["main"])]
     summary = []
     for name, source, (count, by_path), err, row in rows:
         summary.append({

@@ -5,11 +5,11 @@ anything ``numpy.asarray`` accepts) and returns the port's: the same
 layouts leaf for leaf (``wq (d, hq, dh)``, ``wo (hq, dh, d)``, the QKV
 biases, ``embed.tok`` and ``embed.unembed``; a Mamba-2 layer's ``{"ln",
 "mamba": {in_proj, conv_w, conv_b, dt_bias, A_log, D, norm_w,
-out_proj}}``), with the stacked ``layers`` leaves (leading ``L`` axis)
-split into a per-layer list and the hybrid's ``shared`` block (not
-stacked) carried whole.  Each leaf keeps its dtype (the Mamba-2 fp32
-leaves stay fp32 in a bf16 model); bfloat16 leaves cross through float32,
-which is exact.
+out_proj}}``; an MoE layer's ``moe: {router, wg, wu, wd}``), with the
+stacked ``layers`` leaves (leading ``L`` axis) split into a per-layer list
+and the hybrid's ``shared`` block (not stacked) carried whole.  Each leaf keeps its dtype (the Mamba-2 fp32
+leaves and the MoE router stay fp32 in a bf16 model); bfloat16 leaves
+cross through float32, which is exact.
 """
 from __future__ import annotations
 
@@ -33,12 +33,12 @@ def _tree(x, fn):
     return fn(x)
 
 
-_FAMILIES = ("dense", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def from_jax(params, cfg: ModelConfig, device=None):
-    """The reference's dense, Mamba-2 or Zamba2 params -> the port's, on
-    ``device``."""
+    """The reference's dense, MoE, Mamba-2 or Zamba2 params -> the port's,
+    on ``device``."""
     if cfg.family not in _FAMILIES or "layers" not in params:
         raise NotImplementedError(
             f"from_jax bridges the {', '.join(_FAMILIES)} families only, "

@@ -1,11 +1,13 @@
 """Shared model blocks in PyTorch: norms, RoPE, GQA attention over a ragged
-KV cache, MLP, embeddings (the main-path subset of ``repro.models.common``).
+KV cache, MLP, MoE, embeddings (the main-path subset of
+``repro.models.common``).
 
 Weight layouts are the reference's, so both packages compute the same thing
 on the same weights:
 
     attention:  wq (d, hq, dh)   wk/wv (d, hkv, dh)   wo (hq, dh, d)
     mlp:        wg/wu (d, f)     wd (f, d)
+    moe:        router (d, e) fp32   wg/wu (e, d, f)   wd (e, f, d)
     embed:      tok (v, d)       unembed (d, v)
 
 Differences from the reference, all deliberate:
@@ -23,7 +25,7 @@ Differences from the reference, all deliberate:
   (N + 1, page_size, ...) with sink page N.  Dropped rows are redirected
   to the sink by a static-shape ``torch.where``; nothing ever reads it,
   since readers take the public ``[:, :S]`` / ``[:N]`` views.
-* MoE, cross-attention, the loss and the scan-unroll switch are not ported
+* Cross-attention, the loss and the scan-unroll switch are not ported
   yet.
 """
 from __future__ import annotations
@@ -93,6 +95,17 @@ def mlp_init(gen, cfg: ModelConfig, device) -> Params:
     return {
         "wu": dense_init(gen, (d, f), d, dt, device),
         "wd": dense_init(gen, (f, d), f, dt, device),
+    }
+
+
+def moe_init(gen, cfg: ModelConfig, device) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = torch_dtype(cfg.dtype)
+    return {
+        "router": dense_init(gen, (d, e), d, torch.float32, device),
+        "wg": dense_init(gen, (e, d, f), d, dt, device),
+        "wu": dense_init(gen, (e, d, f), d, dt, device),
+        "wd": dense_init(gen, (e, f, d), f, dt, device),
     }
 
 
@@ -451,7 +464,7 @@ def apply_attn(
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding
+# MLP
 # ---------------------------------------------------------------------------
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -461,6 +474,120 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = torch.nn.functional.gelu(x @ p["wu"])
     return h @ p["wd"]
 
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, GShard-style dispatch)
+# ---------------------------------------------------------------------------
+
+def _route(p: Params, xf: torch.Tensor, cfg: ModelConfig):
+    """fp32 router -> (renormalised top-k gates (t, k), expert ids (t, k),
+    one-hot (t, k, e), load-balancing aux loss)."""
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)     # (t, e)
+    gate_vals, idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(idx, e).float()        # (t, k, e)
+    density = onehot.sum(dim=1).mean(dim=0)
+    aux = cfg.router_aux_weight * e * torch.sum(density * probs.mean(dim=0))
+    return gate_vals, idx, onehot, aux
+
+
+def moe_capacity(t: int, cfg: ModelConfig) -> int:
+    """Per-expert capacity of the sorted dispatch (the reference's rule)."""
+    e, k = cfg.n_experts, cfg.top_k
+    cap = int(-(-t * k * cfg.capacity_factor // e))
+    return min(max(128, -(-cap // 128) * 128), t * k)
+
+
+def sorted_slots(idx: torch.Tensor, n_experts: int, cap: int):
+    """The sorted dispatch's placement of the (token, choice) pairs:
+    ``(order, pos, keep, counts)``.  Pairs sort by expert with a stable
+    sort (drops depend on it: within an expert the earlier token keeps its
+    slot), ``pos`` is each sorted pair's rank in its expert, ``keep`` is
+    ``pos < cap`` and ``counts`` (e,) the pairs each expert received."""
+    eidx = idx.reshape(-1)
+    order = torch.argsort(eidx, stable=True)
+    counts = torch.bincount(eidx, minlength=n_experts)
+    starts = counts.cumsum(0) - counts                         # exclusive
+    pos = torch.arange(eidx.numel(), device=idx.device) - starts[eidx[order]]
+    return order, pos, pos < cap, counts
+
+
+def _expert_products(cfg: ModelConfig):
+    """The grouped product ``(x (e, c, k), w (e, k, n), counts) -> (e, c,
+    n)``: the grouped-GEMM kernel on the kernel routes (its plain version
+    on CPU tensors), a plain einsum on ``"xla"`` (as the reference's
+    einsums), which reads no counts: rows past them are zero there too."""
+    if cfg.decode_kernel != "xla":
+        from repro_torch.kernels.moe_gmm import ops as gmm_ops
+
+        return gmm_ops.grouped_matmul
+    return lambda x, w, counts=None: torch.einsum("ecd,edf->ecf", x, w)
+
+
+def _swiglu_experts(p: Params, xe: torch.Tensor, gmm, counts=None):
+    """silu(xe @ wg) * (xe @ wu) @ wd, expert by expert; each intermediate
+    is freed as soon as the next product has read it."""
+    h = torch.nn.functional.silu(gmm(xe, p["wg"], counts), inplace=True)
+    h.mul_(gmm(xe, p["wu"], counts))
+    return gmm(h, p["wd"], counts)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """(y (b, s, d), aux loss).  Two dispatch schedules
+    (``cfg.moe_dispatch``), as in the reference:
+
+    * ``dense``: every expert multiplies every token, masked to 0/1 before
+      and combined with the gates after (``xe = mask.T[..., None] * x`` is
+      exact).  Each token's output depends on that token alone, so the
+      serve path's bitwise gates hold; compute is ``e / top_k`` times the
+      routed work.
+    * ``sorted``: capacity-based (GShard): (token, choice) pairs sort by
+      expert into (e, cap, d) buffers, overflowing pairs are dropped, the
+      grouped products run with ``counts = min(received, cap)`` and the
+      results scatter back.  The scatter-add (``index_add_``) is not
+      bitwise reproducible run to run on CUDA (atomics), so the serve
+      path's bitwise gates run only under dense dispatch."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    gate_vals, idx, onehot, aux = _route(p, xf, cfg)
+    gmm = _expert_products(cfg)
+
+    if cfg.moe_dispatch == "sorted":
+        cap = moe_capacity(t, cfg)
+        order, pos, keep, counts = sorted_slots(idx, e, cap)
+        eidx_s = idx.reshape(-1)[order]
+        tok_s = torch.arange(t, device=x.device).repeat_interleave(k)[order]
+        gate_s = gate_vals.reshape(-1).float()[order]
+        pos_c = torch.where(keep, pos, 0)
+        eidx_c = torch.where(keep, eidx_s, 0)
+        # Dropped pairs add zeros at (0, 0): accumulate, never overwrite.
+        xe = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+        xe.index_put_((eidx_c, pos_c),
+                      xf[tok_s] * keep[:, None].to(x.dtype), accumulate=True)
+        live = counts.clamp(max=cap).to(torch.int32)
+        ye = _swiglu_experts(p, xe, gmm, live)                  # (e, cap, d)
+        del xe
+        contrib = ye[eidx_c, pos_c] * (
+            gate_s * keep.float())[:, None].to(x.dtype)
+        y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+        y.index_add_(0, tok_s, contrib)
+        return y.reshape(b, s, d), aux
+
+    mask = onehot.amax(dim=1)                                   # (t, e) 0/1
+    combine = torch.einsum("tk,tke->te", gate_vals, onehot)     # (t, e)
+    xe = mask.T.to(x.dtype)[:, :, None] * xf                    # (e, t, d)
+    ye = _swiglu_experts(p, xe, gmm)                            # (e, t, d)
+    del xe
+    y = torch.einsum("etd,te->td", ye, combine.to(x.dtype))
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["tok"][tokens.long()]

@@ -12,6 +12,8 @@ _CONFIG_MODULES = {
     "qwen2.5-32b": "repro_torch.configs.qwen25_32b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_27b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
 }
 
 ARCHS = tuple(_CONFIG_MODULES)
@@ -19,9 +21,10 @@ ARCHS = tuple(_CONFIG_MODULES)
 # Families the port does not run yet, with the title of the ROADMAP.md
 # queue 1 item porting them (titles, not item numbers, which shift).
 _WHISPER_VLM = "models/whisper.py (encdec) and the VLM cross-attention layers"
-_PENDING = {"moe": "MoE", "encdec": _WHISPER_VLM, "vlm": _WHISPER_VLM}
+_PENDING = {"encdec": _WHISPER_VLM, "vlm": _WHISPER_VLM}
 _MODULES = {
     "dense": "repro_torch.models.transformer",
+    "moe": "repro_torch.models.transformer",
     "ssm": "repro_torch.models.mamba2",
     "hybrid": "repro_torch.models.zamba2",
 }

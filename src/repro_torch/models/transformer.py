@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense GQA family (the serving path of
-``repro.models.transformer``).
+"""Decoder-only transformer LM, dense GQA and MoE families (the serving
+path of ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors in the reference's layouts, with
 ``params["layers"]`` a list of per-layer dicts (the reference stacks them
@@ -19,12 +19,16 @@ from repro_torch.models import common as cm
 
 
 def _layer_init(gen, cfg: ModelConfig, device):
-    return {
+    p = {
         "ln1": cm.norm_init(cfg, device),
         "attn": cm.attn_init(gen, cfg, device),
         "ln2": cm.norm_init(cfg, device),
-        "mlp": cm.mlp_init(gen, cfg, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = cm.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = cm.mlp_init(gen, cfg, device)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, device):
@@ -40,7 +44,12 @@ def init(gen: torch.Generator, cfg: ModelConfig, device):
 def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
     x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
                           positions, cache, seg_lens=seg_lens)
-    return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg)
+    h = cm.apply_norm(p["ln2"], x, cfg)
+    if "moe" in p:
+        m, _ = cm.apply_moe(p["moe"], h, cfg)    # aux loss: training only
+    else:
+        m = cm.apply_mlp(p["mlp"], h, cfg)
+    return x + m
 
 
 def _stack_cached(params, x, cfg: ModelConfig, positions, cache,

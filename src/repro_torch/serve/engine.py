@@ -158,6 +158,11 @@ class ServeEngine:
                  no_progress_limit: int = 256, device=None):
         self.device = resolve_device(device)
         _refuse_unported(cfg, journal_path)
+        if cfg.n_experts and cfg.moe_dispatch != "dense":
+            raise ValueError(
+                "ServeEngine requires moe_dispatch='dense': under 'sorted', "
+                "right-pad and parked-slot tokens contend with real tokens "
+                "for expert capacity and silently drop them")
         self.sampler = Sampler.from_config(cfg)
         self.params = params
         self.slots = batch_slots
