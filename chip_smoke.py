@@ -5,16 +5,19 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. card and build: the card's name and power limit, the CUDA version, and
-   the time to build the five CUDA kernels (split-KV decode attention,
+1. card and build: the card's name and power limit, the CUDA version, its
+   properties (SMs, memory, L2) beside the policy engine's H100 model, and
+   the time to build the six CUDA kernels (split-KV decode attention,
    flash attention, fused norm, the Mamba-2 SSD scan, the MoE grouped GEMM,
-   one nvcc each, started together) from src/repro_torch/kernels/*/csrc/*.cu
-   for sm_90a into build/repro_torch/;
+   the policy-planned matmul; one nvcc each, started together) from
+   src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
-     page 16, 16 slots, contexts 512 and 2048, splits 1 and planned),
-     paged == dense bitwise, the reference's property cases;
+     page 16, 16 slots, contexts 512 and 2048, splits 1, the count the
+     policy engine plans for the serve engine (4) and 8, the count of the
+     plan-free default), paged == dense bitwise, the reference's property
+     cases;
    * flash attention at the prefill's main shape (16 x 1024 causal), at
      the serve path's ragged shape (pad 1024 over a 2048-position page
      view, per-slot offsets, key and query lengths, parked slots; paged ==
@@ -76,7 +79,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    plain route under dense and under sorted dispatch (there with a
    prefill free of padding rows, which would contend for capacity), and
    sorted dispatch (capacity factor 8, nothing dropped) against dense, as
-   in 5.
+   in 5;
+14. the policy-planned matmul, the main path of the cache-policy core:
+   make_engine(mode, rinse, chip="h100") -> plan_op(matmul_op(...)) ->
+   kernels.matmul.ops.matmul(a, b, engine=eng) at yi-9b's full-width layer
+   GEMMs (a 16 x 1024 prefill wave and a decode step through q/o, k+v,
+   gate/up and down, the LM head, one fp32 case), every mode x rinse,
+   launches of both schedules (accumulating and split-K) counted; then for
+   each distinct schedule the kernel against its plain version, mnk == nmk
+   bitwise, its time beside the plan's modeled time, the plain version,
+   torch.matmul and the bound, and per shape the fastest mode on the card.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -118,6 +130,7 @@ SOURCES = {
     "fused_norm": "src/repro_torch/kernels/fused_norm/csrc/fused_norm.cu",
     "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
     "moe_gmm": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+    "matmul": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
 }
 TPU_SITES = {
     "paged_decode_attention":
@@ -128,6 +141,8 @@ TPU_SITES = {
     "fused_norm": "src/repro/kernels/fused_norm/fused_norm.py:73",
     "ssd": "src/repro/kernels/ssd/ssd.py:110",
     "grouped_matmul": "src/repro/kernels/moe_gmm/moe_gmm.py:78",
+    "matmul": "src/repro/kernels/matmul/matmul.py:126",
+    "matmul(split_k>1)": "src/repro/kernels/matmul/matmul.py:98",
 }
 PREFILL_PAD = 1024          # the serve traffic's widest prefill bucket
 
@@ -231,18 +246,30 @@ def _bound(dtype, lengths, b, n_mapped, hq=HQ, hkv=HKV, d=D):
                                        else "operations")
 
 
+def planned_splits(hq: int, hkv: int, d: int, bkv: int = PSZ) -> int:
+    """The decode kernels' split count the serve engine bakes at SLOTS x
+    MAX_LEN: the policy engine's (H100 model) decode plan, one split per
+    planned KV block, over ``bkv``-wide kernel blocks."""
+    from repro_torch.core import make_engine
+    from repro_torch.core.characterize import attention_op
+    from repro_torch.kernels.decode_attention.ops import plan_splits
+
+    plan = make_engine(chip="h100").plan_op(attention_op(
+        SLOTS, hq, hkv, 1, MAX_LEN, d, causal=False, name="serve_decode"))
+    return plan_splits(MAX_LEN, bkv, plan=plan)
+
+
 def phase_kernels(gpu: str, seed: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention as dk
     from repro_torch.kernels.decode_attention import ref
-    from repro_torch.kernels.decode_attention.ops import plan_splits
     from repro_torch.models.common import gather_pages
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_table = MAX_LEN // PSZ
     n_pages = SLOTS * n_table
-    planned = plan_splits(n_table * PSZ, PSZ)
+    planned = planned_splits(HQ, HKV, D)
     rows, errs = [], {"paged_decode_attention": 0.0, "decode_attention": 0.0}
     main = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -253,7 +280,7 @@ def phase_kernels(gpu: str, seed: int) -> dict:
                                           n_pages)
             kd = gather_pages(kp, pages).transpose(1, 2)
             vd = gather_pages(vp, pages).transpose(1, 2)
-            for splits in sorted({1, planned}):
+            for splits in sorted({1, planned, 8}):
                 def paged():
                     return dk.paged_decode_attention_cuda(
                         q, kp, vp, pages, lengths, splits=splits)
@@ -317,7 +344,7 @@ def phase_kernels(gpu: str, seed: int) -> dict:
                             device="cuda", dtype=torch.int32)
     q = torch.randn(SLOTS, HQ, D, generator=gen,
                     device="cuda").to(torch.bfloat16)
-    splits = plan_splits(MAX_LEN, 512)
+    splits = planned_splits(HQ, HKV, D, bkv=512)
     e_ring = check_close(
         "ring", dk.decode_attention_cuda(
             q, ring_k.transpose(1, 2), ring_v.transpose(1, 2), lengths,
@@ -329,6 +356,7 @@ def phase_kernels(gpu: str, seed: int) -> dict:
     props = property_cases(gen)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "gpu": gpu, "rows": rows,
+          "planned_splits": planned, "ring_splits": splits,
           "ring_err": e_ring, "property_cases": props,
           "tol_atol_rtol": {str(t).removeprefix("torch."): v
                             for t, v in TOL.items()}})
@@ -760,7 +788,6 @@ def phase_attn_zamba2(gpu: str, seed: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention as dk
-    from repro_torch.kernels.decode_attention.ops import plan_splits
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.models.common import gather_pages
 
@@ -769,7 +796,7 @@ def phase_attn_zamba2(gpu: str, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 40)
     n_table = MAX_LEN // PSZ
     rows, out = [], {"decode_err": 0.0, "flash_err": 0.0}
-    splits = plan_splits(n_table * PSZ, PSZ)
+    splits = planned_splits(hq, hkv, d)
     for dtype in (torch.bfloat16, torch.float32):
         lengths = torch.full((SLOTS,), MAX_LEN, dtype=torch.int32,
                              device="cuda")
@@ -942,6 +969,171 @@ def phase_gmm(gpu: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the policy-planned matmul
+# ---------------------------------------------------------------------------
+
+# (name, m, k, n, dtype): yi-9b's layer GEMMs at full width (d 4096, k+v
+# 2 x 4 x 128, d_ff 11008, vocab 65536 padded) for a 16 x 1024 prefill
+# wave and a 16-slot decode step, and one fp32 case.
+MM_SHAPES = (("prefill_qo", 16384, 4096, 4096, torch.bfloat16),
+             ("prefill_kv", 16384, 4096, 1024, torch.bfloat16),
+             ("prefill_gate_up", 16384, 4096, 11008, torch.bfloat16),
+             ("prefill_down", 16384, 11008, 4096, torch.bfloat16),
+             ("decode_qo", 16, 4096, 4096, torch.bfloat16),
+             ("decode_kv", 16, 4096, 1024, torch.bfloat16),
+             ("decode_gate_up", 16, 4096, 11008, torch.bfloat16),
+             ("decode_down", 16, 11008, 4096, torch.bfloat16),
+             ("lm_head", 16, 4096, 65536, torch.bfloat16),
+             ("prefill_qo_fp32", 16384, 4096, 4096, torch.float32))
+MM_MODES = tuple((mode, rinse) for mode in ("uncached", "cacher", "cacherw",
+                                            "adaptive")
+                 for rinse in (True, False))
+
+
+def _mm_inputs(seed: int, i: int, m: int, k: int, n: int, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60 + i)
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    b = (torch.randn(k, n, generator=gen, device="cuda")
+         * k ** -0.5).to(dtype)
+    return a, b
+
+
+def _mm_key(schedule) -> tuple:
+    """The kernel's resolved schedule; the split path ignores the order."""
+    order = schedule["order"] if schedule["split_k"] == 1 else "-"
+    return (schedule["bm"], schedule["bn"], schedule["bk"], order,
+            schedule["split_k"])
+
+
+def phase_policy_matmul(gpu: str, seed: int) -> dict:
+    """The cache-policy core's main path on the card: every mode x rinse
+    engine (H100 model) plans each GEMM and ``ops.matmul(a, b,
+    engine=eng)`` runs it, counters zeroed just before and read just
+    after, each output held against the plain version.  Then for each
+    distinct schedule: mnk == nmk and a repeat bitwise, the kernel's time
+    (the split schedule's includes the partials' sum) beside the plan's
+    modeled time, the plain version, torch.matmul and the bound."""
+    from repro_torch.core import make_engine
+    from repro_torch.core.characterize import matmul_op
+    from repro_torch.device import dtype_name
+    from repro_torch.kernels.matmul import matmul as mk
+    from repro_torch.kernels.matmul import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 yardstick in fp32
+    t0 = time.perf_counter()
+    engines = {mr: make_engine(mr[0], rinse=mr[1], chip="h100")
+               for mr in MM_MODES}
+    plans, errs = {}, {"accumulate": 0.0, "split": 0.0}
+    reset_counts()                          # the planned-GEMM main path
+    for i, (name, m, k, n, dtype) in enumerate(MM_SHAPES):
+        a, b = _mm_inputs(seed, i, m, k, n, dtype)
+        want = {}
+        for mr, eng in engines.items():
+            plan, schedule = ops.resolve_schedule(
+                m, k, n, dtype_name(dtype), engine=eng)
+            got = ops.matmul(a, b, engine=eng)
+            pkey = (schedule["bk"], schedule["split_k"])
+            if pkey not in want:
+                want[pkey] = mk.matmul_plain(a, b, bk=schedule["bk"],
+                                             split_k=schedule["split_k"])
+            route = "split" if schedule["split_k"] > 1 else "accumulate"
+            errs[route] = max(errs[route], check_close(
+                f"matmul {name} {mr}", got, want[pkey], dtype))
+            plans[name, mr] = (plan, schedule)
+            del got
+        del a, b, want
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = counts()
+    main_s = time.perf_counter() - t0
+    if launches["matmul"] == 0 or launches["matmul_split"] == 0:
+        raise AssertionError(f"policy_matmul: a schedule was never "
+                             f"launched: {launches}")
+
+    rows, summary = [], []
+    for i, (name, m, k, n, dtype) in enumerate(MM_SHAPES):
+        a, b = _mm_inputs(seed, i, m, k, n, dtype)
+        es = _esize(dtype)
+        t_bytes = (m * k + k * n + m * n) * es / HBM_BYTES_PER_S
+        t_ops = 2 * m * n * k / PEAK_OPS[dtype]
+        bound = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+        def library():
+            return torch.matmul(a, b)
+
+        library_ms = time_ms(library)
+        measured, plain_ms = {}, {}
+        for mr in MM_MODES:
+            plan, schedule = plans[name, mr]
+            key = _mm_key(schedule)
+            if key not in measured:
+                def kernel(order=schedule["order"]):
+                    return mk.matmul_cuda(a, b, **{**schedule,
+                                                   "order": order})
+
+                flip = "nmk" if schedule["order"] == "mnk" else "mnk"
+                first, other, again = kernel(), kernel(flip), kernel()
+                torch.cuda.synchronize()
+                check_equal(f"matmul {name} {key} mnk == nmk", first, other)
+                check_equal(f"matmul {name} {key} repeat", first, again)
+                pkey = (schedule["bk"], schedule["split_k"])
+                if pkey not in plain_ms:
+                    plain_ms[pkey] = time_ms(
+                        lambda: mk.matmul_plain(a, b, bk=pkey[0],
+                                                split_k=pkey[1]),
+                        reps=3, warm=1)
+                del first, other, again
+                measured[key] = {"ms": time_ms(kernel),
+                                 "plain_ms": plain_ms[pkey]}
+            eng = engines[mr]
+            op = matmul_op(m, k, n, dtype=dtype_name(dtype))
+            rows.append({
+                "shape": name, "mnk": [m, n, k],
+                "dtype": str(dtype).removeprefix("torch."),
+                "mode": mr[0], "rinse": mr[1],
+                "out": plan.policy("out").value,
+                "assignment": {o: v.value for o, v in
+                               plan.assignment.items()},
+                "window": [schedule["bm"], schedule["bn"]],
+                "bk": schedule["bk"], "order": schedule["order"],
+                "split_k": schedule["split_k"],
+                "splits_run": (mk.split_ranges(k, schedule["bk"],
+                                               schedule["split_k"])[1]
+                               if schedule["split_k"] > 1 else 1),
+                "modeled_ms": eng.cost(op, plan).t_total * 1e3,
+                **measured[key], "library_ms": library_ms, **bound})
+        shape_rows = rows[-len(MM_MODES):]
+        fastest = min(shape_rows, key=lambda r: r["ms"])
+        adaptive = next(r for r in shape_rows
+                        if r["mode"] == "adaptive" and r["rinse"])
+        summary.append({
+            "shape": name, "fastest_mode": [fastest["mode"],
+                                            fastest["rinse"]],
+            "fastest_ms": fastest["ms"], "adaptive_ms": adaptive["ms"],
+            "adaptive_over_fastest": adaptive["ms"] / fastest["ms"],
+            "schedules": len(measured), "library_ms": library_ms,
+            **bound})
+        del a, b
+        torch.cuda.empty_cache()
+    emit({"phase": "policy_matmul", "gpu": gpu, "launch_counts": launches,
+          "main_path_s": main_s, "phase_s": time.perf_counter() - t0,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cta_tile": {str(t).removeprefix("torch."): v
+                       for t, v in mk.CTA_TILE.items()},
+          "rows": rows})
+    emit({"phase": "policy_matmul_summary", "gpu": gpu, "shapes": summary})
+
+    def main_row(out):
+        return next(r for r in rows if r["shape"] == "prefill_qo"
+                    and r["out"] == out)
+
+    return {"launches": launches, "errs": errs,
+            "accumulate": main_row("resident_accum"),
+            "split": main_row("stream")}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve yi-9b at full width
 # ---------------------------------------------------------------------------
 
@@ -972,7 +1164,8 @@ def _serve(cfg, params, reqs, n_pages=None):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = eng.serve_stats() | {"paged": eng.paged}
+    stats = eng.serve_stats() | {"paged": eng.paged,
+                                 "decode_splits": eng.decode_splits}
     held = (eng.n_pages - eng.allocator.free_count()) if eng.paged else 0
     del eng
     return wall, chunk_s, stats, held
@@ -982,10 +1175,11 @@ def _kernel_modules():
     from repro_torch.kernels.decode_attention import decode_attention as dk
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.fused_norm import fused_norm as nk
+    from repro_torch.kernels.matmul import matmul as mk
     from repro_torch.kernels.moe_gmm import moe_gmm as gk
     from repro_torch.kernels.ssd import ssd as sk
 
-    return dk, fk, nk, sk, gk
+    return dk, fk, nk, sk, gk, mk
 
 
 def reset_counts() -> None:
@@ -995,7 +1189,7 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    dk, fk, nk, sk, gk = _kernel_modules()
+    dk, fk, nk, sk, gk, mk = _kernel_modules()
     return {"decode_paged": dk.paged_decode_attention.launches,
             "decode_dense": dk.decode_attention.launches,
             "flash_paged": fk.paged_flash_attention.launches,
@@ -1003,12 +1197,15 @@ def counts() -> dict:
             "fused_norm": nk.fused_norm.launches,
             "ssd": sk.ssd.launches,
             "grouped_matmul": gk.grouped_matmul.launches,
+            "matmul": mk.matmul.launches,
+            "matmul_split": mk.matmul.splitk_launches,
             "plain": (dk.paged_decode_attention_plain.calls
                       + dk.decode_attention_plain.calls
                       + fk.paged_flash_attention_plain.calls
                       + fk.flash_attention_plain.calls
                       + nk.fused_norm_plain.calls + sk.ssd_plain.calls
-                      + gk.grouped_matmul_plain.calls)}
+                      + gk.grouped_matmul_plain.calls
+                      + mk.matmul_plain.calls)}
 
 
 def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
@@ -1016,7 +1213,8 @@ def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
     SSD kernel per Mamba-2 layer, every decode step one decode kernel per
     attention layer, both one fused norm per norm (two per attention
     block, one per Mamba-2 layer, plus the final one) and three grouped
-    GEMMs per MoE layer; nothing takes a plain version.  Attention layers:
+    GEMMs per MoE layer; no serve path calls the planned matmul, and
+    nothing takes a plain version.  Attention layers:
     all of a dense or MoE model's, the shared block's invocations of
     zamba2, none of mamba2's."""
     L, steps = cfg.n_layers, stats["chunks"] * 8
@@ -1031,7 +1229,8 @@ def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
             "flash_dense": 0 if paged else attn * waves,
             "fused_norm": (2 * attn + ssm + 1) * (waves + steps),
             "ssd": ssm * waves,
-            "grouped_matmul": 3 * moe * (waves + steps), "plain": 0}
+            "grouped_matmul": 3 * moe * (waves + steps), "matmul": 0,
+            "matmul_split": 0, "plain": 0}
     if got != want:
         raise AssertionError(f"{arm} arm: launch counts {got} != {want}")
 
@@ -1069,6 +1268,11 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
     counts_paged = counts()
     check_counts(name, counts_paged, cfg, stats)
     check_streams(name, reqs, cfg)
+    if cfg.n_heads and stats["decode_splits"] != planned_splits(
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_):
+        raise AssertionError(f"{name}: the engine baked "
+                             f"{stats['decode_splits']} decode splits, not "
+                             "its policy engine's plan")
     tokens = sum(len(r.generated) for r in reqs)
     peak = torch.cuda.max_memory_allocated()
     line = {
@@ -1085,6 +1289,7 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
         "host_syncs_per_token": stats["host_syncs_per_token"],
         "admission_waves": stats["admission_waves"],
         "engine_paged": stats["paged"],
+        "decode_splits": stats["decode_splits"],
         "peak_pages_held": stats["peak_pages_held"],
         "max_memory_allocated": peak, "launch_counts": counts_paged,
     }
@@ -1437,15 +1642,29 @@ def main() -> int:
         return 1
     from repro_torch.configs import mamba2_13b, olmoe_1b_7b, yi_9b, zamba2_27b
 
+    from repro_torch import hw
+
     gpu = card_line()
+    props = torch.cuda.get_device_properties(0)
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_kernels()})
+          "cuda": torch.version.cuda,
+          "device": {"sms": props.multi_processor_count,
+                     "total_memory": props.total_memory,
+                     "l2_cache_size": props.L2_cache_size},
+          "h100_model": {"hbm_bytes": hw.H100.hbm_bytes,
+                         "hbm_bw": hw.H100.hbm_bw,
+                         "residency_bytes": hw.H100.vmem_bytes,
+                         "residency_budget": hw.H100.vmem_budget,
+                         "peak_flops_bf16": hw.H100.peak_flops_bf16,
+                         "peak_flops_fp32": hw.H100.peak_flops_fp32},
+          "build_s": build_kernels()})
     kern = phase_kernels(gpu, args.seed)
     flash = phase_flash(gpu, args.seed)
     norm = phase_norm(gpu, args.seed)
     ssd = phase_ssd(gpu, args.seed)
     phase_attn_zamba2(gpu, args.seed)
     gmm = phase_gmm(gpu, args.seed)
+    mm = phase_policy_matmul(gpu, args.seed)
     served = {}                 # each main path's launch counts
     paged = dict(cache_layout="paged", kv_page_size=PSZ,
                  decode_kernel="pallas_paged")
@@ -1514,7 +1733,15 @@ def main() -> int:
              norm["main"]),
             ("ssd", "ssd", launched("ssd"), ssd["err"], ssd["main"]),
             ("grouped_matmul", "moe_gmm", launched("grouped_matmul"),
-             gmm["err"], gmm["main"])]
+             gmm["err"], gmm["main"]),
+            ("matmul", "matmul",
+             (mm["launches"]["matmul"],
+              {"policy_matmul": mm["launches"]["matmul"]}),
+             mm["errs"]["accumulate"], mm["accumulate"]),
+            ("matmul(split_k>1)", "matmul",
+             (mm["launches"]["matmul_split"],
+              {"policy_matmul": mm["launches"]["matmul_split"]}),
+             mm["errs"]["split"], mm["split"])]
     summary = []
     for name, source, (count, by_path), err, row in rows:
         summary.append({

@@ -22,6 +22,22 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """``ModelConfig.dtype`` string -> torch dtype."""
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    return _DTYPES[name]
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """torch dtype -> the name the JAX package gives it (``"bfloat16"``),
+    the inverse of :func:`torch_dtype`.  The policy engine sizes operands
+    with ``hw.dtype_bytes``, which does not know ``str(torch.bfloat16)``
+    (``"torch.bfloat16"``), and its plan-cache fingerprints hold the name,
+    so the port plans with the reference's names."""
+    for name, t in _DTYPES.items():
+        if t == dtype:
+            return name
+    raise ValueError(f"no planner name for {dtype}: expected one of "
+                     f"{sorted(map(str, _DTYPES.values()))}")

@@ -370,8 +370,8 @@ def _decode_step_kernel(q, kc, vc, kv_len, cfg, pages):
     from repro_torch.kernels.decode_attention import ops as dec_ops
 
     q1 = q[:, 0]                                       # (b, hq, dh)
-    # A pinned count, or None: then the ops plan it (plan_splits), the one
-    # place a split count is planned.
+    # The count ServeEngine baked from its decode plan, or a pinned one; 0
+    # (a direct model user) leaves it to plan_splits' default target.
     splits = cfg.decode_splits or None
     if pages is not None:
         psz, n_pages = kc.shape[1], pages.shape[1]

@@ -37,6 +37,13 @@ adaptive policy.
   it stops making progress.  With ``preemption=False`` a gated head waits.
 * **Chaos** (``serve.chaos``).  Seeded alloc and share refusals and forced
   preemptions, drawn as the reference draws them.
+* **Cache policy** (``repro_torch.core``).  The policy engine
+  (``make_engine()``: the H100 model unless the caller passes another)
+  sets the KV residency of the pool actually allocated and plans the
+  decode-attention op at every admission wave (a PlanCache hit after the
+  first); its plan sets the decode kernels' split count, baked into the
+  config before the model is built.  ``policy_report()`` returns these
+  decisions with the pool, sharing and lifecycle state.
 * **Recurrent families** (mamba2, zamba2).  Re-admission zeroes a slot's
   SSM state and conv window (``reset_slots``); a paged config whose cache
   has no pages (mamba2) runs contiguous bookkeeping.
@@ -44,7 +51,7 @@ adaptive policy.
 Not ported yet, and refused at construction: speculative decode, KV
 integrity and page corruption, crash points, the adaptive policy, the
 request journal and non-greedy sampling (and, through ``build_model``, the
-MoE, encdec and VLM families).
+encdec and VLM families).
 """
 from __future__ import annotations
 
@@ -56,8 +63,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import hw
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import CachePolicyEngine, make_engine
+from repro_torch.core.characterize import attention_op
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention.ops import plan_splits
 from repro_torch.models import build_model
 from repro_torch.models.common import paged_kv_spec
 from repro_torch.serve.alloc import PageAllocator
@@ -155,7 +166,8 @@ class ServeEngine:
                  max_len: int, chunk_size: int = 8,
                  n_pages: int | None = None, max_queue: int | None = None,
                  journal_path: str | None = None,
-                 no_progress_limit: int = 256, device=None):
+                 no_progress_limit: int = 256, device=None,
+                 policy_engine: CachePolicyEngine | None = None):
         self.device = resolve_device(device)
         _refuse_unported(cfg, journal_path)
         if cfg.n_experts and cfg.moe_dispatch != "dense":
@@ -180,8 +192,21 @@ class ServeEngine:
             self.page_size = psz
             self.pages_per_slot, self.n_pages = paged_kv_spec(
                 batch_slots, max_len, psz, n_pages)
-        # The decode kernels' split count is cfg.decode_splits, or planned by
-        # the decode-attention ops at each step (plan_splits, no engine plan).
+        # The cache policy engine (DESIGN.md §5): KV residency for the pool
+        # actually allocated, and the decode-attention plan, memoized in the
+        # engine's PlanCache (one lattice search a serve process, a hit for
+        # every later admission wave).
+        self.policy = policy_engine or make_engine()
+        self.kv_residency = self.policy.kv_policy(self._kv_bytes_per_layer())
+        self.decode_plan = self._plan_decode()
+        # The decode kernels' split count: the decode plan's (one split per
+        # planned KV block), baked into the config the model is built with;
+        # cfg.decode_splits == 0 means "let the plan decide", and an
+        # explicit count wins.
+        self.decode_splits = self._decode_kernel_splits()
+        if cfg.decode_kernel != "xla" and cfg.decode_splits == 0:
+            cfg = dataclasses.replace(cfg, decode_splits=self.decode_splits)
+            self.cfg = cfg
         self.model = build_model(cfg, self.device)
         self.cache = self.model.init_cache(
             params, batch=batch_slots, max_len=max_len,
@@ -189,7 +214,10 @@ class ServeEngine:
         # A cache with no KV to page (mamba2's decode state is O(1) per
         # slot) falls back to contiguous bookkeeping: no allocator, no page
         # table, no admission gated on a phantom pool.
-        self.paged = self.paged and "pages" in self.cache
+        if self.paged and "pages" not in self.cache:
+            self.paged = False
+            self.kv_residency = self.policy.kv_policy(
+                self._kv_bytes_per_layer())
         if self.paged:
             self.allocator = self._make_allocator()
             self.page_table = np.full(
@@ -266,6 +294,116 @@ class ServeEngine:
     def free_pages(self) -> list[int]:
         """Free-list view (paged only)."""
         return self.allocator.free_pages
+
+    # -- cache policy --------------------------------------------------------
+
+    def _kv_bytes_per_layer(self) -> int:
+        """Real per-layer KV footprint, so residency planning sees the bytes
+        actually allocated: the paged pool's n_pages x page_size positions,
+        not the contiguous worst case of slots x max_len."""
+        kv_heads = max(1, self.cfg.n_kv_heads)
+        positions = (self.n_pages * self.page_size if self.paged
+                     else self.slots * self.max_len)
+        return (2 * positions * kv_heads
+                * self.cfg.head_dim_ * hw.dtype_bytes(self.cfg.dtype))
+
+    def _plan_decode(self):
+        if not (self.cfg.n_heads and self.cfg.head_dim_):
+            return None
+        return self.policy.plan_op(attention_op(
+            self.slots, self.cfg.n_heads, max(1, self.cfg.n_kv_heads),
+            1, self.max_len, self.cfg.head_dim_, causal=False,
+            name="serve_decode",
+        ))
+
+    def _decode_kernel_splits(self) -> int:
+        """Split-K parallelism for the decode kernels, planned from
+        ``decode_plan`` (one split per engine-planned KV block) unless the
+        config pins an explicit count.  Paged engines split over logical
+        pages (the kernel's KV block is one page); contiguous ones over
+        the ring."""
+        if self.cfg.decode_splits:
+            return self.cfg.decode_splits
+        if self.paged:
+            s, bkv = self.pages_per_slot * self.page_size, self.page_size
+        else:
+            s, bkv = self.max_len, min(512, self.max_len)
+        return plan_splits(s, bkv, plan=self.decode_plan)
+
+    def policy_report(self) -> dict:
+        """Serving-side policy decisions (DESIGN.md §5) and planner
+        counters: the reference's sections for the features the port has
+        (speculative decode, the adaptive policy and KV integrity come
+        with their slices)."""
+        report = {
+            "kv_bytes_per_layer": self._kv_bytes_per_layer(),
+            "kv_residency": self.kv_residency.value,
+            # Effective layout: "contiguous" when a paged request met a
+            # cache family with no KV to page.
+            "cache_layout": "paged" if self.paged else "contiguous",
+            "sampling": self.sampler.mode,
+            "plan_cache": self.policy.plan_stats(),
+        }
+        if self.paged:
+            report["paged_kv"] = {
+                "n_pages": self.n_pages,
+                "page_size": self.page_size,
+                "free_pages": self.allocator.free_count(),
+                "pool_positions": self.n_pages * self.page_size,
+                "contiguous_positions": self.slots * self.max_len,
+            }
+        report["prefix_sharing"] = {
+            "requested": bool(self.cfg.prefix_sharing),
+            "enabled": self.prefix_sharing,
+        }
+        if self.prefix is not None:
+            report["prefix_sharing"].update({
+                "trie_nodes": len(self.prefix),
+                "resident_prefix_tokens": self.prefix.resident_tokens(),
+            })
+        alloc = self.allocator if self.paged else None
+        report["lifecycle"] = {
+            "preemption_enabled": self.preemption,
+            "max_queue": self.max_queue,
+            "preempted": self.stats["preempted"],
+            "preempted_forced": self.stats["preempted_forced"],
+            "recompute_tokens": self.stats["recompute_tokens"],
+            "cancelled": self.stats["cancelled"],
+            "expired": self.stats["expired"],
+            "rejected": self.stats["rejected"],
+            "goodput_under_deadline": self._goodput(),
+            "chaos": {
+                "alloc_fail_p": self.cfg.chaos_alloc_fail_p,
+                "preempt_p": self.cfg.chaos_preempt_p,
+                "share_fail_p": self.cfg.chaos_share_fail_p,
+                "corrupt_p": self.cfg.chaos_corrupt_p,
+                "crash_after_wave": self.cfg.chaos_crash_after_wave,
+                "seed": self.cfg.chaos_seed,
+                "injected_alloc_failures": (
+                    alloc.injected_failures
+                    if isinstance(alloc, ChaosAllocator) else 0),
+                "injected_share_failures": (
+                    alloc.injected_share_failures
+                    if isinstance(alloc, ChaosAllocator) else 0),
+                "injected_corruptions": 0,
+            },
+        }
+        if self.decode_plan is not None:
+            report["decode_attention"] = {
+                "assignment": {
+                    k: v.value for k, v in self.decode_plan.assignment.items()
+                },
+                "vmem_bytes": self.decode_plan.vmem_bytes,
+                "grid_order": list(self.decode_plan.grid_order),
+                # The decode-step route the model was built with, and the
+                # split count baked from decode_plan (the kernels' grid
+                # parallelism when not "xla").
+                "kernel": self.cfg.decode_kernel,
+                "planned_splits": self.decode_splits,
+                "kernel_bkv": (self.page_size if self.paged
+                               else min(512, self.max_len)),
+            }
+        return report
 
     # -- requests ------------------------------------------------------------
 
@@ -365,10 +503,14 @@ class ServeEngine:
         out["prefix_hit_rate"] = (
             out["prefix_hits_fresh"] / out["admitted_fresh"]
             if out["admitted_fresh"] else 0.0)
-        deadlined = out["deadline_total"]
-        out["goodput_under_deadline"] = (
-            out["deadline_met"] / deadlined if deadlined else 1.0)
+        out["goodput_under_deadline"] = self._goodput()
         return out
+
+    def _goodput(self) -> float:
+        """Fraction of deadlined requests that reached a terminal state
+        within their deadline; 1.0 when no request carried one."""
+        total = self.stats["deadline_total"]
+        return self.stats["deadline_met"] / total if total else 1.0
 
     # -- device steps --------------------------------------------------------
 
@@ -624,6 +766,9 @@ class ServeEngine:
             new_rem[slot] = r.max_new_tokens - len(r.generated) - 1
         if self.paged:
             self.cache["pages"] = torch.from_numpy(self.page_table.copy()).to(dev)
+        # Admission consults the policy engine: the (PlanCache-memoized)
+        # decode-attention plan.
+        self.decode_plan = self._plan_decode()
         nxt = self._prefill(torch.from_numpy(toks).to(dev),
                             torch.from_numpy(seg).to(dev),
                             torch.from_numpy(start).to(dev),

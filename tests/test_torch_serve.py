@@ -75,8 +75,9 @@ def test_streams_invariant_to_chunk_size_and_kernel(params):
 
 
 def test_planned_splits_paged_equals_gather(params):
-    """With decode_splits 0 the ops plan the split count, the same for the
-    paged and the gather route, so their streams are equal."""
+    """With decode_splits 0 the engine plans the split count from its
+    policy engine, the same for the paged and the gather route, so their
+    streams are equal."""
     paged, _ = _serve(_port(decode_splits=0), params)
     assert _serve(_port("pallas_gather", decode_splits=0), params)[0] == paged
 
