@@ -471,7 +471,8 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.act == "swiglu":
         h = torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])
     else:
-        h = torch.nn.functional.gelu(x @ p["wu"])
+        # jax.nn.gelu defaults to the tanh form (approximate=True).
+        h = torch.nn.functional.gelu(x @ p["wu"], approximate="tanh")
     return h @ p["wd"]
 
 

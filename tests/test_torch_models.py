@@ -231,3 +231,30 @@ def test_unported_family_raises():
         build_model(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="'encdec'"):
         convert.from_jax({"layers": {}}, cfg, "cpu")
+
+
+@pytest.mark.parametrize("form", ["port", "exact"])
+def test_gelu_mlp_matches_jax(form):
+    """``apply_mlp`` with ``act="gelu"`` at granite-20b SMOKE's MLP shapes
+    (d 64, d_ff 256), fp32, on the same numpy weights: the port agrees
+    with ``jax.nn.gelu`` (the tanh form by default) within 1e-5, and the
+    exact (erf) form would not, so the case guards the choice of form."""
+    jcfg = jax_config("granite-20b", smoke=True)
+    assert jcfg.act == "gelu"
+    tcfg = dataclasses.replace(get_config("yi-9b", smoke=True), act="gelu",
+                               d_model=jcfg.d_model, d_ff=jcfg.d_ff)
+    d, f = jcfg.d_model, jcfg.d_ff
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 7, d)).astype(np.float32)
+    p = {"wu": (2.0 * d ** -0.5 * rng.standard_normal((d, f))).astype(
+             np.float32),
+         "wd": (f ** -0.5 * rng.standard_normal((f, d))).astype(np.float32)}
+    want = np.asarray(jcm.apply_mlp(p, jnp.asarray(x), jcfg))
+    tp = {k: torch.from_numpy(a) for k, a in p.items()}
+    if form == "port":
+        got = cm.apply_mlp(tp, torch.from_numpy(x), tcfg).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    else:
+        h = torch.nn.functional.gelu(torch.from_numpy(x) @ tp["wu"])
+        got = (h @ tp["wd"]).numpy()
+        assert np.abs(got - want).max() > 1e-5
