@@ -10,15 +10,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the time to build the six CUDA kernels (split-KV decode attention,
    flash attention, fused norm, the Mamba-2 SSD scan, the MoE grouped GEMM,
    the policy-planned matmul; one nvcc each, started together) from
-   src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/;
+   src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/,
+   and the registers, stack and spills nvcc -Xptxas -v reports for the two
+   attention kernels;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
      page 16, 16 slots, contexts 512 and 2048, splits 1, the count the
      policy engine plans for the serve engine (4) and 8, the count of the
-     plan-free default), paged == dense bitwise, the reference's property
+     plan-free default), at the serve arms' ragged live lengths (32-1152,
+     one parked slot) at the same splits, at granite-20b's MQA shape (hq
+     48, hkv 1: three group tiles), paged == dense bitwise, each beside
+     the device time of its combine_partials, the reference's property
      cases;
-   * flash attention at the prefill's main shape (16 x 1024 causal), at
+   * flash attention (which body ran, and the share of TOL its error
+     uses) at the prefill's main shape (16 x 1024 causal), at
      the serve path's ragged shape (pad 1024 over a 2048-position page
      view, per-slot offsets, key and query lengths, parked slots; paged ==
      dense bitwise) and a prefix attach (a 512-token suffix at offset 512
@@ -172,6 +178,14 @@ def check_close(name, got, want, dtype) -> float:
         raise AssertionError(f"{name}: max abs err {err.max().item():.3e} "
                              f"beyond tolerance atol {atol}, rtol {rtol}")
     return err.max().item()
+
+
+def tol_used(got, want, dtype) -> float:
+    """The largest share of its tolerance that any element's error uses:
+    max |got - want| / (atol + rtol |want|) (TOL); a check passes below 1."""
+    got, want = got.float(), want.float()
+    atol, rtol = TOL[dtype]
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
 def check_equal(name, a, b) -> None:
@@ -331,10 +345,13 @@ def phase_kernels(gpu: str, seed: int) -> dict:
                     "library_ms": time_ms(library), "bound_ms": bound_ms,
                     "bound_by": bound_by, "paged_err": e_p, "dense_err": e_d,
                     "library_err": lib_err,
+                    "combine_ms": _combine_ms(SLOTS, HQ, splits, D),
                 }
                 rows.append(row)
                 if dtype == torch.bfloat16 and ctx == 2048 and splits == planned:
                     main = row
+    ragged = _decode_ragged(gen, planned, errs)
+    group48 = _decode_group48(gen, errs)
     # Contiguous-ring arm: the dense kernel over a (b, S, hkv, d) ring by
     # strides, bkv 512 (no transpose copy).
     ring = torch.randn(2, SLOTS, MAX_LEN + 1, HKV, D, generator=gen,
@@ -356,11 +373,119 @@ def phase_kernels(gpu: str, seed: int) -> dict:
     props = property_cases(gen)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "gpu": gpu, "rows": rows,
+          "ragged_rows": ragged, "group48_rows": group48,
           "planned_splits": planned, "ring_splits": splits,
           "ring_err": e_ring, "property_cases": props,
           "tol_atol_rtol": {str(t).removeprefix("torch."): v
                             for t, v in TOL.items()}})
     return {"main": main, "errs": errs}
+
+
+def _combine_ms(b: int, hq: int, splits: int, d: int) -> float:
+    """Device time of ``combine_partials`` (torch ops) on partials of one
+    decode call's shape: the part of a decode call's time that is not the
+    kernel's."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+
+    acc = torch.randn(b, hq, splits, d, device="cuda")
+    m = torch.randn(b, hq, splits, device="cuda")
+    l = torch.rand(b, hq, splits, device="cuda") + 0.5
+    return time_ms(lambda: dk.combine_partials(acc, m, l).to(torch.bfloat16))
+
+
+def _decode_case(tag, q, kp, vp, pages, lengths, splits, errs, hkv=HKV):
+    """One decode case on the card: paged and dense (the gathered view,
+    bkv = page) kernels against their plain versions and the oracle on the
+    live slots (a parked slot must give exact zeros), paged == dense
+    bitwise; timed beside the plain version, SDPA and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.models.common import gather_pages
+
+    dtype = q.dtype
+    kd = gather_pages(kp, pages).transpose(1, 2)
+    vd = gather_pages(vp, pages).transpose(1, 2)
+
+    def paged():
+        return dk.paged_decode_attention_cuda(q, kp, vp, pages, lengths,
+                                              splits=splits)
+
+    def dense():
+        return dk.decode_attention_cuda(q, kd, vd, lengths, bkv=PSZ,
+                                        splits=splits)
+
+    def plain():
+        return dk.paged_decode_attention_plain(q, kp, vp, pages, lengths,
+                                               splits=splits)
+
+    out_p, out_d, want = paged(), dense(), plain()
+    torch.cuda.synchronize()
+    e_p = check_close(f"{tag} paged s{splits}", out_p, want, dtype)
+    e_d = check_close(f"{tag} dense s{splits}", out_d, dk.decode_attention_plain(
+        q, kd, vd, lengths, bkv=PSZ, splits=splits), dtype)
+    check_equal(f"{tag} paged == dense s{splits}", out_p, out_d)
+    live = lengths > 0
+    check_close(f"{tag} oracle s{splits}", out_p[live],
+                ref.decode_attention(q, kd, vd, lengths)[live], dtype)
+    if bool((~live).any()) and bool(out_p[~live].abs().max() != 0):
+        raise AssertionError(f"{tag}: a length-0 slot must give 0")
+    errs["paged_decode_attention"] = max(errs["paged_decode_attention"], e_p)
+    errs["decode_attention"] = max(errs["decode_attention"], e_d)
+    kdc, vdc = kd.contiguous(), vd.contiguous()
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    hq = q.shape[1]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kdc, vdc, attn_mask=mask, enable_gqa=True)
+
+    bound_ms, bound_by = _bound(dtype, lengths, q.shape[0],
+                                int((pages >= 0).sum()), hq, hkv, q.shape[2])
+    return {"dtype": str(dtype).removeprefix("torch."), "splits": splits,
+            "lengths": lengths.tolist(), "paged_ms": time_ms(paged),
+            "dense_ms": time_ms(dense), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(library), "bound_ms": bound_ms,
+            "bound_by": bound_by, "paged_err": e_p, "dense_err": e_d,
+            "paged_equals_dense": True,
+            "combine_ms": _combine_ms(q.shape[0], q.shape[1], splits,
+                                      q.shape[2])}
+
+
+def _decode_ragged(gen, planned: int, errs: dict) -> list[dict]:
+    """yi-9b's decode at the serve arms' live lengths (32-1152 of 2048
+    positions, one parked slot) at splits 1, planned and 8: each split
+    walks an equal share of its slot's live pages."""
+    n_table = MAX_LEN // PSZ
+    lengths = torch.randint(32, 1153, (SLOTS,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    lengths[5] = 0
+    q, kp, vp, pages = _pool_case(gen, torch.bfloat16, lengths, n_table,
+                                  SLOTS * n_table)
+    return [_decode_case("decode ragged", q, kp, vp, pages, lengths,
+                         splits, errs) for splits in sorted({1, planned, 8})]
+
+
+def _decode_group48(gen, errs: dict) -> list[dict]:
+    """granite-20b's attention shape (hq 48, hkv 1, d 128: MQA, three
+    group tiles of 16) over 16 slots x 2048 positions, bf16 and fp32."""
+    n_table = MAX_LEN // PSZ
+    hq, hkv = 48, 1
+    splits = planned_splits(hq, hkv, D)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        lengths = torch.randint(1, MAX_LEN + 1, (SLOTS,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        lengths[0] = MAX_LEN
+        q, kp, vp, pages = _pool_case(gen, dtype, lengths, n_table,
+                                      SLOTS * n_table, hq=hq, hkv=hkv)
+        rows.append(_decode_case(f"decode group 48 {dtype}", q, kp, vp,
+                                 pages, lengths, splits, errs, hkv=hkv)
+                    | {"shape": [SLOTS, hq, hkv, MAX_LEN, D]})
+        del q, kp, vp, pages
+    return rows
 
 
 def property_cases(gen) -> list[str]:
@@ -512,8 +637,10 @@ def phase_flash(gpu: str, seed: int) -> dict:
                                           HQ, HKV, D)
         row = {"case": "main", "dtype": str(dtype).removeprefix("torch."),
                "shape": [b, HQ, HKV, sq, sq, D], "causal": True,
-               "err": e, "library_err": (library().float() - want.float()
-                                         ).abs().max().item(),
+               "body": fk.body(q, k, v),
+               "err": e, "tol_used": tol_used(got, want, dtype),
+               "library_err": (library().float() - want.float()
+                               ).abs().max().item(),
                "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5),
                "library_ms": time_ms(library), "bound_ms": bound_ms,
                "bound_by": bound_by, "gflop": 4 * pairs * HQ * D / 1e9}
@@ -575,8 +702,10 @@ def phase_flash(gpu: str, seed: int) -> dict:
                                           sq, HQ, HKV, D)
         rows.append({"case": "ragged_paged",
                      "dtype": str(dtype).removeprefix("torch."),
+                     "body": fk.body(q, kp, vp),
                      "q_len": q_len.tolist(), "q_offset": off.tolist(),
-                     "err": e, "paged_equals_dense": True,
+                     "err": e, "tol_used": tol_used(out_p, want, dtype),
+                     "paged_equals_dense": True,
                      "ms": time_ms(paged), "dense_ms": time_ms(dense),
                      "plain_ms": time_ms(plain, reps=5),
                      "library_ms": time_ms(library),
@@ -613,6 +742,7 @@ def phase_flash(gpu: str, seed: int) -> dict:
             kv_len=full), dtype)
     err = max(err, e_attach, e_plain)
     rows.append({"case": "prefix_attach", "dtype": "bfloat16",
+                 "body": fk.body(q, kp, vp),
                  "prefix": pre, "suffix": sq - pre, "err": e_attach,
                  "plain_err": e_plain,
                  "bitwise_equal": bool(torch.equal(attached,
@@ -862,7 +992,9 @@ def phase_attn_zamba2(gpu: str, seed: int) -> dict:
         bound_ms, bound_by = _flash_bound(dtype, full, need, pairs, SLOTS, sq,
                                           hq, hkv, d)
         row = {"kernel": "flash", "dtype": str(dtype).removeprefix("torch."),
+               "body": fk.body(q, k, v),
                "shape": [SLOTS, hq, hkv, sq, sq, d], "causal": True, "err": e,
+               "tol_used": tol_used(got, want, dtype),
                "ms": time_ms(fkernel), "plain_ms": time_ms(fplain, reps=5),
                "library_ms": time_ms(flibrary), "bound_ms": bound_ms,
                "bound_by": bound_by}
@@ -1617,19 +1749,66 @@ def phase_e2e(gpu: str, seed: int, base, want=None,
           "dtype": "float32", "max_abs_err": max(errs), "tol": 2e-3})
 
 
-def build_kernels() -> float:
-    """Build every kernel (one nvcc per source, started together), then
-    load each; returns the seconds it took."""
+PTXAS_REPORT = ("decode_attention", "flash_attention")
+
+
+def ptxas_report(source: pathlib.Path) -> list[dict]:
+    """Registers, static shared memory and spills of each kernel in
+    ``source``, from ``nvcc -Xptxas -v`` with the build's flags."""
+    import re
+
+    from repro_torch.kernels.common import NVCC_FLAGS, _nvcc
+
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")]
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o", "/dev/null",
+         str(source)], capture_output=True, text=True, check=True,
+        timeout=600)
+    rows, name = [], None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # e.g. ..._ZN..16flash_mma_kernelILi80EEEvNS_4ArgsE ->
+            # flash_mma_kernel<80>
+            k = re.search(r"\d+([a-z][a-z_]*_kernel)I(\w+?)EEvNS",
+                          m.group(1))
+            args = re.sub(r"Li(\d+)E", r"\1,", k.group(2)) if k else ""
+            args = (args.replace("13__nv_bfloat16", "bf16,")
+                    .replace("f", "float,", 1 if args.startswith("f") else 0))
+            name = (f"{k.group(1)}<{args.rstrip(',')}>" if k
+                    else m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            rows.append({"kernel": name, "stack_frame": int(m.group(1)),
+                         "spill_stores": int(m.group(2)),
+                         "spill_loads": int(m.group(3))})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["kernel"] == name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1] |= {"registers": int(m.group(1)),
+                         "static_smem": int(smem.group(1)) if smem else 0}
+    return rows
+
+
+def build_kernels() -> tuple[float, dict]:
+    """Build every kernel (one nvcc per source, started together, beside
+    the ptxas reports of the attention kernels), then load each; returns
+    the seconds it took and the reports."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.common import build_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + len(PTXAS_REPORT)) as pool:
+        reports = {n: pool.submit(ptxas_report, ROOT / SOURCES[n])
+                   for n in PTXAS_REPORT}
         list(pool.map(build_library, (ROOT / s for s in SOURCES.values())))
+        reports = {n: f.result() for n, f in reports.items()}
     for mod in _kernel_modules():
         mod._kernel()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, reports
 
 
 def main() -> int:
@@ -1646,6 +1825,7 @@ def main() -> int:
 
     gpu = card_line()
     props = torch.cuda.get_device_properties(0)
+    build_s, ptxas = build_kernels()
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device": {"sms": props.multi_processor_count,
@@ -1657,7 +1837,7 @@ def main() -> int:
                          "residency_budget": hw.H100.vmem_budget,
                          "peak_flops_bf16": hw.H100.peak_flops_bf16,
                          "peak_flops_fp32": hw.H100.peak_flops_fp32},
-          "build_s": build_kernels()})
+          "build_s": build_s, "ptxas": ptxas})
     kern = phase_kernels(gpu, args.seed)
     flash = phase_flash(gpu, args.seed)
     norm = phase_norm(gpu, args.seed)

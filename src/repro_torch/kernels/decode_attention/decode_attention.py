@@ -6,17 +6,24 @@ Ports ``repro/kernels/decode_attention/decode_attention.py``: the dense
 ``paged_decode_attention`` (``_paged_decode_kernel``), plus the
 ``combine_partials`` log-sum-exp merge both feed.  One hand-written CUDA
 kernel (``csrc/decode_attention.cu``) serves both: a block per
-(batch, kv head, split) loops over its split's KV blocks with an fp32
-online softmax and writes (acc, m, l) partials, which ``combine_partials``
-merges in fp32.
+(batch, kv head, split, tile of 16 query heads of the group) walks its
+split's rows with an fp32 online softmax and writes (acc, m, l) partials,
+which ``combine_partials`` merges in fp32.
+
+Splits divide each slot's live length, not the table: slot b has
+``n_b = cdiv(min(len_b, extent), bkv)`` live KV blocks, and split ``sp``
+walks blocks ``[sp * c_b, min(n_b, (sp + 1) * c_b))`` with
+``c_b = cdiv(n_b, splits)`` (``split_range``).  A split with no block
+writes ``m = -1e30, l = 0, acc = 0``.
 
 Dispatch rule of every wrapper here: tensors on the CPU take the plain
 PyTorch version; CUDA tensors launch the kernel or raise.  There is no
 fallback from the card to the plain version.  ``<wrapper>.launches``
 counts kernel launches; ``<plain>.calls`` counts plain-version calls.
 
-The plain versions follow the kernel's split and block decomposition
-(same masks, same fp32 online-softmax update per KV block), and the paged
+The plain versions follow the kernel's split decomposition (same
+splits, same masks, an fp32 online-softmax update per KV block where the
+kernel makes one per staged step of rows), and the paged
 and dense plain versions build identical per-block tensors, so with equal
 ``splits`` and ``bkv == page_size`` they are bitwise equal to each other
 (on the CPU) just as the two kernel modes are on the card.
@@ -32,7 +39,12 @@ from repro_torch.kernels.common import NEG_INF, cdiv, load_library
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "decode_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 48 * 1024     # static launch limit; the kernel asks no opt-in
+_MAX_SMEM = 232448        # a block's dynamic shared memory on sm_90
+_MAX_D = 256
+MAX_GROUP = 64            # at most four group tiles re-read each K/V tile
+GROUP_TILE = 16           # query rows of the group one block takes
+STAGES = 2                # depth of the kernel's cp.async ring
+STEP_ROWS = {torch.float32: 32, torch.bfloat16: 64}   # K/V rows a step
 
 
 def combine_partials(acc: torch.Tensor, m: torch.Tensor,
@@ -51,13 +63,27 @@ def combine_partials(acc: torch.Tensor, m: torch.Tensor,
 # Plain PyTorch versions (the CPU path, and the kernel's yardstick on the card)
 # ---------------------------------------------------------------------------
 
-def _split_kv_plain(q, load_block, lengths, hkv, splits, steps, bkv, scale):
-    """fp32 online softmax over ``steps`` KV blocks for every split at once.
+def split_range(lengths, extent: int, bkv: int, splits: int):
+    """Each slot's live-length split rule, (b,) int64 tensors ``(n, c)``:
+    slot b has ``n = cdiv(min(len_b, extent), bkv)`` live KV blocks and
+    split ``sp`` walks blocks ``[sp * c, min(n, (sp + 1) * c))`` with
+    ``c = cdiv(n, splits)``.  A split past ``n`` has no block.  The kernel
+    computes the same from ``lengths`` on the device."""
+    lens = lengths.to(torch.int64).clamp(0, extent)
+    n = (lens + bkv - 1) // bkv
+    return n, (n + splits - 1) // splits
 
-    ``load_block(ik)`` returns the (b, hkv, splits, bkv, d) fp32 K and V of
-    step ``ik`` of every split.  Masked lanes get an explicit zero
-    probability: a wholly masked block has m_cur == m_prev == NEG_INF, where
-    a bare exp(s - m_cur) would be 1."""
+
+def _split_kv_plain(q, load_rows, lengths, hkv, splits, bkv, extent, scale):
+    """fp32 online softmax over each split's live blocks, every split at
+    once, one KV block a step (the kernel's split rule, ``split_range``).
+
+    ``load_rows(blk)`` returns the (b, hkv, splits, bkv, d) K and V of the
+    (b, splits) logical block indices ``blk`` (clamped into the table).
+    Lanes past a slot's length or its split's last block are zeroed and
+    get an explicit zero probability: a wholly masked step has m_cur ==
+    m_prev, where a bare exp(s - m_cur) would be 1, and no value there (an
+    unmapped page's, say) reaches the output."""
     b, hq, d = q.shape
     group = hq // hkv
     dev = q.device
@@ -65,14 +91,21 @@ def _split_kv_plain(q, load_block, lengths, hkv, splits, steps, bkv, scale):
     acc = torch.zeros(b, hkv, splits, group, d, device=dev)
     m = torch.full((b, hkv, splits, group), NEG_INF, device=dev)
     l = torch.zeros(b, hkv, splits, group, device=dev)
-    lens = lengths.to(device=dev, dtype=torch.int64)
-    split_base = torch.arange(splits, device=dev) * steps
+    lens = lengths.to(device=dev, dtype=torch.int64).clamp(0, extent)
+    n_blk, per = split_range(lens, extent, bkv, splits)
+    first = torch.arange(splits, device=dev)[None, :] * per[:, None]
     lane = torch.arange(bkv, device=dev)
-    for ik in range(steps):
-        k_blk, v_blk = load_block(ik)
-        pos = (split_base + ik)[:, None] * bkv + lane[None, :]   # (splits, bkv)
-        mask = (pos[None] < lens[:, None, None])[:, None, :, None, :]
-        s = torch.matmul(qf, k_blk.transpose(-1, -2)) * scale    # (b,h,sp,g,bkv)
+    # Every step runs (no host sync to find the longest split).
+    for ik in range(cdiv(cdiv(extent, bkv), splits)):
+        blk = first + ik                                          # (b, splits)
+        pos = blk[..., None] * bkv + lane                         # (b, sp, bkv)
+        ok = (ik < per)[:, None, None] & (pos < lens[:, None, None])
+        k_blk, v_blk = load_rows(blk.clamp(0, cdiv(extent, bkv) - 1))
+        keep = ok[:, None, :, :, None]
+        k_blk = torch.where(keep, k_blk.float(), 0.0)
+        v_blk = torch.where(keep, v_blk.float(), 0.0)
+        mask = ok[:, None, :, None, :]                            # (b,1,sp,1,bkv)
+        s = torch.matmul(qf, k_blk.transpose(-1, -2)) * scale     # (b,h,sp,g,bkv)
         s = torch.where(mask, s, NEG_INF)
         m_cur = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_cur)
@@ -87,17 +120,14 @@ def _split_kv_plain(q, load_block, lengths, hkv, splits, steps, bkv, scale):
     return acc, m, l
 
 
-def _dense_geometry(s: int, bkv: int, splits: int) -> tuple[int, int]:
-    """(bkv, kv_steps) of the dense decomposition: ``s`` padded to
-    splits * kv_steps * bkv, as the Pallas kernel pads it."""
-    bkv = min(bkv, s)
-    return bkv, cdiv(cdiv(s, splits), bkv)
+def _dense_geometry(s: int, bkv: int) -> int:
+    """The dense mode's KV block: ``bkv`` capped at the view's width."""
+    return max(1, min(int(bkv), s))
 
 
-def _paged_geometry(n_table: int, splits: int) -> tuple[int, int]:
-    """(splits, page_steps): one KV block per logical page."""
-    splits = max(1, min(int(splits), n_table))
-    return splits, cdiv(n_table, splits)
+def _paged_geometry(n_table: int, splits: int) -> int:
+    """The paged mode's split count: at most one split per table page."""
+    return max(1, min(int(splits), n_table))
 
 
 def decode_attention_plain(q, k, v, lengths=None, *, scale=None, bkv=512,
@@ -110,21 +140,17 @@ def decode_attention_plain(q, k, v, lengths=None, *, scale=None, bkv=512,
     scale = float(scale if scale is not None else d ** -0.5)
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    bkv, steps = _dense_geometry(s, bkv, splits)
-    s_pad = splits * steps * bkv
-    if s_pad != s:
-        pad = (0, 0, 0, s_pad - s)
-        k = torch.nn.functional.pad(k, pad)
-        v = torch.nn.functional.pad(v, pad)
-    kb = k.reshape(b, hkv, splits, steps, bkv, d)
-    vb = v.reshape(b, hkv, splits, steps, bkv, d)
+    bkv = _dense_geometry(s, bkv)
+    lane = torch.arange(bkv, device=q.device)
+    slot = torch.arange(b, device=q.device)[:, None, None]
 
-    def load_block(ik):
-        return (kb[:, :, :, ik].to(torch.float32).contiguous(),
-                vb[:, :, :, ik].to(torch.float32).contiguous())
+    def load_rows(blk):
+        pos = (blk[..., None] * bkv + lane).clamp_max(s - 1)     # (b, sp, bkv)
+        return (k[slot, :, pos].permute(0, 3, 1, 2, 4),
+                v[slot, :, pos].permute(0, 3, 1, 2, 4))
 
-    acc, m, l = _split_kv_plain(q, load_block, lengths, hkv, splits, steps,
-                                bkv, scale)
+    acc, m, l = _split_kv_plain(q, load_rows, lengths, hkv, splits, bkv, s,
+                                scale)
     return combine_partials(acc, m, l).to(q.dtype)
 
 
@@ -142,24 +168,19 @@ def paged_decode_attention_plain(q, k_pool, v_pool, pages, lengths=None, *,
     scale = float(scale if scale is not None else d ** -0.5)
     if lengths is None:
         lengths = torch.full((b,), P * psz, dtype=torch.int32, device=q.device)
-    splits, steps = _paged_geometry(P, splits)
-    split_base = torch.arange(splits, device=q.device) * steps
+    splits = _paged_geometry(P, splits)
     pages = pages.to(q.device).long()
+    slot = torch.arange(b, device=q.device)[:, None]
 
-    def load_block(ik):
-        # Grid overrun past P clamps to P - 1 and unmapped (-1) entries to
-        # page 0; every lane they feed sits at pos >= lengths and is masked.
-        lp = (split_base + ik).clamp_max(P - 1)
-        phys = pages[:, lp].clamp(0, N - 1)                     # (b, splits)
+    def load_rows(blk):
+        # Unmapped (-1) entries clamp to page 0; every lane they feed sits
+        # at pos >= lengths and is zeroed.
+        phys = pages[slot, blk].clamp(0, N - 1)                  # (b, splits)
+        return (k_pool[phys].permute(0, 3, 1, 2, 4),
+                v_pool[phys].permute(0, 3, 1, 2, 4))
 
-        def blk(pool):
-            return (pool[phys].permute(0, 3, 1, 2, 4)
-                    .to(torch.float32).contiguous())
-
-        return blk(k_pool), blk(v_pool)
-
-    acc, m, l = _split_kv_plain(q, load_block, lengths, hkv, splits, steps,
-                                psz, scale)
+    acc, m, l = _split_kv_plain(q, load_rows, lengths, hkv, splits, psz,
+                                P * psz, scale)
     return combine_partials(acc, m, l).to(q.dtype)
 
 
@@ -174,7 +195,7 @@ def _bind(lib) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.split_kv_decode.argtypes = [
         i32, p, i64, i64, p, p, p, i64, i64, i64, i32, i32, i32, p,
-        p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p,
+        p, p, p, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p,
     ]
     lib.split_kv_decode.restype = i32
 
@@ -195,7 +216,19 @@ def _all_cpu(*tensors) -> bool:
     return all(t is None or t.device.type == "cpu" for t in tensors)
 
 
-def _check_inputs(name, q, k, v, pages, lengths, group, d, bkv):
+def smem_bytes(dtype, d: int) -> int:
+    """Dynamic shared memory of one block (the kernel's layout): a
+    ``STAGES``-deep ring of K and V tiles of ``rows`` rows, each row padded
+    by 16 bytes, and of their row offsets; the group tile's fp32 query
+    rows and its scores."""
+    es = torch.empty((), dtype=dtype).element_size()
+    rows = STEP_ROWS[dtype]
+    row_bytes = cdiv(d * es, 16) * 16
+    return (STAGES * 2 * rows * (row_bytes + 16) + 8 * STAGES * rows
+            + 4 * GROUP_TILE * (row_bytes // es + rows + 1))
+
+
+def _check_inputs(name, q, k, v, pages, lengths, group, d):
     """Raise ValueError naming what the kernel does not take.  Never routes
     anything to the plain version."""
     if q.dim() != 3:
@@ -211,13 +244,13 @@ def _check_inputs(name, q, k, v, pages, lengths, group, d, bkv):
     if q.stride(-1) != 1 or k.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim of q, k and v must be "
                          "contiguous (stride 1)")
-    if group > 16 or d > 256:
-        raise ValueError(f"{name}: group {group} > 16 or head dim {d} > 256 "
-                         "is beyond the kernel's register tiles")
-    if 4 * group * (d + bkv) + 8 * bkv > _MAX_SMEM:
-        raise ValueError(f"{name}: group {group} x (d {d} + bkv {bkv}) fp32 "
-                         f"and {bkv} row offsets exceed {_MAX_SMEM} bytes of "
-                         "shared memory")
+    if group > MAX_GROUP or d > _MAX_D:
+        raise ValueError(f"{name}: group {group} > {MAX_GROUP} or head dim "
+                         f"{d} > {_MAX_D} is beyond the kernel's tiles")
+    if smem_bytes(q.dtype, d) > _MAX_SMEM:
+        raise ValueError(f"{name}: head dim {d} needs "
+                         f"{smem_bytes(q.dtype, d)} bytes of shared memory, "
+                         f"more than {_MAX_SMEM}")
     for label, t in (("lengths", lengths), ("pages", pages)):
         if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
             raise ValueError(f"{name}: {label} must be contiguous int32, got "
@@ -231,7 +264,7 @@ def _check_inputs(name, q, k, v, pages, lengths, group, d, bkv):
 
 
 def _launch(q, k, v, kv_strides, pages, psz, n_table, n_pages, lengths,
-            hkv, splits, steps, bkv, extent, scale):
+            hkv, splits, bkv, extent, scale):
     b, hq, d = q.shape
     acc = torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hq, splits), dtype=torch.float32, device=q.device)
@@ -242,7 +275,7 @@ def _launch(q, k, v, kv_strides, pages, psz, n_table, n_pages, lengths,
         k.data_ptr(), v.data_ptr(), pages.data_ptr() if pages is not None
         else None, *kv_strides, psz, n_table, n_pages, lengths.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, hkv, hq // hkv, d,
-        splits, steps, bkv, extent, scale, stream,
+        splits, bkv, extent, scale, stream,
     )
     if err != 0:
         raise RuntimeError(f"split_kv_decode launch failed: CUDA error {err}")
@@ -257,15 +290,14 @@ def decode_attention_cuda(q, k, v, lengths=None, *, scale=None, bkv=512,
     _, hkv, s, _ = k.shape
     if hq % hkv:
         raise ValueError(f"decode_attention: hq {hq} % hkv {hkv} != 0")
-    bkv, steps = _dense_geometry(s, bkv, splits)
+    bkv = _dense_geometry(s, bkv)
+    splits = max(1, int(splits))
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    _check_inputs("decode_attention", q, k, v, None, lengths, hq // hkv, d,
-                  bkv)
+    _check_inputs("decode_attention", q, k, v, None, lengths, hq // hkv, d)
     scale = float(scale if scale is not None else d ** -0.5)
     acc, m, l = _launch(q, k, v, (k.stride(0), k.stride(1), k.stride(2)),
-                        None, 1, 0, 0, lengths, hkv, splits, steps, bkv, s,
-                        scale)
+                        None, 1, 0, 0, lengths, hkv, splits, bkv, s, scale)
     decode_attention.launches += 1
     return combine_partials(acc, m, l).to(q.dtype)
 
@@ -279,16 +311,16 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, pages, lengths=None, *,
     P = pages.shape[1]
     if hq % hkv:
         raise ValueError(f"paged_decode_attention: hq {hq} % hkv {hkv} != 0")
-    splits, steps = _paged_geometry(P, splits)
+    splits = _paged_geometry(P, splits)
     if lengths is None:
         lengths = torch.full((b,), P * psz, dtype=torch.int32, device=q.device)
     _check_inputs("paged_decode_attention", q, k_pool, v_pool, pages,
-                  lengths, hq // hkv, d, psz)
+                  lengths, hq // hkv, d)
     scale = float(scale if scale is not None else d ** -0.5)
     acc, m, l = _launch(
         q, k_pool, v_pool,
         (k_pool.stride(0), k_pool.stride(1), k_pool.stride(2)),
-        pages, psz, P, N, lengths, hkv, splits, steps, psz, P * psz, scale,
+        pages, psz, P, N, lengths, hkv, splits, psz, P * psz, scale,
     )
     paged_decode_attention.launches += 1
     return combine_partials(acc, m, l).to(q.dtype)

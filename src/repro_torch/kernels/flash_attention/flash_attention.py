@@ -2,9 +2,12 @@
 PyTorch versions.  The port's prefill attention.
 
 Ports ``repro/kernels/flash_attention/flash_attention.py`` (Pallas
-``_flash_kernel``) with one hand-written CUDA kernel
-(``csrc/flash_attention.cu``): a block per (q tile, q head, batch) runs
-an fp32 online softmax over KV tiles held in shared memory.  Beside the
+``_flash_kernel``) with one hand-written CUDA source
+(``csrc/flash_attention.cu``): a block per (q tile of 64 rows, q head,
+batch) runs an fp32 online softmax over K/V tiles staged in shared
+memory.  bf16 with a head dim up to 128 and 16-byte aligned rows takes
+the tensor-core body (``mma.sync``, see :func:`body`); fp32 and the other
+bf16 shapes the CUDA-core body.  Beside the
 Pallas kernel's arguments (``q (b, hq, sq, d)``, ``k/v (b, hkv, skv, d)``,
 ``causal``, ``scale``, ``q_offset``) it takes what the serve path needs,
 per slot:
@@ -138,6 +141,10 @@ def _bind(lib) -> None:
         ctypes.c_float, i32, p,
     ]
     lib.flash_attention.restype = i32
+    lib.flash_attention_body.argtypes = [
+        i32, p, i64, i64, i64, p, i64, i64, i64, p, p, i64, i64, i64, i32,
+    ]
+    lib.flash_attention_body.restype = i32
 
 
 _flash = None
@@ -150,6 +157,19 @@ def _kernel():
     if _flash is None:
         _flash = load_library(_SOURCE, _bind).flash_attention
     return _flash
+
+
+def body(q, k, v) -> str:
+    """Which device body the kernel runs for these CUDA tensors (k/v dense
+    (b, hkv, skv, d) or pools (N, page_size, hkv, d): the strides it reads
+    are the first three either way): ``"mma"`` (bf16 on the tensor cores)
+    or ``"cuda_cores"``.  The rule is the library's own."""
+    fn = load_library(_SOURCE, _bind).flash_attention_body
+    return "mma" if fn(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
+        q.stride(2), q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+        q.shape[-1]) else "cuda_cores"
 
 
 def _slot_vector(name, label, x, b, default, device) -> torch.Tensor:

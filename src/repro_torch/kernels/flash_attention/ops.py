@@ -2,8 +2,8 @@
 ``repro.kernels.flash_attention.ops``).
 
 The reference's ``bq``/``bkv``/``engine`` block planning has no
-counterpart yet: the CUDA kernel's tiles are fixed (64 query rows, 32 key
-rows), and ``repro.core`` is not ported.
+counterpart yet: the CUDA kernel's tiles are fixed (64 query rows; 64 key
+rows on the tensor-core body, 32 on the CUDA-core body).
 """
 from __future__ import annotations
 

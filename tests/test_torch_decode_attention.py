@@ -155,6 +155,77 @@ def test_unmapped_tail_contributes_nothing():
     assert torch.equal(clean, dirty)
 
 
+LIVE_LENGTHS = (0, 1, 15, 16, 17, 300, 513, 640)   # 640: the full table
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+def test_live_length_splits_match_jax(splits):
+    """Splits over each slot's live blocks (``split_range``) at lengths
+    {0, 1, 15, 16, 17, 300, 513, full}: the paged plain version against
+    the paged Pallas kernel (interpret mode) and the oracle, paged ==
+    dense bitwise, and the dense version at bkv 512 (the contiguous ring's
+    block) against the dense Pallas kernel."""
+    b, hq, hkv, psz, P, d = len(LIVE_LENGTHS), 8, 2, 16, 40, 32
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, hq, d), np.float32)
+    kp = rng.standard_normal((b * P + 3, psz, hkv, d), np.float32)
+    vp = rng.standard_normal((b * P + 3, psz, hkv, d), np.float32)
+    lengths = np.array(LIVE_LENGTHS, np.int32)
+    mapped = -(-lengths // psz)
+    pages = rng.permutation(b * P + 3)[:b * P].reshape(b, P)
+    pages = np.where(np.arange(P)[None] < mapped[:, None], pages,
+                     -1).astype(np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, "float32") for x in (q, kp, vp))
+    tpages, tlens = torch.from_numpy(pages), torch.from_numpy(lengths)
+    got = ops.paged_decode_attention(tq, tk, tv, tpages, tlens,
+                                     splits=splits)
+    want = jops.paged_decode_attention(jq, jk, jv, jnp.asarray(pages),
+                                       jnp.asarray(lengths), splits=splits)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    kd = gather_pages(tk, tpages).transpose(1, 2)
+    vd = gather_pages(tv, tpages).transpose(1, 2)
+    # The oracle's softmax over no key is NaN: slot 0 (length 0) is held
+    # to exact zeros below instead.
+    np.testing.assert_allclose(
+        _np(got)[1:], _np(jref.decode_attention(
+            jq, jnp.asarray(kd.numpy()), jnp.asarray(vd.numpy()),
+            jnp.asarray(lengths)))[1:], **TOL["float32"])
+    assert torch.equal(got, ops.decode_attention(tq, kd, vd, tlens, bkv=psz,
+                                                 splits=splits))
+    assert not got[0].any()                      # length 0: a parked slot
+    ring = ops.decode_attention(tq, kd, vd, tlens, bkv=512, splits=splits)
+    jring = jops.decode_attention(jq, jnp.asarray(kd.numpy()),
+                                  jnp.asarray(vd.numpy()),
+                                  jnp.asarray(lengths), bkv=512,
+                                  splits=splits)
+    np.testing.assert_allclose(_np(ring), _np(jring), **TOL["float32"])
+
+
+def test_split_range_is_the_live_length_rule():
+    lens = torch.tensor(LIVE_LENGTHS + (5000,), dtype=torch.int32)
+    n, c = dk.split_range(lens, 640, 16, 3)
+    assert n.tolist() == [0, 1, 1, 1, 2, 19, 33, 40, 40]
+    assert c.tolist() == [0, 1, 1, 1, 1, 7, 11, 14, 14]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_48_matches_jax(dtype):
+    """granite-20b's attention shape (hq 48, hkv 1, d 128: MQA, group 48)
+    through the paged plain version, against the reference's paged Pallas
+    kernel (interpret mode) and oracle."""
+    q, kp, vp, pages, lengths = _paged_case(12, 2, 48, 1, 10, 16, 6, 128)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, kp, vp))
+    tpages, tlens = torch.from_numpy(pages), torch.from_numpy(lengths)
+    got = ops.paged_decode_attention(tq, tk, tv, tpages, tlens, splits=4)
+    want = jops.paged_decode_attention(jq, jk, jv, jnp.asarray(pages),
+                                       jnp.asarray(lengths), splits=4)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    kd = gather_pages(tk, tpages).transpose(1, 2)
+    vd = gather_pages(tv, tpages).transpose(1, 2)
+    np.testing.assert_allclose(
+        _np(got), _np(ref.decode_attention(tq, kd, vd, tlens)), **TOL[dtype])
+
+
 @pytest.mark.parametrize("s", [1, 15, 16, 17, 300, 512, 513, 2048, 4096])
 @pytest.mark.parametrize("bkv", [16, 128, 512])
 def test_plan_splits_matches_reference(s, bkv):
@@ -190,7 +261,7 @@ def _guard_case():
     ({"pages": lambda a: a["pages"].t().contiguous().t()}, "pages must be"),
     ({"q": lambda a: a["q"].transpose(1, 2).contiguous().transpose(1, 2)},
      "stride 1"),
-    ({"q": lambda a: torch.zeros(2, 40, 64)}, "group 20 > 16"),
+    ({"q": lambda a: torch.zeros(2, 160, 64)}, "group 80 > 64"),
 ])
 def test_cuda_entry_refuses_what_the_kernel_does_not_take(change, message):
     """The CUDA-only entry raises, naming the problem; it never falls back
@@ -210,3 +281,40 @@ def test_dense_cuda_entry_refuses_cpu_tensors():
     k = torch.from_numpy(rng.standard_normal((1, 2, 8, 32), np.float32))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         dk.decode_attention_cuda(q, k, k)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the decode kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, hq, hkv", [(64, 8, 2), (80, 32, 32),
+                                        (128, 32, 4), (128, 48, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_the_card(card, dtype, d, hq, hkv):
+    """The kernel against its plain version on the card at ragged live
+    lengths (a parked slot, page-boundary hits, the full table), splits 1,
+    4 and 8; paged == dense bitwise."""
+    b, psz, P = 6, 16, 24
+    q, kp, vp, pages, _ = _paged_case(13, b, hq, hkv, b * P, psz, P, d,
+                                      unmapped_tail=False)
+    lengths = np.array([0, 1, 16, 17, 300, P * psz], np.int32)
+    tdt = DTYPES[dtype][1]
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).cuda() for x in (q, kp, vp))
+    tpages, tlens = (torch.from_numpy(x).cuda() for x in (pages, lengths))
+    kd = gather_pages(tk, tpages).transpose(1, 2)
+    vd = gather_pages(tv, tpages).transpose(1, 2)
+    atol, rtol = {"float32": (2e-3, 2e-3), "bfloat16": (4e-3, 2 ** -7)}[dtype]
+    for splits in (1, 4, 8):
+        got = dk.paged_decode_attention_cuda(tq, tk, tv, tpages, tlens,
+                                             splits=splits)
+        dense = dk.decode_attention_cuda(tq, kd, vd, tlens, bkv=psz,
+                                         splits=splits)
+        want = dk.paged_decode_attention_plain(tq, tk, tv, tpages, tlens,
+                                               splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dense)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= atol + rtol * want.float().abs()).all())

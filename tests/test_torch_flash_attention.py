@@ -229,3 +229,42 @@ def test_dense_cuda_entry_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _qkv(10, 1, 4, 2, 8, 8, 16))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fk.flash_attention_cuda(q, k, v)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_the_card(card, dtype, d):
+    """Both device bodies (bf16: the tensor cores, at the head dim's own
+    width; fp32: the CUDA cores) against the plain version on the card at
+    the serve path's ragged shape (per-slot offsets, a parked slot), paged
+    == dense bitwise, and the full causal case."""
+    q, k, v, off, kv_len, q_len = _ragged(11, d=d)
+    kp, vp, pages = _paged_view(12, k, v)
+    tdt = DTYPES[dtype][1]
+    t = {n: torch.from_numpy(x).cuda() for n, x in dict(
+        off=off, kv_len=kv_len, q_len=q_len, pages=pages).items()}
+    tq, tk, tv, tkp, tvp = (torch.from_numpy(x).to(tdt).cuda()
+                            for x in (q, k, v, kp, vp))
+    kw = dict(q_offset=t["off"], kv_len=t["kv_len"], q_len=t["q_len"])
+    paged = fk.paged_flash_attention_cuda(tq, tkp, tvp, t["pages"], **kw)
+    dense = fk.flash_attention_cuda(
+        tq, gather_pages(tkp, t["pages"]).transpose(1, 2),
+        gather_pages(tvp, t["pages"]).transpose(1, 2), **kw)
+    want = fk.paged_flash_attention_plain(tq, tkp, tvp, t["pages"], **kw)
+    full = fk.flash_attention_cuda(tq, tk, tv, causal=True)
+    full_want = fk.flash_attention_plain(tq, tk, tv, causal=True)
+    torch.cuda.synchronize()
+    assert fk.body(tq, tk, tv) == ("mma" if dtype == "bfloat16"
+                                   else "cuda_cores")
+    assert torch.equal(paged, dense)
+    atol, rtol = {"float32": (2e-3, 2e-3), "bfloat16": (4e-3, 2 ** -7)}[dtype]
+    for got, ref_ in ((paged, want), (full, full_want)):
+        err = (got.float() - ref_.float()).abs()
+        assert bool((err <= atol + rtol * ref_.float().abs()).all())
