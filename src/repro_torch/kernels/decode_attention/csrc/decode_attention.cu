@@ -47,8 +47,8 @@
 //   at the end).
 // The fp32 state never leaves the block: it writes its (acc, m, l) partials
 // and combine_partials (torch ops) merges them, in a fixed order, without
-// atomics.  A row or column that is not 16-byte aligned falls back to
-// element copies into the same layout.
+// atomics.  Every K/V row must be 16-byte aligned (the wrapper refuses
+// others).
 //
 // Masking: a lane at pos >= the split's live end never enters the softmax
 // (its probability is an explicit 0, not exp(s - m)); rows past it are
@@ -89,12 +89,6 @@ __device__ __forceinline__ float warp_max(float x) {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T zero_of();
-template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 
 // One 16-byte chunk of shared memory as fp32 values.
 __device__ __forceinline__ void chunk_to_f(const float* p, float* out) {
@@ -159,7 +153,6 @@ struct Args {
   float* l_out;
   int hkv, group, d, splits, bkv, extent;
   float scale;
-  int vec;               // rows and strides 16-byte aligned: cp.async
 };
 
 // W warps a block: 8 when the group has 8 or more query heads (a warp per
@@ -225,22 +218,10 @@ __global__ void __launch_bounds__(W * 32) split_kv_decode_kernel(Args a) {
     if (tid >= rstep * nc) return;
     for (int r = tid / nc; r < R; r += rstep) {
       const int64_t off = row_off[slot * R + r];
-      unsigned char* kd = kt + r * RS + c_own * 16;
-      unsigned char* vd = vt + r * RS + c_own * 16;
-      if (a.vec) {
-        const int64_t o = off < 0 ? 0 : off + c_own * E;
-        const int bytes = off < 0 ? 0 : 16;   // 0: zero-fill, nothing read
-        cp_async16(kd, kb + o, bytes);
-        cp_async16(vd, vb + o, bytes);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const bool ok = off >= 0 && c_own * E + e < a.d;
-          const int64_t o = ok ? off + c_own * E + e : 0;
-          reinterpret_cast<T*>(kd)[e] = ok ? kb[o] : zero_of<T>();
-          reinterpret_cast<T*>(vd)[e] = ok ? vb[o] : zero_of<T>();
-        }
-      }
+      const int64_t o = off < 0 ? 0 : off + c_own * E;
+      const int bytes = off < 0 ? 0 : 16;     // 0: zero-fill, nothing read
+      cp_async16(kt + r * RS + c_own * 16, kb + o, bytes);
+      cp_async16(vt + r * RS + c_own * 16, vb + o, bytes);
     }
   };
 
@@ -464,14 +445,15 @@ int split_kv_decode(int dtype, const void* q, int64_t q_s0, int64_t q_s1,
       d > kMaxD || bkv < 1 || splits < 1 || extent < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  // Every K/V row is copied in 16-byte pieces.
   const int es = dtype == 0 ? 4 : 2;
-  const int vec = aligned16(k) && aligned16(v) && (d * es) % 16 == 0 &&
-                  (kv_s0 * es) % 16 == 0 && (kv_s1 * es) % 16 == 0 &&
-                  (kv_s2 * es) % 16 == 0;
+  if (!aligned16(k) || !aligned16(v) || (d * es) % 16 || (kv_s0 * es) % 16 ||
+      (kv_s1 * es) % 16 || (kv_s2 * es) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Args a{q, q_s0, q_s1, k, v,
                KvAddr{pages, kv_s0, kv_s1, kv_s2, psz, n_table, n_pages},
-               lengths, acc, m, l, hkv, group, d, splits, bkv, extent, scale,
-               vec};
+               lengths, acc, m, l, hkv, group, d, splits, bkv, extent, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

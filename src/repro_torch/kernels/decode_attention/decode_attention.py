@@ -251,6 +251,12 @@ def _check_inputs(name, q, k, v, pages, lengths, group, d):
         raise ValueError(f"{name}: head dim {d} needs "
                          f"{smem_bytes(q.dtype, d)} bytes of shared memory, "
                          f"more than {_MAX_SMEM}")
+    es = q.element_size()
+    if (d * es % 16 or any(st * es % 16 for st in k.stride()[:3])
+            or k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError(f"{name}: every row of k and v must be 16-byte "
+                         f"aligned (head dim {d} x {es} bytes, strides "
+                         f"{k.stride()[:3]})")
     for label, t in (("lengths", lengths), ("pages", pages)):
         if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
             raise ValueError(f"{name}: {label} must be contiguous int32, got "

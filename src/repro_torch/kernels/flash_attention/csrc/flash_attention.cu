@@ -40,8 +40,8 @@
 // shared memory, shared by the 8 warps (rows padded by 16 bytes: ldmatrix
 // without bank conflicts), so the next tile loads while this one
 // computes; one block barrier a tile.  The head dim runs at its own width
-// when it is one of 32, 64, 80, 96, 128 (d 80 is 5 k-steps and 10
-// n-tiles), else at the next of them with the missing columns
+// when it is 64, 80 or 128 (the ported configs' widths; d 80 is 5 k-steps
+// and 10 n-tiles), else at the next of them with the missing columns
 // zero-filled.  Masked lanes get an explicit zero probability, so a fully
 // masked row or tile leaves (acc, m, l) as it was; a warp skips the
 // products of a tile wholly past its rows' keys.  P is rounded to bf16 for
@@ -601,10 +601,8 @@ cudaError_t launch_simt_d(const Args& a, int b, int hq, cudaStream_t stream) {
 }
 
 cudaError_t launch_mma_d(const Args& a, int b, int hq, cudaStream_t stream) {
-  if (a.d <= 32) return launch_mma<32>(a, b, hq, stream);
   if (a.d <= 64) return launch_mma<64>(a, b, hq, stream);
   if (a.d <= 80) return launch_mma<80>(a, b, hq, stream);
-  if (a.d <= 96) return launch_mma<96>(a, b, hq, stream);
   return launch_mma<128>(a, b, hq, stream);
 }
 

@@ -262,6 +262,9 @@ def _guard_case():
     ({"q": lambda a: a["q"].transpose(1, 2).contiguous().transpose(1, 2)},
      "stride 1"),
     ({"q": lambda a: torch.zeros(2, 160, 64)}, "group 80 > 64"),
+    ({"q": lambda a: torch.zeros(2, 8, 6),
+      "k_pool": lambda a: torch.zeros(12, 16, 2, 6),
+      "v_pool": lambda a: torch.zeros(12, 16, 2, 6)}, "16-byte aligned"),
 ])
 def test_cuda_entry_refuses_what_the_kernel_does_not_take(change, message):
     """The CUDA-only entry raises, naming the problem; it never falls back
