@@ -35,8 +35,8 @@
 // bytes so that lanes reading one 16-byte chunk of different rows hit
 // distinct banks.  The page table is read once a row, one thread a row,
 // kStages steps ahead of the row's copies (row offsets in shared memory),
-// so the copy loop issues cp.async back to back.  Per step:
-//   barrier 1 (the tile has landed; the last step's readers are done), issue
+// so the copy loop starts its cp.async copies back to back.  Per step:
+//   barrier 1 (the tile has landed; the last step's readers are done), start
 //   the next tile's copies; scores and the online-softmax update, each warp
 //   owning whole query rows of the group (rows w, w+W, ...), lanes over the
 //   step's K rows, dot products from shared memory as 16-byte vectors, max
