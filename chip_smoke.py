@@ -12,7 +12,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the policy-planned matmul; one nvcc each, started together) from
    src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/,
    and the registers, stack and spills nvcc -Xptxas -v reports for the two
-   attention kernels;
+   attention kernels and the planned matmul;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
@@ -91,10 +91,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    kernels.matmul.ops.matmul(a, b, engine=eng) at yi-9b's full-width layer
    GEMMs (a 16 x 1024 prefill wave and a decode step through q/o, k+v,
    gate/up and down, the LM head, one fp32 case), every mode x rinse,
-   launches of both schedules (accumulating and split-K) counted; then for
-   each distinct schedule the kernel against its plain version, mnk == nmk
-   bitwise, its time beside the plan's modeled time, the plain version,
-   torch.matmul and the bound, and per shape the fastest mode on the card.
+   launches of both schedules (accumulating and split-K, whose partials
+   are summed inside the kernel) counted against the plans; then for each
+   distinct schedule the kernel against its plain version, mnk == nmk and
+   a repeat bitwise, the body that ran (wgmma, small_m, cp_async, masked,
+   cuda_cores), its CTAs and cluster, its time beside the plan's modeled
+   time, the plain version, torch.matmul and the bound, the achieved
+   TFLOP/s and GB/s and the time over the bound, and per shape the fastest
+   mode on the card beside the fastest by the model.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -1141,10 +1145,12 @@ def phase_policy_matmul(gpu: str, seed: int) -> dict:
     """The cache-policy core's main path on the card: every mode x rinse
     engine (H100 model) plans each GEMM and ``ops.matmul(a, b,
     engine=eng)`` runs it, counters zeroed just before and read just
-    after, each output held against the plain version.  Then for each
-    distinct schedule: mnk == nmk and a repeat bitwise, the kernel's time
-    (the split schedule's includes the partials' sum) beside the plan's
-    modeled time, the plain version, torch.matmul and the bound."""
+    after, each output held against the plain version, the launches of
+    each schedule equal to the plans'.  Then for each distinct schedule:
+    mnk == nmk and a repeat bitwise, the body and launch the wrapper chose,
+    the kernel's time (the split schedule's sum is inside the kernel)
+    beside the plan's modeled time, the plain version, torch.matmul and the
+    bound."""
     from repro_torch.core import make_engine
     from repro_torch.core.characterize import matmul_op
     from repro_torch.device import dtype_name
@@ -1178,9 +1184,12 @@ def phase_policy_matmul(gpu: str, seed: int) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     main_s = time.perf_counter() - t0
-    if launches["matmul"] == 0 or launches["matmul_split"] == 0:
-        raise AssertionError(f"policy_matmul: a schedule was never "
-                             f"launched: {launches}")
+    split = sum(sch["split_k"] > 1 for _, sch in plans.values())
+    want_launches = {"matmul": len(plans) - split, "matmul_split": split}
+    got = {key: launches[key] for key in want_launches}
+    if got != want_launches or 0 in got.values():
+        raise AssertionError(f"policy_matmul: launches {launches}, plans "
+                             f"want {want_launches} (both nonzero)")
 
     rows, summary = [], []
     for i, (name, m, k, n, dtype) in enumerate(MM_SHAPES):
@@ -1216,8 +1225,16 @@ def phase_policy_matmul(gpu: str, seed: int) -> dict:
                                                 split_k=pkey[1]),
                         reps=3, warm=1)
                 del first, other, again
-                measured[key] = {"ms": time_ms(kernel),
-                                 "plain_ms": plain_ms[pkey]}
+                launch = mk.launch_of(a, b, **schedule)
+                ms = time_ms(kernel)
+                measured[key] = {
+                    "body": launch.body, "tile": list(launch.tile),
+                    "ctas": launch.ctas, "cluster": launch.cluster,
+                    "kslice": launch.kslice, "ms": ms,
+                    "tflops": 2 * m * n * k / ms / 1e9,
+                    "gb_per_s": (m * k + k * n + m * n) * es / ms / 1e6,
+                    "over_bound": ms / bound["bound_ms"],
+                    "plain_ms": plain_ms[pkey]}
             eng = engines[mr]
             op = matmul_op(m, k, n, dtype=dtype_name(dtype))
             rows.append({
@@ -1237,23 +1254,26 @@ def phase_policy_matmul(gpu: str, seed: int) -> dict:
                 **measured[key], "library_ms": library_ms, **bound})
         shape_rows = rows[-len(MM_MODES):]
         fastest = min(shape_rows, key=lambda r: r["ms"])
+        modeled = min(shape_rows, key=lambda r: r["modeled_ms"])
         adaptive = next(r for r in shape_rows
                         if r["mode"] == "adaptive" and r["rinse"])
         summary.append({
             "shape": name, "fastest_mode": [fastest["mode"],
                                             fastest["rinse"]],
-            "fastest_ms": fastest["ms"], "adaptive_ms": adaptive["ms"],
+            "fastest_ms": fastest["ms"], "fastest_out": fastest["out"],
+            "adaptive_ms": adaptive["ms"], "adaptive_out": adaptive["out"],
             "adaptive_over_fastest": adaptive["ms"] / fastest["ms"],
+            "modeled_fastest_mode": [modeled["mode"], modeled["rinse"]],
+            "adaptive_modeled_ms": adaptive["modeled_ms"],
+            "bodies": sorted({r["body"] for r in shape_rows}),
             "schedules": len(measured), "library_ms": library_ms,
             **bound})
         del a, b
         torch.cuda.empty_cache()
     emit({"phase": "policy_matmul", "gpu": gpu, "launch_counts": launches,
           "main_path_s": main_s, "phase_s": time.perf_counter() - t0,
-          "tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cta_tile": {str(t).removeprefix("torch."): v
-                       for t, v in mk.CTA_TILE.items()},
-          "rows": rows})
+          "want_launches": want_launches,
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "rows": rows})
     emit({"phase": "policy_matmul_summary", "gpu": gpu, "shapes": summary})
 
     def main_row(out):
@@ -1749,7 +1769,7 @@ def phase_e2e(gpu: str, seed: int, base, want=None,
           "dtype": "float32", "max_abs_err": max(errs), "tol": 2e-3})
 
 
-PTXAS_REPORT = ("decode_attention", "flash_attention")
+PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul")
 
 
 def ptxas_report(source: pathlib.Path) -> list[dict]:
@@ -1770,13 +1790,15 @@ def ptxas_report(source: pathlib.Path) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             # e.g. ..._ZN..16flash_mma_kernelILi80EEEvNS_4ArgsE ->
-            # flash_mma_kernel<80>
-            k = re.search(r"\d+([a-z][a-z_]*_kernel)I(\w+?)EEvNS",
-                          m.group(1))
-            args = re.sub(r"Li(\d+)E", r"\1,", k.group(2)) if k else ""
-            args = (args.replace("13__nv_bfloat16", "bf16,")
-                    .replace("f", "float,", 1 if args.startswith("f") else 0))
-            name = (f"{k.group(1)}<{args.rstrip(',')}>" if k
+            # flash_mma_kernel<80>; ..15mm_small_kernelILi1ELi128EfEEv.. ->
+            # mm_small_kernel<1,128,float>
+            k = re.search(r"\d+([a-z][a-z_]*_kernel)I((?:Li\d+E|Lb[01]E"
+                          r"|13__nv_bfloat16|f)+)E", m.group(1))
+            args = [t.group(1) or {"Lb1E": "true", "Lb0E": "false",
+                                   "f": "float"}.get(t.group(0), "bf16")
+                    for t in re.finditer(r"Li(\d+)E|Lb[01]E|13__nv_bfloat16"
+                                         r"|f", k.group(2))] if k else []
+            name = (f"{k.group(1)}<{','.join(args)}>" if k
                     else m.group(1))
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1794,7 +1816,7 @@ def ptxas_report(source: pathlib.Path) -> list[dict]:
 
 def build_kernels() -> tuple[float, dict]:
     """Build every kernel (one nvcc per source, started together, beside
-    the ptxas reports of the attention kernels), then load each; returns
+    the ptxas reports of PTXAS_REPORT), then load each; returns
     the seconds it took and the reports."""
     from concurrent.futures import ThreadPoolExecutor
 

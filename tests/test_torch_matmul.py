@@ -4,9 +4,12 @@ its ``ref.py`` oracle: the reference's cases (accumulating and split-K),
 both grid orders, and engine-planned calls whose plans and resolved
 schedules equal the reference's under STREAM output (split-K),
 RESIDENT_ACCUM output (``cacherw``) and ``rinse=False`` (the column-major
-order); the CPU dispatch rule and the CUDA entry's input guards.  The
-kernel itself runs only on the card (the ``cuda`` marker) and in
-``chip_smoke.py``."""
+order); the CPU dispatch rule, the CUDA entry's input guards and the
+wrapper's choice of body and launch by shape.  The kernel itself runs only
+on the card (the ``cuda`` marker) and in ``chip_smoke.py``."""
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -215,6 +218,109 @@ def test_cuda_entry_refuses_what_the_kernel_does_not_take(change, message):
     assert mk.matmul.launches == 0 and mk.matmul.splitk_launches == 0
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its shapes; nothing runs)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _launch(m, k, n, dtype, *, lda=None, ldb=None, aligned=True, bk=512,
+            split_k=1, sms=132):
+    ks, splits = (mk.split_ranges(k, min(bk, k), split_k) if split_k > 1
+                  else (k, 1))
+    return mk.plan_launch(m, k, n, dtype, lda=lda or k, ldb=ldb or n,
+                          aligned=aligned, ks=ks, splits=splits,
+                          sms=sms), ks, splits
+
+
+def test_launch_choice_at_every_planned_shape():
+    """Every shape and mode x rinse plan of ``chip_smoke.py``'s
+    ``policy_matmul`` phase: prefill takes the persistent ``wgmma`` body,
+    one CTA an SM; every decode shape and the LM head (m 16) the
+    ``small_m`` body with at least 132 CTAs streaming b, its cluster's K
+    slices whole 64-deep stages that cover each split; fp32 the CUDA
+    cores."""
+    cs = _chip_smoke()
+    engines = [t_make(mode, rinse=rinse, chip="h100")
+               for mode, rinse in cs.MM_MODES]
+    seen = set()
+    for name, m, k, n, dtype in cs.MM_SHAPES:
+        for eng in engines:
+            _, sch = ops.resolve_schedule(
+                m, k, n, str(dtype).removeprefix("torch."), engine=eng)
+            launch, ks, splits = _launch(m, k, n, dtype, bk=sch["bk"],
+                                         split_k=sch["split_k"])
+            seen.add((name, launch.body, splits))
+            if dtype == torch.float32:
+                assert launch.body == "cuda_cores"
+                assert launch.tile == (64, 64)
+            elif m > 64:
+                assert launch.body == "wgmma" and launch.tile == (256, 256)
+                assert launch.ctas == 132 and launch.cluster == 2
+                assert launch.units == (-(-m // 256)) * (-(-n // 256)) * splits
+            else:
+                assert launch.body == "small_m", name
+                assert launch.ctas >= 132, (name, launch)
+                assert launch.tile[1] in (32, 64, 128)
+                assert launch.cluster in (1, 2, 4, 8)
+                assert launch.ctas == launch.units * launch.cluster
+                assert launch.units == -(-n // launch.tile[1]) * splits
+                assert launch.kslice % 64 == 0 and launch.kslice >= 256
+                assert launch.kslice * launch.cluster >= min(ks, k)
+                assert launch.kslice * (launch.cluster - 1) < min(ks, k)
+    # Both schedules reach both tensor-core bodies.
+    assert {(b, s > 1) for _, b, s in seen} >= {
+        ("wgmma", False), ("wgmma", True), ("small_m", False),
+        ("small_m", True), ("cuda_cores", False)}
+
+
+@pytest.mark.parametrize("case, want", [
+    # ragged m above 64, n != k: wgmma, TMA masks the edges; pairs of
+    # CTAs, one CTA an SM at most
+    (dict(m=130, k=1024, n=520), ("wgmma", (256, 256), 6, 2)),
+    (dict(m=300, k=2048, n=136, bk=128, split_k=3),
+     ("wgmma", (256, 256), 12, 2)),
+    (dict(m=4096, k=1024, n=4096, sms=131), ("wgmma", (256, 256), 130, 2)),
+    # the largest small_m m; m 40 holds 64 rows, so no 128-column tile
+    (dict(m=64, k=1024, n=520), ("small_m", (64, 32), 68, 4)),
+    (dict(m=40, k=2048, n=136, split_k=2), ("small_m", (64, 32), 40, 4)),
+    (dict(m=16, k=4096, n=1024), ("small_m", (64, 32), 256, 8)),
+    (dict(m=16, k=11008, n=4096, split_k=5), ("small_m", (64, 128), 160, 1)),
+    # a split K range that is not whole 64-deep stages: no TMA
+    (dict(m=256, k=1000, n=256, bk=200, split_k=2),
+     ("cp_async", (128, 128), 8, 1)),
+    # unaligned row strides or bases, and odd k: the masked body
+    (dict(m=200, k=1000, n=304, lda=1004), ("masked", (128, 128), 6, 1)),
+    (dict(m=16, k=4096, n=4096, lda=4100), ("masked", (128, 128), 32, 1)),
+    (dict(m=16, k=4096, n=4096, ldb=4100), ("masked", (128, 128), 32, 1)),
+    (dict(m=512, k=4096, n=1024, aligned=False),
+     ("masked", (128, 128), 32, 1)),
+    (dict(m=200, k=999, n=304, split_k=2), ("masked", (128, 128), 12, 1)),
+    (dict(m=130, k=70, n=90, dtype=torch.float32),
+     ("cuda_cores", (64, 64), 6, 1)),
+])
+def test_launch_choice_at_ragged_and_unaligned_shapes(case, want):
+    """The body, CTA tile, CTAs and cluster the wrapper picks by shape,
+    row strides and alignment, on a 132-SM card."""
+    case = dict(case)
+    dtype = case.pop("dtype", torch.bfloat16)
+    m, k, n = case.pop("m"), case.pop("k"), case.pop("n")
+    launch, _, _ = _launch(m, k, n, dtype, **case)
+    assert (launch.body, launch.tile, launch.ctas, launch.cluster) == want
+
+
+def test_small_m_launch_follows_the_sm_count():
+    """Fewer SMs take fewer CTAs: the cluster grows only while the CTAs are
+    fewer than the SMs."""
+    small, _, _ = _launch(16, 4096, 4096, torch.bfloat16, sms=16)
+    assert (small.body, small.ctas, small.cluster) == ("small_m", 32, 1)
+    big, _, _ = _launch(16384, 4096, 4096, torch.bfloat16, sms=16)
+    assert (big.body, big.ctas, big.cluster) == ("wgmma", 16, 2)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -226,16 +332,34 @@ def card():
     dict(bm=512, bn=512, bk=512, split_k=1),
     dict(bm=128, bn=256, bk=128, split_k=3),
     dict(bm=16, bn=512, bk=512, split_k=2),
+    dict(bm=256, bn=512, bk=256, split_k=5),
+    dict(bm=256, bn=256, bk=200, split_k=2),
 ])
 @pytest.mark.parametrize("mkn", [(256, 128, 256), (130, 70, 90),
-                                 (16, 1024, 520), (300, 2048, 136)])
+                                 (16, 1024, 520), (300, 2048, 136),
+                                 (64, 1024, 520), (16, 4096, 1024),
+                                 (130, 1024, 520), (40, 2048, 136),
+                                 (200, 1000, 304, 1004)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_the_card(card, dtype, mkn, schedule):
     """The kernel against its plain version on the card: ragged m, k and
-    n, the vector and the masked-load paths, both schedules; ``mnk`` and
-    ``nmk`` bitwise equal, and a repeat bitwise equal."""
-    (_, _), (ta, tb) = _inputs(5, *mkn, dtype)
-    ta, tb = ta.cuda(), tb.cuda()
+    n, n != k, m 16 and 64 (small_m), a ragged m above 64 (wgmma; with
+    split K ranges that are not whole 64-deep stages, cp_async), an
+    unaligned row stride (a fourth entry: a's row stride; masked), both
+    schedules with 2 to 5 splits summed in the kernel; ``mnk`` and ``nmk``
+    bitwise equal, and a repeat bitwise equal."""
+    m, k, n = mkn[:3]
+    (_, _), (ta, tb) = _inputs(5, m, mkn[3] if len(mkn) > 3 else k, n,
+                               dtype)
+    ta, tb = ta[:, :k].cuda(), tb[:k].cuda()
+    ks, splits = (mk.split_ranges(k, min(schedule["bk"], k),
+                                  schedule["split_k"])
+                  if schedule["split_k"] > 1 else (k, 1))
+    want_body = ("cuda_cores" if dtype == "float32" else
+                 "masked" if len(mkn) > 3 or k % 8 or n % 8 or ks % 8 else
+                 "small_m" if m <= 64 else
+                 "cp_async" if splits > 1 and ks % 64 else "wgmma")
+    assert mk.launch_of(ta, tb, **schedule).body == want_body
     got = mk.matmul_cuda(ta, tb, order="mnk", **schedule)
     other = mk.matmul_cuda(ta, tb, order="nmk", **schedule)
     again = mk.matmul_cuda(ta, tb, order="mnk", **schedule)
