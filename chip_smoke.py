@@ -12,7 +12,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the policy-planned matmul; one nvcc each, started together) from
    src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/,
    and the registers, stack and spills nvcc -Xptxas -v reports for the two
-   attention kernels and the planned matmul;
+   attention kernels, the planned matmul, the SSD scan and the fused norm;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
@@ -30,7 +30,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      dense bitwise) and a prefix attach (a 512-token suffix at offset 512
      over shared pages) against the whole prompt's rows;
    * fused norm at 16 x 1024 x 4096 and 16 x 1 x 4096 (RMS with and
-     without residual, LayerNorm with bias);
+     without residual, LayerNorm with bias), each with the body that ran
+     (vector, scalar), its threads a row and rows a block, its time over
+     the bound, and the scalar body's time on the same rows;
    with device timings (CUDA graph replay, CUDA events) of kernel, plain
    version, the nearest PyTorch library call and the least time the work
    can take (the bound);
@@ -50,10 +52,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    nonzero cursor, logits within 2e-3;
 6. the SSD scan kernel against its plain version, bf16 and fp32, at
    mamba2-1.3b's prefill shape (16 x 1024, 64 heads of 64, state 128) and
-   zamba2-2.7b's (80 heads, state 64) and a grouped case, each from a
-   nonzero initial state with ragged dt-zero tails and a parked slot whose
-   state must come back bitwise; timed beside its bound (no PyTorch call
-   computes the scan, so no library time);
+   zamba2-2.7b's (80 heads, state 64), two grouped cases at ragged lengths
+   (state 64 and 128, 2 groups) and a one-row prefill, each from a nonzero
+   initial state with ragged dt-zero tails and a parked slot whose state
+   must come back bitwise; each row with the body that ran (mma,
+   cuda_cores), its heads a block and blocks, and the share of its
+   tolerance that y and the state use; the models' shapes timed beside
+   the bound and, in bf16, the cuda_cores body on the same inputs (no
+   PyTorch call computes the scan, so no library time);
 7. decode and flash attention at zamba2's shapes (32 query and 32 KV heads,
    head dim 80), paged == dense bitwise, timed beside SDPA;
 8. serve zamba2-2.7b at its published config (54 Mamba-2 layers and 9
@@ -66,7 +72,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 9. serve mamba2-1.3b at its published config (48 layers, bf16) with a paged
    layout requested: the engine falls back to contiguous bookkeeping;
    launch counts ssd 48 x waves, fused norm 49 x (waves + steps), no
-   attention, 0 plain calls;
+   attention, 0 plain calls; a trace of one decode chunk and one
+   admission wave;
 10. kernel path against plain path end to end for mamba2 (full width, 4
    layers) and zamba2 (full width, 12 layers: two groups), fp32, as in 5;
 11. the MoE grouped GEMM against its plain version, bf16 and fp32, at
@@ -220,9 +227,13 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
         fn()
     times = []
     for _ in range(reps):
-        _flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        _flush.zero_()
+        # Keep the card busy (~50 us) while the host queues the start event
+        # and the replay: a host delay there would otherwise count as
+        # device time in a kernel of a few microseconds.
+        torch.cuda._sleep(100_000)
         start.record()
         graph.replay()
         end.record()
@@ -758,7 +769,8 @@ def phase_flash(gpu: str, seed: int) -> dict:
 def phase_norm(gpu: str, seed: int) -> dict:
     """Fused norm on the card at the prefill and decode shapes of yi-9b
     (d 4096): RMS with and without residual, LayerNorm with bias, against
-    the plain version, timed against F.rms_norm / F.layer_norm."""
+    the plain version, timed against F.rms_norm / F.layer_norm and beside
+    the scalar body on the same rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_norm import fused_norm as nk
@@ -796,6 +808,18 @@ def phase_norm(gpu: str, seed: int) -> dict:
                 e = check_close(f"norm {kind} {shape} {dtype}", got, plain(),
                                 dtype)
                 err = max(err, e)
+                launch = nk.launch_of(x, w, b_, r_, kind=kind)
+                # The scalar body, the kernel as it ran before the vector
+                # one (a block a row), timed on the same rows.
+                scalar = nk.plan_launch(x.numel() // d, d, dtype,
+                                        aligned=False)
+
+                def kernel_scalar():
+                    return nk.fused_norm_cuda(x, w, b_, r_, launch=scalar,
+                                              **kw)
+
+                check_close(f"norm {kind} {shape} {dtype} scalar",
+                            kernel_scalar(), plain(), dtype)
                 es = _esize(dtype)
                 nbytes = (x.numel() * es * (3 if r_ is not None else 2)
                           + 4 * d * (2 if b_ is not None else 1))
@@ -804,12 +828,17 @@ def phase_norm(gpu: str, seed: int) -> dict:
                 row = {"dtype": str(dtype).removeprefix("torch."),
                        "shape": list(shape), "kind": kind,
                        "residual": r_ is not None, "bias": b_ is not None,
+                       "body": launch.body, "tpr": launch.tpr,
+                       "rows_per_cta": launch.rows_per_cta,
+                       "ctas": launch.ctas,
                        "err": e, "ms": time_ms(kernel),
+                       "scalar_ms": time_ms(kernel_scalar),
                        "plain_ms": time_ms(plain),
                        "library_ms": (time_ms(library) if library
                                       else None),
                        "bound_ms": max(t_b, t_o) * 1e3,
                        "bound_by": "bytes" if t_b >= t_o else "operations"}
+                row["over_bound"] = row["ms"] / row["bound_ms"]
                 rows.append(row)
                 if (dtype == torch.bfloat16 and shape[1] == PREFILL_PAD
                         and kind == "rms" and r_ is None):
@@ -823,10 +852,13 @@ def phase_norm(gpu: str, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # (name, b, l, h, dh, g, ds): the two models' prefill shapes at the serve
-# traffic's widest bucket, and a grouped case with a ragged length.
+# traffic's widest bucket, two grouped cases with ragged lengths (state 64
+# and 128) and mamba2's heads at a one-row prefill.
 SSD_CASES = (("mamba2", SLOTS, PREFILL_PAD, 64, 64, 1, 128),
              ("zamba2", SLOTS, PREFILL_PAD, 80, 64, 1, 64),
-             ("grouped", 4, 300, 8, 64, 2, 64))
+             ("grouped", 4, 300, 8, 64, 2, 64),
+             ("grouped_ds128", 4, 333, 16, 64, 2, 128),
+             ("l1", SLOTS, 1, 64, 64, 1, 128))
 
 
 def _ssd_inputs(gen, dtype, b, l, h, dh, g, ds):
@@ -871,7 +903,8 @@ def _ssd_bound(dtype, b, l, h, dh, g, ds):
 def phase_ssd(gpu: str, seed: int) -> dict:
     """The SSD kernel against its plain version (the reference's chunk
     rule), bf16 and fp32; parked slots' states bitwise; timed (bf16 and
-    fp32 at the models' shapes) beside the bound."""
+    fp32 at the models' shapes) beside the bound and, for the mma body,
+    the cuda_cores body on the same inputs."""
     from repro_torch.kernels.ssd import ssd as sk
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 30)
@@ -895,22 +928,35 @@ def phase_ssd(gpu: str, seed: int) -> dict:
                     check_close(tag + " state", S, Sp, torch.float32))
             check_equal(tag + " parked state", S[1], S0[1])
             err = max(err, e)
+            launch = sk.launch_of(x, dt, A, B, C, D, init_state=S0)
             bound_ms, bound_by, gflop = _ssd_bound(dtype, b, l, h, dh, g, ds)
             row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
-                   "shape": [b, l, h, dh, g, ds], "err": e,
+                   "shape": [b, l, h, dh, g, ds], "body": launch.body,
+                   "hb": launch.hb, "ctas": launch.ctas,
+                   "threads": launch.threads, "smem": launch.smem,
+                   "err": e,
+                   "tol_used": {"y": tol_used(y, yp, dtype),
+                                "state": tol_used(S, Sp, torch.float32)},
                    "parked_state_bitwise": True, "bound_ms": bound_ms,
                    "bound_by": bound_by, "gflop": gflop, "library_ms": None}
-            if name != "grouped":
+            if name in ("mamba2", "zamba2"):
                 row |= {"ms": time_ms(kernel), "plain_ms": time_ms(plain,
                                                                    reps=5)}
+                row["over_bound"] = row["ms"] / bound_ms
+                if launch.body != "cuda_cores":
+                    # The CUDA-core body on the same inputs: the kernel as
+                    # it ran before the tensor-core one.
+                    fma = sk.plan_launch(b, h, dh, g, ds, dtype,
+                                         aligned=False)
+                    row["cuda_cores_ms"] = time_ms(
+                        lambda: sk.ssd_cuda(x, dt, A, B, C, D, init_state=S0,
+                                            launch=fma))
             rows.append(row)
             if name == "mamba2" and dtype == torch.bfloat16:
                 main = row
             del x, dt, B, C, S0, y, S, yp, Sp
     emit({"phase": "kernels_ssd", "gpu": gpu, "rows": rows,
-          "kernel_chunk": sk.KERNEL_CHUNK,
-          "smem_bytes": {"mamba2": sk.smem_bytes(64, 128),
-                         "zamba2": sk.smem_bytes(64, 64)}})
+          "kernel_chunk": sk.KERNEL_CHUNK})
     return {"main": main, "err": err}
 
 
@@ -1397,7 +1443,7 @@ def check_streams(arm: str, reqs, cfg) -> None:
 def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
     """Serve the 48 requests at ``cfg`` (a paged pallas_paged config) with
     every launch count checked; for a model with attention, then the first
-    16 requests under pallas_gather (streams bitwise equal) and the
+    16 requests under pallas_gather (streams bitwise equal); then the
     decode-chunk and admission-wave trace."""
     from repro_torch import convert
     from repro_torch.serve.engine import Request
@@ -1452,6 +1498,7 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
             raise AssertionError(f"{name}: a cache with no pages must run "
                                  "contiguous bookkeeping")
         emit(line)
+        phase_trace(gpu, cfg, params, seed)
         return out
 
     # The bitwise twin over the first 16 requests (the first wave's): each
@@ -1769,7 +1816,8 @@ def phase_e2e(gpu: str, seed: int, base, want=None,
           "dtype": "float32", "max_abs_err": max(errs), "tol": 2e-3})
 
 
-PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul")
+PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
+                "fused_norm")
 
 
 def ptxas_report(source: pathlib.Path) -> list[dict]:
@@ -1791,13 +1839,14 @@ def ptxas_report(source: pathlib.Path) -> list[dict]:
         if m:
             # e.g. ..._ZN..16flash_mma_kernelILi80EEEvNS_4ArgsE ->
             # flash_mma_kernel<80>; ..15mm_small_kernelILi1ELi128EfEEv.. ->
-            # mm_small_kernel<1,128,float>
+            # mm_small_kernel<1,128,float>; a repeated type is a
+            # substitution (S1_), here always bf16
             k = re.search(r"\d+([a-z][a-z_]*_kernel)I((?:Li\d+E|Lb[01]E"
-                          r"|13__nv_bfloat16|f)+)E", m.group(1))
+                          r"|13__nv_bfloat16|S\d*_|f)+)E", m.group(1))
             args = [t.group(1) or {"Lb1E": "true", "Lb0E": "false",
                                    "f": "float"}.get(t.group(0), "bf16")
                     for t in re.finditer(r"Li(\d+)E|Lb[01]E|13__nv_bfloat16"
-                                         r"|f", k.group(2))] if k else []
+                                         r"|S\d*_|f", k.group(2))] if k else []
             name = (f"{k.group(1)}<{','.join(args)}>" if k
                     else m.group(1))
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

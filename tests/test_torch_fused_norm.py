@@ -185,3 +185,116 @@ def test_from_jax_params_run_the_kernel_path(arch):
     assert fk.flash_attention_plain.calls == 0
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-3,
                                atol=2e-3)
+
+
+# (tpr, vectors a thread) the wrapper picks for each ported width at a
+# 16 x 1024 prefill wave: the fewest threads a row that leave each thread
+# at most 5 vectors of 16 bytes (8 bf16, 4 fp32).
+_PREFILL_SHAPES = {
+    torch.bfloat16: {2048: (64, 4), 2560: (64, 5), 4096: (128, 4),
+                     5120: (128, 5), 64: (32, 1)},
+    torch.float32: {2048: (128, 4), 2560: (128, 5), 64: (32, 1)},
+}
+
+
+def test_cuda_entry_checks_inputs_under_a_given_launch():
+    """A launch passed in (the scalar plan, as chip_smoke.py times it) does
+    not skip the input guards."""
+    args = _guard_case()
+    scalar = nk.plan_launch(4, 64, torch.float32, aligned=False)
+    nk.reset_counters()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nk.fused_norm_cuda(**args, kind="layer", launch=scalar)
+    assert nk.fused_norm_plain.calls == 0 and nk.fused_norm.launches == 0
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-32b", "mamba2-1.3b",
+                                  "zamba2-2.7b", "olmoe-1b-7b",
+                                  "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plan_launch_at_every_served_width(arch, smoke, dtype):
+    """The body and launch shape at each ported config's norm width and at
+    its SMOKE width, for a prefill wave (16 x 1024 rows) and a decode step
+    (16 rows): the vector body, the row held whole in registers, several
+    rows a block at prefill, 4 blocks an SM or more (at most 8 groups of
+    rows a block) striding over them.  fp32 rows of a whole block (d over
+    2560) that fill the card take the scalar body."""
+    d = get_config(arch, smoke=smoke).d_model
+    per = 8 if dtype == torch.bfloat16 else 4     # elements a vector
+    pre = nk.plan_launch(16 * 1024, d, dtype, aligned=True)
+    launches = []
+    if dtype == torch.float32 and d > 2560:
+        assert (pre.body, pre.ctas, pre.rows_per_cta) == (
+            "scalar", 16 * 1024, 1)
+    else:
+        assert (pre.body, (pre.tpr, pre.vec)) == (
+            "vector", _PREFILL_SHAPES[dtype][d])
+        groups = 16 * 1024 // (256 // pre.tpr)        # rows a block at once
+        assert pre.ctas == max(4 * 132, -(-groups // 8))
+        assert pre.rows_per_cta <= 8 * 256 // pre.tpr
+        assert pre.ctas * pre.rows_per_cta >= 16 * 1024
+        launches.append(pre)
+    dec = nk.plan_launch(16, d, dtype, aligned=True)
+    assert dec.body == "vector" and dec.vec <= 5
+    assert dec.ctas * dec.rows_per_cta >= 16
+    for launch in launches + [dec]:
+        assert launch.tpr in (32, 64, 128, 256)
+        assert launch.tpr * launch.vec * per >= d > (
+            launch.vec - 1) * per * launch.tpr
+
+
+def test_plan_launch_widens_rows_of_a_decode_step():
+    """16 rows of 4096: 256 threads a row (16 blocks, 2 vectors each) in
+    place of 128 (8 blocks), since the blocks are fewer than the SMs."""
+    launch = nk.plan_launch(16, 4096, torch.bfloat16, aligned=True)
+    assert (launch.tpr, launch.vec, launch.ctas, launch.rows_per_cta) == (
+        256, 2, 16, 1)
+
+
+@pytest.mark.parametrize("d, aligned, dtype", [
+    (4096, False, torch.bfloat16), (100, True, torch.bfloat16),
+    (4100, True, torch.bfloat16), (6144, True, torch.float32),
+    (8192, True, torch.float32)])
+def test_plan_launch_takes_the_scalar_body(d, aligned, dtype):
+    """Rows that are not 16-byte aligned, d % 8 != 0, or rows that 256
+    threads of 5 vectors do not cover (fp32 past 5120): a block a row."""
+    launch = nk.plan_launch(300, d, dtype, aligned=aligned)
+    assert (launch.body, launch.tpr, launch.vec, launch.ctas,
+            launch.rows_per_cta) == ("scalar", 256, 0, 300, 1)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused norm has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 700, 2048), (16, 1, 4096),
+                                   (5, 7, 5120), (4, 3, 64), (9, 100)])
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_the_card(card, shape, kind, dtype):
+    """Both bodies (vector where d % 8 == 0, scalar at d 100 and on a view
+    one element off alignment) against the plain version, with residual
+    and bias, fp32 and bf16 weights."""
+    tdt = DTYPES[dtype][1]
+    x, w, b, r = (torch.from_numpy(a).cuda() for a in _case(5, shape))
+    x, r = x.to(tdt), r.to(tdt)
+    for wdt in (torch.float32, torch.bfloat16):
+        wt, bt = w.to(wdt), (b.to(wdt) if kind == "layer" else None)
+        got = nk.fused_norm_cuda(x, wt, bt, r, kind=kind)
+        want = nk.fused_norm_plain(x, wt, bt, r, kind=kind)
+        want_body = "vector" if shape[-1] % 8 == 0 else "scalar"
+        assert nk.launch_of(x, wt, bt, r, kind=kind).body == want_body
+        atol, rtol = (2e-3, 2e-3) if dtype == "float32" else (4e-3, 2 ** -7)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    flat = torch.cat([x.reshape(-1), x.reshape(-1)[:1]])[1:].reshape(x.shape)
+    wt = w.to(torch.float32)
+    assert nk.launch_of(flat, wt, kind=kind).body == "scalar"
+    torch.testing.assert_close(
+        nk.fused_norm_cuda(flat, wt, kind=kind).float(),
+        nk.fused_norm_plain(flat, wt, kind=kind).float(),
+        atol=4e-3, rtol=2 ** -7)

@@ -207,12 +207,179 @@ def test_cuda_entry_refuses_what_the_kernel_does_not_take(change, message):
     assert sk.ssd_plain.calls == 0 and sk.ssd.launches == 0
 
 
+def test_cuda_entry_checks_inputs_under_a_given_launch():
+    """A launch passed in (the cuda_cores plan on bf16, as chip_smoke.py
+    times it) does not skip the input guards."""
+    args = _guard_args()
+    fma = sk.plan_launch(2, 4, 8, 2, 8, torch.bfloat16, aligned=False)
+    assert fma.body == "cuda_cores"
+    sk.reset_counters()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        sk.ssd_cuda(args.pop("x"), args.pop("dt"), args.pop("A"),
+                    args.pop("B"), args.pop("C"), args.pop("D"), **args,
+                    launch=fma)
+    assert sk.ssd_plain.calls == 0 and sk.ssd.launches == 0
+
+
 def test_smem_rule_matches_the_kernel_limits():
-    """The wrapper's shared-memory rule admits both served shapes and
-    refuses a state too wide for one block."""
+    """The wrapper's shared-memory rule admits both served shapes on both
+    bodies and refuses a state too wide for the CUDA-core body's block:
+    cuda_cores holds fp32 x, B, C, M and the state; mma two bf16 ring
+    stages (x of hb heads, B, C, dt), C B^T and three vectors a head."""
     assert sk.smem_bytes(64, 128) == 138240           # mamba2-1.3b
     assert sk.smem_bytes(64, 64) == 88064             # zamba2-2.7b
     assert sk.smem_bytes(64, 256) > 232448
+    assert sk.smem_bytes(64, 128, body="mma", hb=4) == 166912
+    assert sk.smem_bytes(64, 64, body="mma", hb=4) == 134144
+    # The mma body pads ds to 32, 64 or 128 and fits at every head count
+    # its 16-warp cap allows.
+    assert sk.smem_bytes(64, 40, body="mma", hb=1) == sk.smem_bytes(
+        64, 64, body="mma", hb=1)
+    for dh in range(16, 129, 16):
+        hb_max = 16 // (dh // 16)
+        assert sk.smem_bytes(dh, 128, body="mma", hb=hb_max) <= 232448
+    # A state too wide for both bodies is refused before any launch.
+    a = _inputs(8, 1, 8, 2, 64, 1, 256)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        sk.ssd_cuda(*(_t(a[k]) for k in ("x", "dt", "A", "B", "C", "D")))
+
+
+def _served(arch, smoke):
+    from repro_torch.models import get_config
+
+    cfg = get_config(arch, smoke=smoke)
+    return cfg, (cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups,
+                 cfg.ssm_state)
+
+
+@pytest.mark.parametrize("arch, smoke, want", [
+    # (body, heads a block, blocks) for bf16 at 16 slots.
+    ("mamba2-1.3b", False, ("mma", 4, 256)),
+    ("zamba2-2.7b", False, ("mma", 2, 640)),
+    ("mamba2-1.3b", True, ("mma", 1, 128)),
+    ("zamba2-2.7b", True, ("mma", 1, 128)),
+])
+def test_plan_launch_at_every_served_shape(arch, smoke, want):
+    """The body and launch shape the wrapper picks at each ported config's
+    SSD shape (16 slots, as the serve arms prefill) and at the SMOKE
+    shapes: bf16 on the tensor cores with hb heads of one group a block
+    (C B^T shared) and dh / 16 warps a head, fp32 on the CUDA cores.
+    mamba2 (ds 128) holds one 16-warp block an SM; zamba2 (ds 64) two
+    8-warp blocks, as many warps on a finer grid."""
+    cfg, (h, dh, g, ds) = _served(arch, smoke)
+    launch = sk.plan_launch(16, h, dh, g, ds, torch.bfloat16, aligned=True)
+    assert (launch.body, launch.hb, launch.ctas) == want
+    assert (h // g) % launch.hb == 0
+    assert launch.threads == 32 * launch.hb * (dh // 16) <= 512
+    assert launch.smem == sk.smem_bytes(dh, ds, body="mma", hb=launch.hb)
+    assert launch.smem <= 232448
+    fp32 = sk.plan_launch(16, h, dh, g, ds, torch.float32, aligned=True)
+    assert (fp32.body, fp32.hb, fp32.ctas, fp32.threads) == (
+        "cuda_cores", 1, 16 * h, 256)
+    assert fp32.smem == sk.smem_bytes(dh, ds)
+
+
+@pytest.mark.parametrize("dims, aligned, body", [
+    ((64, 64, 1, 128), False, "cuda_cores"),   # a misaligned view
+    ((64, 72, 1, 128), True, "cuda_cores"),    # dh not a multiple of 16
+    ((64, 64, 1, 132), True, "cuda_cores"),    # ds past 128
+    ((64, 64, 1, 36), True, "cuda_cores"),     # ds not a multiple of 8
+    ((64, 64, 1, 40), True, "mma"),            # ds padded to 64
+    ((32, 128, 1, 128), True, "mma"),          # dh 128: 8 warps a head
+])
+def test_plan_launch_falls_back_to_the_cuda_cores(dims, aligned, body):
+    h, dh, g, ds = dims
+    launch = sk.plan_launch(16, h, dh, g, ds, torch.bfloat16,
+                            aligned=aligned)
+    assert launch.body == body
+    if body == "mma":
+        assert launch.threads <= 512 and launch.ctas >= 132
+
+
+def test_plan_launch_trades_heads_a_block_for_blocks():
+    """At mamba2's widths one block of 4 heads (16 warps) fills an SM;
+    with few batch rows the grid is too small for it and hb falls to 1
+    (4 warps a block, two blocks an SM by shared memory)."""
+    def hb(batch):
+        return sk.plan_launch(batch, 64, 64, 1, 128, torch.bfloat16,
+                              aligned=True).hb
+
+    assert hb(16) == 4          # 256 blocks x 16 warps
+    assert hb(8) == 4           # 128 x 16 warps; hb 1: 264 x 4 busy
+    assert hb(4) == 1           # 256 x 4 warps; hb 4: 64 x 16
+    assert hb(1) == 1           # 64 blocks: every hb keeps 256 busy
+
+
+def _emulate_mma_body(x, dt, A, B, C, D, S0, *, split):
+    """The mma body's chunk arithmetic in torch (64-row chunks, C B^T from
+    the bf16 inputs in fp32) with its operand rounding: every fp32 operand
+    of a bf16 product (M, S, w x) rounded to hi + lo (``split``) or to a
+    single bf16."""
+    q = sk.KERNEL_CHUNK
+    b, l, h, dh = x.shape
+    hpg = h // B.shape[2]
+
+    def operand(v):        # hi = bf16(v), lo = bf16(v - hi), as csrc/ssd.cu
+        hi = v.to(torch.bfloat16).float()
+        return hi + (v - hi).to(torch.bfloat16).float() if split else hi
+
+    S, ys = S0.clone(), []
+    for c0 in range(0, l, q):
+        xs, d_ = x[:, c0:c0 + q].float(), dt[:, c0:c0 + q]
+        bs = B[:, c0:c0 + q].float().repeat_interleave(hpg, 2)
+        cs = C[:, c0:c0 + q].float().repeat_interleave(hpg, 2)
+        n = xs.shape[1]
+        cum = torch.cumsum(d_ * A, dim=1)                  # (b, n, h)
+        total = cum[:, -1]
+        cumT = cum.transpose(1, 2)
+        tril = torch.ones(n, n, dtype=torch.bool).tril()
+        decay = torch.exp(torch.where(tril, cumT[..., :, None]
+                                      - cumT[..., None, :], float("-inf")))
+        M = (torch.einsum("bthn,bshn->bhts", cs, bs) * decay
+             * d_.transpose(1, 2)[:, :, None, :])
+        y = torch.einsum("bthn,bhnd->bthd", cs, operand(S)) * torch.exp(
+            cum)[..., None]
+        ys.append(y + torch.einsum("bhts,bshd->bthd", operand(M), xs))
+        wx = operand((torch.exp(total[:, None] - cum) * d_)[..., None] * xs)
+        S = S * torch.exp(total)[..., None, None] + torch.einsum(
+            "bshn,bshd->bhnd", bs, wx)
+    y = torch.cat(ys, 1) + D[None, None, :, None] * x.float()
+    return y.to(x.dtype), S
+
+
+def test_hi_lo_split_holds_the_state_tolerance():
+    """At a reduced mamba2 shape (state 128, heads of 64, four chunks) with
+    chip_smoke.py's input ranges, the mma body's hi + lo operands keep the
+    state within its fp32 tolerance (2e-3 + 2e-3 |S|) of the plain
+    version, with room to spare; one bf16 rounding of the same operands
+    does not."""
+    b, l, h, dh, g, ds = 2, 256, 4, 64, 1, 128
+    rng = np.random.default_rng(9)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, l, h * dh + 2 * g * ds), np.float32)).bfloat16()
+    x = xbc[..., :h * dh].reshape(b, l, h, dh)
+    B = xbc[..., h * dh:h * dh + g * ds].reshape(b, l, g, ds)
+    C = xbc[..., h * dh + g * ds:].reshape(b, l, g, ds)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, l, h), np.float32)) - 1.0)
+    A = -torch.linspace(1.0, 16.0, h)
+    D = _t(rng.standard_normal(h).astype(np.float32))
+    S0 = _t(rng.standard_normal((b, h, ds, dh)).astype(np.float32))
+    yp, Sp = sk.ssd_plain(x, dt, A, B, C, D, chunk=128, init_state=S0)
+
+    def share(got, want, atol, rtol):
+        return ((got.float() - want.float()).abs()
+                / (atol + rtol * want.float().abs())).max().item()
+
+    y2, S2 = _emulate_mma_body(x, dt, A, B, C, D, S0, split=True)
+    y1, S1 = _emulate_mma_body(x, dt, A, B, C, D, S0, split=False)
+    assert share(S2, Sp, 2e-3, 2e-3) < 0.1
+    assert share(S1, Sp, 2e-3, 2e-3) > 1.0
+    # y is held at bf16's tolerance (chip_smoke.py TOL): both sides round
+    # to bf16, so the split's y is within it and the single rounding's is
+    # not.
+    assert share(y2, yp, 4e-3, 2 ** -7) < 1.0
+    assert share(y1, yp, 4e-3, 2 ** -7) > 1.0
 
 
 @pytest.fixture
@@ -238,4 +405,32 @@ def test_kernel_matches_plain_on_the_card(card, dtype):
     assert torch.equal(S[2], S0[2])
     tol = F32 if dtype == "float32" else dict(rtol=2 ** -7, atol=4e-3)
     torch.testing.assert_close(y.float(), yp.float(), **tol)
+    torch.testing.assert_close(S, Sp, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    (2, 300, 8, 64, 1, 128),    # mamba2's head and state, ragged length
+    (3, 333, 8, 64, 2, 128),    # two groups, state 128
+    (2, 130, 8, 64, 2, 64),     # zamba2's state, two groups
+    (4, 1, 8, 64, 1, 128),      # a one-row prefill
+    (2, 70, 4, 16, 2, 16),      # the SMOKE widths
+])
+def test_mma_body_matches_plain_on_the_card(card, dims):
+    """The tensor-core body (bf16) against the plain version: y within
+    bf16's tolerance, the state within fp32's (the hi + lo split), and
+    the parked slot's state bitwise its init_state."""
+    b, l, h, dh, g, ds = dims
+    a = _inputs(10, b, l, h, dh, g, ds)
+    args = [_t(a[k]).cuda() for k in ("x", "dt", "A", "B", "C", "D")]
+    args[1][1] = 0.0
+    for i in (0, 3, 4):
+        args[i] = args[i].bfloat16()
+    S0 = _t(a["S0"]).cuda()
+    assert sk.launch_of(*args, init_state=S0).body == "mma"
+    y, S = sk.ssd_cuda(*args, init_state=S0)
+    yp, Sp = sk.ssd_plain(*args, init_state=S0)
+    assert torch.equal(S[1], S0[1])
+    torch.testing.assert_close(y.float(), yp.float(), rtol=2 ** -7,
+                               atol=4e-3)
     torch.testing.assert_close(S, Sp, **F32)
