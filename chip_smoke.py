@@ -12,7 +12,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the policy-planned matmul; one nvcc each, started together) from
    src/repro_torch/kernels/*/csrc/*.cu for sm_90a into build/repro_torch/,
    and the registers, stack and spills nvcc -Xptxas -v reports for the two
-   attention kernels, the planned matmul, the SSD scan and the fused norm;
+   attention kernels, the planned matmul, the SSD scan, the fused norm and
+   the grouped GEMM;
 2. kernels against their plain PyTorch versions on the card, bf16 and fp32,
    tolerance (TOL) fp32 2e-3, bf16 4e-3 + 2^-7 |want|:
    * decode attention at yi-9b's decode shapes (hq 32, hkv 4, d 128,
@@ -79,13 +80,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 11. the MoE grouped GEMM against its plain version, bf16 and fp32, at
    olmoe-1b-7b's expert products: a dense-dispatch prefill wave through
    wg/wu and through wd, a decode step, a sorted-dispatch wave's capacity
-   buffers with counts (rows past each count exactly 0) and ragged shapes,
-   timed beside its bound and torch.bmm;
+   buffers with counts (rows past each count exactly 0), ragged shapes, a
+   prefill at 1000 rows an expert and one with counts at and inside row
+   tiles; each row with the body that ran (wgmma, decode, wmma,
+   cuda_cores; equal to plan_launch's and to the case's), its CTAs and
+   cluster, a repeat bitwise, timed beside its bound (over_bound) and
+   torch.bmm (library_over);
 12. serve olmoe-1b-7b at its published config (16 layers, 64 experts top 8,
    bf16, random weights) over a paged pool under dense dispatch: the same
    48 requests, launch counts checked (grouped GEMM 3 x 16 x (waves +
-   steps), flash 16 x waves, decode 16 x steps, fused norm 33 x (waves +
-   steps), 0 plain calls), the first 16 under pallas_gather with
+   steps): the waves' on the wgmma body, the steps' on the decode body;
+   flash 16 x waves, decode 16 x steps, fused norm 33 x (waves + steps), 0
+   plain calls), the first 16 under pallas_gather with
    bitwise-equal streams, a trace of one decode chunk and one admission
    wave;
 13. olmoe end to end at full width (4 layers, fp32): kernel route against
@@ -1060,39 +1066,52 @@ def phase_attn_zamba2(gpu: str, seed: int) -> dict:
 # Phase 11: the MoE grouped GEMM
 # ---------------------------------------------------------------------------
 
-# (name, e, c, k, n, with counts): olmoe-1b-7b's expert products (64
+# (name, e, c, k, n, counts, bf16 body): olmoe-1b-7b's expert products (64
 # experts, d 2048, d_ff 1024) at the serve path's shapes: a dense-dispatch
 # prefill wave (every expert multiplies all 16 x 1024 tokens) through
 # wg/wu and through wd, a decode step (16 tokens), a sorted-dispatch
 # wave's capacity buffers (16384 x 8 x 1.25 / 64 = 2560 rows an expert)
-# with counts, the reference test's ragged shape and a ragged k.
-GMM_CASES = (("prefill", 64, 16384, 2048, 1024, False),
-             ("prefill_wd", 64, 16384, 1024, 2048, False),
-             ("decode", 64, 16, 2048, 1024, False),
-             ("decode_wd", 64, 16, 1024, 2048, False),
-             ("sorted", 64, 2560, 2048, 1024, True),
-             ("ragged", 8, 100, 200, 130, True),
-             ("ragged_k", 5, 77, 130, 96, True))
+# with random counts, the reference test's ragged shape and a ragged k;
+# then a prefill at 1000 rows an expert (no multiple of the wgmma body's
+# 256-row tiles: the tensor maps' zero fill at c's edge) and a prefill-
+# shaped buffer whose counts (GMM_TILE_COUNTS, expert by expert) are 0, c
+# and inside a row tile: a dead CTA of a cluster, a dead warpgroup, one
+# live row.  fp32 always takes the cuda_cores body.
+GMM_CASES = (("prefill", 64, 16384, 2048, 1024, None, "wgmma"),
+             ("prefill_wd", 64, 16384, 1024, 2048, None, "wgmma"),
+             ("decode", 64, 16, 2048, 1024, None, "decode"),
+             ("decode_wd", 64, 16, 1024, 2048, None, "decode"),
+             ("sorted", 64, 2560, 2048, 1024, "random", "wgmma"),
+             ("ragged", 8, 100, 200, 130, "random", "wmma"),
+             ("ragged_k", 5, 77, 130, 96, "random", "wmma"),
+             ("prefill_edge", 64, 1000, 2048, 1024, None, "wgmma"),
+             ("prefill_counts", 64, 1536, 2048, 1024, "tiles", "wgmma"))
+GMM_TILE_COUNTS = (0, 1536, 1, 127, 128, 129, 255, 700)
 
 
 def phase_gmm(gpu: str, seed: int) -> dict:
     """The grouped GEMM against its plain version, bf16 and fp32, at
-    olmoe's shapes; rows past each count exactly 0; timed beside its
-    bound, the plain version and torch.bmm."""
+    olmoe's shapes; rows past each count exactly 0; a repeat bitwise; the
+    body that ran (its launch counted by body) equal to the case's and to
+    ``plan_launch``'s; timed beside its bound, the plain version and
+    torch.bmm."""
     from repro_torch.kernels.moe_gmm import moe_gmm as gk
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 50)
-    rows, err, main = [], 0.0, None
-    for name, e, c, k, n, with_counts in GMM_CASES:
+    rows, err, main = [], 0.0, {}
+    for name, e, c, k, n, with_counts, body in GMM_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(e, c, k, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(e, k, n, generator=gen, device="cuda")
                  * k ** -0.5).to(dtype)
             counts = None
-            if with_counts:
+            if with_counts == "random":
                 counts = torch.randint(0, c + 1, (e,), generator=gen,
                                        device="cuda", dtype=torch.int32)
                 counts[0], counts[1] = 0, c
+            elif with_counts == "tiles":
+                counts = torch.tensor(GMM_TILE_COUNTS, dtype=torch.int32,
+                                      device="cuda").repeat(e // 8)
 
             def kernel():
                 return gk.grouped_matmul_cuda(x, w, counts)
@@ -1103,9 +1122,22 @@ def phase_gmm(gpu: str, seed: int) -> dict:
             def library():
                 return torch.bmm(x, w)
 
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
             tag = f"gmm {name} {dtype}"
+            gk.reset_counters()
+            got = kernel()
+            ran = [b for b, v in gk.grouped_matmul.body_launches.items() if v]
+            planned = gk.plan_launch(
+                e, c, k, n, dtype,
+                strides=(x.stride(0), x.stride(1), w.stride(0), w.stride(1)),
+                aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+            want_body = body if dtype == torch.bfloat16 else "cuda_cores"
+            if ran != [planned] or planned != want_body:
+                raise AssertionError(f"{tag}: ran {ran}, plan_launch says "
+                                     f"{planned}, the case wants {want_body}")
+            again, want = kernel(), plain()
+            torch.cuda.synchronize()
+            check_equal(f"{tag} repeat", got, again)
+            del again
             e_k = check_close(tag, got, want, dtype)
             live = (torch.full((e,), c, device="cuda") if counts is None
                     else counts.clamp(0, c)).long()
@@ -1129,11 +1161,15 @@ def phase_gmm(gpu: str, seed: int) -> dict:
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
             big = c * k * n * e > 1e11 and dtype == torch.float32
             timing = dict(reps=3, warm=1) if big else {}
+            grid = gk.grid_of(planned, e, c, n,
+                              resident=gk.resident_ctas(x.device))
             row = {"case": name, "dtype": str(dtype).removeprefix("torch."),
                    "shape": [e, c, k, n],
                    "counts": None if counts is None else counts.tolist(),
+                   "body": ran[0], "ctas": grid.ctas, "cluster": grid.cluster,
                    "err": e_k, "library_err": lib_err,
                    "rows_past_counts_zero": counts is not None,
+                   "repeat_bitwise": True,
                    "ms": time_ms(kernel, **timing),
                    "plain_ms": time_ms(plain, reps=3, warm=1),
                    "library_ms": time_ms(library, **timing),
@@ -1141,13 +1177,15 @@ def phase_gmm(gpu: str, seed: int) -> dict:
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "gflop": ops / 1e9}
             row["tflop_per_s"] = ops / row["ms"] / 1e9
+            row["over_bound"] = row["ms"] / row["bound_ms"]
+            row["library_over"] = row["ms"] / row["library_ms"]
             rows.append(row)
-            if dtype == torch.bfloat16 and name == "prefill":
-                main = row
+            if dtype == torch.bfloat16 and name in ("prefill", "decode"):
+                main[name] = row
             del x, w, counts
             torch.cuda.empty_cache()
     emit({"phase": "kernels_gmm", "gpu": gpu, "rows": rows})
-    return {"main": main, "err": err}
+    return {"main": main["prefill"], "decode": main["decode"], "err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -1433,6 +1471,23 @@ def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
         raise AssertionError(f"{arm} arm: launch counts {got} != {want}")
 
 
+def check_gmm_bodies(arm: str, cfg, stats: dict) -> dict:
+    """A MoE arm's grouped-GEMM launches by body: a wave's products (16
+    slots x the pad, over 64 rows an expert) run the wgmma body, a decode
+    step's (16 rows) the decode body, three a MoE layer each."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as gk
+
+    got = dict(gk.grouped_matmul.body_launches)
+    per = 3 * cfg.n_layers
+    want = {"cuda_cores": 0, "wmma": 0,
+            "wgmma": per * stats["admission_waves"],
+            "decode": per * stats["chunks"] * 8}
+    if got != want:
+        raise AssertionError(f"{arm} arm: grouped GEMM launches by body "
+                             f"{got} != {want}")
+    return got
+
+
 def check_streams(arm: str, reqs, cfg) -> None:
     for r in reqs:
         if len(r.generated) != r.max_new_tokens or not all(
@@ -1466,6 +1521,8 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
     counts_paged = counts()
     check_counts(name, counts_paged, cfg, stats)
     check_streams(name, reqs, cfg)
+    moe = cfg.family == "moe"
+    gmm_bodies = check_gmm_bodies(name, cfg, stats) if moe else None
     if cfg.n_heads and stats["decode_splits"] != planned_splits(
             cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_):
         raise AssertionError(f"{name}: the engine baked "
@@ -1493,6 +1550,8 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
     }
     out = {"cfg": cfg, "params": params, "launches": counts_paged,
            "reqs": reqs}
+    if moe:
+        line["gmm_body_launches"] = out["gmm_bodies"] = gmm_bodies
     if cfg.family == "ssm":
         if stats["paged"]:
             raise AssertionError(f"{name}: a cache with no pages must run "
@@ -1509,6 +1568,8 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
     gwall, gchunk_s, gstats, _ = _serve(gcfg, params, greqs)
     counts_gather = counts()
     check_counts(name + " gather", counts_gather, gcfg, gstats)
+    if moe:
+        check_gmm_bodies(name + " gather", gcfg, gstats)
     if [r.generated for r in greqs] != [r.generated for r in reqs[:SLOTS]]:
         raise AssertionError(f"{name}: pallas_gather streams differ from "
                              "pallas_paged")
@@ -1817,7 +1878,7 @@ def phase_e2e(gpu: str, seed: int, base, want=None,
 
 
 PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
-                "fused_norm")
+                "fused_norm", "moe_gmm")
 
 
 def ptxas_report(source: pathlib.Path) -> list[dict]:
@@ -2003,6 +2064,13 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # The grouped GEMM's main-path launches by body, and its decode shape
+    # (the decode body's row of kernels_gmm) beside the prefill one.
+    gsum = next(r for r in summary if r["name"] == "grouped_matmul")
+    gsum["launches_by_body"] = served["olmoe-1b-7b"]["gmm_bodies"]
+    gsum["decode_shape"] = {key: gmm["decode"][key] for key in (
+        "shape", "body", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "over_bound")}
     emit({"kernels": summary})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,13 @@
 """The port's MoE grouped GEMM (plain version and the public op on CPU
 tensors) held against the JAX package's Pallas kernel (interpret mode) and
 its ``ref.py`` oracle on the reference's cases; rows past each count and
-empty experts exactly 0; the CPU dispatch rule and the CUDA entry's input
-guards.  The kernel itself runs only on the card (the ``cuda`` marker) and
-in ``chip_smoke.py``."""
+empty experts exactly 0; the CPU dispatch rule, the CUDA entry's input
+guards, and the kernel's body choice by shape alone (``plan_launch``,
+``launch_of``, ``grid_of``).  The kernel itself runs only on the card
+(the ``cuda`` marker) and in ``chip_smoke.py``."""
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -156,3 +160,164 @@ def test_kernel_matches_plain_on_the_card(card, dtype, ecKn):
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
     rows = torch.arange(ecKn[1], device="cuda")[None, :] >= tc[:, None]
     assert float(got.float().abs()[rows].max()) == 0.0
+
+
+# (name, e, c, k, n, dtype, strides or None for contiguous, aligned, body):
+# olmoe-1b-7b's prefill and decode products, the reference's ragged shape,
+# an odd row stride, an unaligned base, a broadcast expert axis, fp32, and
+# both sides of the decode body's 64 rows.
+PLANS = [
+    ("prefill", 64, 16384, 2048, 1024, "bfloat16", None, True, "wgmma"),
+    ("prefill_wd", 64, 16384, 1024, 2048, "bfloat16", None, True, "wgmma"),
+    ("decode", 64, 16, 2048, 1024, "bfloat16", None, True, "decode"),
+    ("decode_wd", 64, 16, 1024, 2048, "bfloat16", None, True, "decode"),
+    ("ragged", 8, 100, 200, 130, "bfloat16", None, True, "wmma"),
+    ("odd_row_stride", 4, 256, 128, 256, "bfloat16",
+     (256 * 129, 129, 128 * 256, 256), True, "wmma"),
+    ("unaligned_base", 4, 256, 128, 256, "bfloat16", None, False, "wmma"),
+    ("broadcast_experts", 4, 256, 128, 256, "bfloat16",
+     (0, 128, 128 * 256, 256), True, "wmma"),
+    ("fp32", 64, 16384, 2048, 1024, "float32", None, True, "cuda_cores"),
+    ("c64", 8, 64, 2048, 1024, "bfloat16", None, True, "decode"),
+    ("c65", 8, 65, 2048, 1024, "bfloat16", None, True, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("name, e, c, k, n, dtype, strides, aligned, body",
+                         PLANS, ids=[p[0] for p in PLANS])
+def test_plan_launch_picks_the_body_by_shape(name, e, c, k, n, dtype,
+                                             strides, aligned, body):
+    strides = strides or (c * k, k, k * n, n)
+    assert gk.plan_launch(e, c, k, n, TDT[dtype], strides=strides,
+                          aligned=aligned) == body
+
+
+def test_launch_of_reads_shapes_strides_and_bases():
+    """``launch_of`` asks ``plan_launch`` with the tensors' own strides and
+    base alignment (CPU tensors: nothing is launched)."""
+    x = torch.zeros(4, 100, 64, dtype=torch.bfloat16)
+    w = torch.zeros(4, 64, 256, dtype=torch.bfloat16)
+    assert gk.launch_of(x, w) == "wgmma"
+    assert gk.launch_of(x[:, :16], w) == "decode"       # a row slice
+    wide = torch.zeros(4, 100, 72, dtype=torch.bfloat16)
+    assert gk.launch_of(wide[:, :, 8:], w) == "wgmma"   # 16-byte offset
+    assert gk.launch_of(wide[:, :, 4:68], w) == "wmma"  # 8-byte offset
+    odd = torch.zeros(4, 100, 66, dtype=torch.bfloat16)
+    assert gk.launch_of(odd[:, :, :64], w) == "wmma"    # row stride 66
+    assert gk.launch_of(x.float(), w.float()) == "cuda_cores"
+
+
+@pytest.mark.parametrize("shape, dtype, body", [
+    ((4, 100, 64, 256), "bfloat16", "wgmma"),
+    ((4, 16, 64, 256), "bfloat16", "decode"),
+    ((4, 100, 64, 130), "bfloat16", "wmma"),
+    ((4, 100, 64, 256), "float32", "cuda_cores")], ids=lambda v: str(v))
+def test_body_ignores_counts(shape, dtype, body):
+    """The body is chosen by shape alone: no count, wherever it falls
+    against the row tiles, changes it."""
+    e, c, k, n = shape
+    x = torch.zeros(e, c, k, dtype=TDT[dtype])
+    w = torch.zeros(e, k, n, dtype=TDT[dtype])
+    bodies = {gk.launch_of(x, w, counts) for counts in (
+        None, torch.zeros(e, dtype=torch.int32),
+        torch.full((e,), c, dtype=torch.int32),
+        torch.tensor([0, 1, c // 2, c], dtype=torch.int32))}
+    assert bodies == {body}
+
+
+def test_chip_smoke_cases_name_the_planned_body():
+    """Every ``kernels_gmm`` case of ``chip_smoke.py`` names, for bf16, the
+    body ``plan_launch`` picks for its contiguous, aligned tensors (the
+    card run checks the body that ran against both); fp32 takes
+    ``cuda_cores``."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_gmm", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert {case[0] for case in cs.GMM_CASES} >= {
+        "prefill", "prefill_wd", "decode", "decode_wd", "ragged",
+        "prefill_edge", "prefill_counts"}
+    for name, e, c, k, n, _, body in cs.GMM_CASES:
+        strides = (c * k, k, k * n, n)
+        for dtype, want in ((torch.bfloat16, body),
+                            (torch.float32, "cuda_cores")):
+            assert gk.plan_launch(e, c, k, n, dtype, strides=strides,
+                                  aligned=True) == want, (name, dtype)
+
+
+@pytest.mark.parametrize("body, shape, grid", [
+    ("wgmma", (64, 16384, 1024), (16384, 132, 2)),
+    ("wgmma", (2, 100, 130), (2, 4, 2)),
+    ("decode", (64, 16, 1024), (512, 512, 1)),
+    ("decode", (64, 16, 2048), (1024, 1024, 1)),
+    ("wmma", (8, 100, 130), (16, 16, 1)),
+    ("cuda_cores", (64, 16384, 1024), (262144, 262144, 1))],
+    ids=lambda v: str(v))
+def test_grid_of(body, shape, grid):
+    """The wgmma grid is persistent (at most the resident CTAs, in pairs);
+    the decode body runs a CTA an (expert, 128-column tile)."""
+    assert gk.grid_of(body, *shape, resident=132) == gk.Grid(*grid)
+
+
+def _gmm_case(seed, e, c, k, n, dtype, counts):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(e, c, k, generator=gen, device="cuda").to(TDT[dtype])
+    w = (torch.randn(e, k, n, generator=gen, device="cuda")
+         * k ** -0.5).to(TDT[dtype])
+    tc = (None if counts is None
+          else torch.tensor(counts, dtype=torch.int32, device="cuda"))
+    return x, w, tc
+
+
+# (e, c, k, n, counts, body): chip_smoke.py's prefill case at a c that is
+# no multiple of 256 (the tensor maps' zero fill at c's edge) and its
+# counts case (counts 0, c, and inside a row tile: a dead CTA of the
+# cluster, a dead warpgroup, one live row), at a small width; the decode
+# body with a dead expert and a partial row tile.
+BODY_CASES = [
+    (4, 1000, 256, 256, None, "wgmma"),
+    (8, 520, 128, 256, [0, 520, 1, 127, 128, 129, 255, 300], "wgmma"),
+    (4, 48, 256, 192, [0, 48, 17, 33], "decode"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BODY_CASES, ids=lambda v: str(v[:4]))
+def test_kernel_bodies_match_plain_on_the_card(card, dtype, case):
+    """Each bf16 body against the plain version on the card, rows past the
+    counts exactly 0, the body the plan names, repeated calls bitwise."""
+    e, c, k, n, counts, body = case
+    x, w, tc = _gmm_case(9, e, c, k, n, dtype, counts)
+    want_body = body if dtype == "bfloat16" else "cuda_cores"
+    assert gk.launch_of(x, w, tc) == want_body
+    gk.reset_counters()
+    got = gk.grouped_matmul_cuda(x, w, tc)
+    again = gk.grouped_matmul_cuda(x, w, tc)
+    want = gk.grouped_matmul_plain(x, w, tc)
+    torch.cuda.synchronize()
+    assert gk.grouped_matmul.body_launches[want_body] == 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+    if tc is not None:
+        rows = torch.arange(c, device="cuda")[None, :] >= tc[:, None]
+        assert float(got.float().abs()[rows].max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4, 300, 128, 256, [0, 300, 5, 200]),
+                                  (4, 40, 128, 136, [0, 40, 5, 17])],
+                         ids=["wgmma", "decode"])
+def test_kernel_bf16_to_fp32_out_on_the_card(card, case):
+    """bf16 inputs, fp32 output: the wgmma body's epilogue stores fp32
+    boxes, the decode body fp32 pairs; both match the plain version."""
+    e, c, k, n, counts = case
+    x, w, tc = _gmm_case(10, e, c, k, n, "bfloat16", counts)
+    got = gk.grouped_matmul_cuda(x, w, tc, out_dtype=torch.float32)
+    want = gk.grouped_matmul_plain(x, w, tc, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL["float32"])
+    rows = torch.arange(c, device="cuda")[None, :] >= tc[:, None]
+    assert float(got.abs()[rows].max()) == 0.0
