@@ -38,12 +38,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    version, the nearest PyTorch library call and the least time the work
    can take (the bound);
 3. serve yi-9b at its published config (48 layers, bf16, random weights
-   from a seed) through ServeEngine over a paged pool: 48 greedy requests,
+   from a seed) through ServeEngine over a paged pool, each decode chunk
+   one CUDA graph replay (the engine's default): 48 greedy requests,
    every kernel's launch count checked (decode 48 x steps, flash 48 x
-   waves, fused norm 97 x (waves + steps), 0 plain calls), then the first
-   16 of those requests under pallas_gather with bitwise-equal streams;
-   a torch.profiler trace of one decode chunk and of one admission wave
-   (device busy time, idle share, kernels by device time);
+   waves, fused norm 97 x (waves + steps), 0 plain calls; a replay adds
+   its captured launches, and one replay, profiled after the run, must
+   launch each kernel as often as its capture counted), one replay a
+   chunk, ms per chunk and peak memory (allocated, reserved, the graph's
+   pool); then the first 16 requests with the graph off (the eager loop)
+   and under pallas_gather, each with bitwise-equal streams; a
+   torch.profiler trace of one decode chunk with the graph on and off
+   from the same state (device busy time, idle share, peak memory,
+   kernels by device time, and every kernel the profiler sees inside the
+   replay) and of one admission wave;
 4. prefix sharing and preemption at the same width: 48 requests on four
    shared 512-token system prompts over a 256-page pool, invariants
    checked after every wave, hits and preemptions required, no page left
@@ -67,13 +74,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    shared-attention invocations, bf16, random weights) over a paged pool:
    the same 48 requests, launch counts checked (ssd 54 x waves, flash
    9 x waves, decode 9 x steps, fused norm 73 x (waves + steps), 0 plain
-   calls), the first 16 under pallas_gather with bitwise-equal streams, a
-   trace of one decode chunk and one admission wave; then the 48 requests
-   on a 256-page pool with preemption and invariants after every wave;
+   calls), the first 16 with the graph off and under pallas_gather with
+   bitwise-equal streams, a trace of one decode chunk (graph on and off)
+   and one admission wave; then the 48 requests on a 256-page pool with
+   preemption and invariants after every wave;
 9. serve mamba2-1.3b at its published config (48 layers, bf16) with a paged
    layout requested: the engine falls back to contiguous bookkeeping;
    launch counts ssd 48 x waves, fused norm 49 x (waves + steps), no
-   attention, 0 plain calls; a trace of one decode chunk and one
+   attention, 0 plain calls; the first 16 with the graph off (streams
+   bitwise equal); a trace of one decode chunk (graph on and off) and one
    admission wave;
 10. kernel path against plain path end to end for mamba2 (full width, 4
    layers) and zamba2 (full width, 12 layers: two groups), fp32, as in 5;
@@ -91,9 +100,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    48 requests, launch counts checked (grouped GEMM 3 x 16 x (waves +
    steps): the waves' on the wgmma body, the steps' on the decode body;
    flash 16 x waves, decode 16 x steps, fused norm 33 x (waves + steps), 0
-   plain calls), the first 16 under pallas_gather with
-   bitwise-equal streams, a trace of one decode chunk and one admission
-   wave;
+   plain calls), the first 16 with the graph off and under pallas_gather
+   with bitwise-equal streams, a trace of one decode chunk (graph on and
+   off) and one admission wave; then granite-20b (52 layers, d 6144, 48
+   query heads over one KV head: the decode kernel's group of 48, GELU
+   MLP; 20.3 B parameters) and minicpm-2b (40 layers, 36 heads of 64,
+   tied embeddings, vocab 122753 -> 122880) at their published configs,
+   the same 48 requests with the graph on, launch counts and the planned
+   split count checked;
 13. olmoe end to end at full width (4 layers, fp32): kernel route against
    plain route under dense and under sorted dispatch (there with a
    prefill free of padding rows, which would contend for capacity), and
@@ -121,8 +135,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1381,11 +1397,23 @@ def _requests(Request, vocab: int, seed: int, n: int = 48):
                     max_new_tokens=int(k)) for m, k in zip(lens, budgets)]
 
 
-def _serve(cfg, params, reqs, n_pages=None):
+def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
+           check_replay=True) -> dict:
+    """Serve ``reqs`` on a fresh engine (its decode chunk captured as a
+    CUDA graph at construction unless ``cuda_graph`` is False), with every
+    kernel counter zeroed just before the run and read just after it.
+    Returns the wall time, each chunk's seconds, ``serve_stats()``, the
+    pages still held, the counts, the peak memory (allocated and
+    reserved, the graph's pool included) from construction to drain and,
+    graphed with ``check_replay``, one replay's kernels, each checked
+    against its captured count (check_replay_kernels)."""
     from repro_torch.serve.engine import ServeEngine
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
-                      chunk_size=8, n_pages=n_pages)
+                      chunk_size=8, n_pages=n_pages, cuda_graph=cuda_graph)
     chunk_s = []
     run_chunk = eng._run_chunk
 
@@ -1396,15 +1424,118 @@ def _serve(cfg, params, reqs, n_pages=None):
 
     eng._run_chunk = timed_chunk
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    got = counts()
     stats = eng.serve_stats() | {"paged": eng.paged,
                                  "decode_splits": eng.decode_splits}
+    if stats["graph_replays"] != (stats["chunks"] if cuda_graph else 0):
+        raise AssertionError(f"{cfg.arch}: {stats['graph_replays']} graph "
+                             f"replays for {stats['chunks']} chunks "
+                             f"(cuda_graph={cuda_graph})")
     held = (eng.n_pages - eng.allocator.free_count()) if eng.paged else 0
+    peak = {"peak_allocated": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved()}
+    replay = (check_replay_kernels(cfg.arch, eng)
+              if cuda_graph and check_replay else None)
     del eng
-    return wall, chunk_s, stats, held
+    return {"wall": wall, "chunk_s": chunk_s, "stats": stats, "held": held,
+            "counts": got, "replay_kernels": replay, **peak}
+
+
+# The CUDA kernels behind each launch counter, by symbol: one wrapper call
+# is one launch of one of them.  A graph replay runs no Python, so a
+# graphed engine adds the capture's launches to the counters per replay;
+# check_replay_kernels holds that to the kernels the profiler sees.
+REPLAY_SYMBOLS = {
+    "decode": (r"\bsplit_kv_decode_kernel\b",
+               ("paged_decode_attention.launches",
+                "decode_attention.launches")),
+    "flash": (r"\bflash_(simt|mma)_kernel\b",
+              ("flash_attention.launches", "paged_flash_attention.launches")),
+    "fused_norm": (r"\bfused_norm(_vec)?_kernel\b", ("fused_norm.launches",)),
+    "ssd": (r"\bssd_(fma|mma)_kernel\b", ("ssd.launches",)),
+    "grouped_matmul": (r"\bgmm_(f32|(wmma|wgmma|decode)_kernel)\b",
+                       ("grouped_matmul.launches",)),
+    "gmm_cuda_cores": (r"\bgmm_f32\b",
+                       ("grouped_matmul.body_launches[cuda_cores]",)),
+    "gmm_wmma": (r"\bgmm_wmma_kernel\b",
+                 ("grouped_matmul.body_launches[wmma]",)),
+    "gmm_wgmma": (r"\bgmm_wgmma_kernel\b",
+                  ("grouped_matmul.body_launches[wgmma]",)),
+    "gmm_decode": (r"\bgmm_decode_kernel\b",
+                   ("grouped_matmul.body_launches[decode]",)),
+    "matmul": (r"\bmm_(wgmma|small|wmma|fma)_kernel\b",
+               ("matmul.launches", "matmul.splitk_launches")),
+}
+
+
+def check_replay_kernels(arch: str, eng) -> dict:
+    """Profile three replays of ``eng``'s captured chunk with a spin kernel
+    between each two (after its run every slot is parked, so a replay
+    changes no state) and require, for each kernel, as many launches in
+    the middle replay as its counters took at the capture: the count each
+    replay adds to them.  The profiler can lose device events at the edges
+    of its window (on the card, the first few and up to a few hundred of
+    the last), hence the replays around the one counted.  Returns
+    {kernel: launches in the middle replay}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    delta = eng._graph_delta
+    mapped = {n for _, names in REPLAY_SYMBOLS.values() for n in names}
+    unmapped = [n for n in delta if not n.endswith(".calls")
+                and n not in mapped]
+    if unmapped:
+        raise AssertionError(f"{arch}: no kernel symbol for the captured "
+                             f"counters {unmapped}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            if i:
+                torch.cuda._sleep(1_000_000)        # the marker kernel
+            eng._graph.replay()
+        torch.cuda.synchronize()
+    # The raw events, in device order: parsing them into FunctionEvents
+    # takes seconds for a replay's 40000.
+    events = sorted(
+        ((e.start_ns(), e.name())
+         for e in prof.profiler.kineto_results.events()
+         if e.device_type() == torch.autograd.DeviceType.CUDA))
+    names = [name for _, name in events]
+    marks = [i for i, name in enumerate(names)
+             if re.search(r"\bspin_kernel\b", name)]
+    if len(marks) != 2 or marks[1] - marks[0] < 2:
+        raise AssertionError(f"{arch}: the profiler saw the marker kernels "
+                             f"at {marks} of {len(names)} device events")
+    middle = names[marks[0] + 1:marks[1]]
+    seen = {}
+    for kernel, (pattern, counted) in REPLAY_SYMBOLS.items():
+        n = sum(1 for name in middle if re.search(pattern, name))
+        want = sum(delta.get(c, 0) for c in counted)
+        if n != want:
+            raise AssertionError(f"{arch}: one graph replay launched {n} "
+                                 f"{kernel} kernels; the capture counted "
+                                 f"{want}")
+        if n:
+            seen[kernel] = n
+    return seen | {"device_events": len(middle)}
+
+
+def _graph_fields(run: dict) -> dict:
+    """A run's chunk time, graph replays and memory, for its phase line."""
+    stats = run["stats"]
+    return {"ms_per_chunk": 1e3 * statistics.mean(run["chunk_s"]),
+            "ms_per_chunk_median": 1e3 * statistics.median(run["chunk_s"]),
+            "graph_replays": stats["graph_replays"],
+            "captured_launches": stats["captured_launches"],
+            "replay_kernels": run["replay_kernels"],
+            "graph_pool_bytes": stats["graph_pool_bytes"],
+            "max_memory_allocated": run["peak_allocated"],
+            "max_memory_reserved": run["peak_reserved"]}
 
 
 def _kernel_modules():
@@ -1495,11 +1626,17 @@ def check_streams(arm: str, reqs, cfg) -> None:
             raise AssertionError(f"{arm} arm: request {r.id}: bad stream")
 
 
-def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
-    """Serve the 48 requests at ``cfg`` (a paged pallas_paged config) with
-    every launch count checked; for a model with attention, then the first
-    16 requests under pallas_gather (streams bitwise equal); then the
-    decode-chunk and admission-wave trace."""
+def phase_serve(gpu: str, seed: int, cfg, name: str = "serve",
+                twins: bool = True, trace: bool = True) -> dict:
+    """Serve the 48 requests at ``cfg`` (a paged pallas_paged config), the
+    decode chunks as CUDA graph replays, with every launch count checked
+    and one replay's kernels held to the capture's counts; with
+    ``twins``, then the first 16 with the graph off (the eager loop:
+    streams bitwise equal) and, for a model with attention, under
+    pallas_gather (streams bitwise equal); with ``trace``, then the
+    decode-chunk (graph on and off) and admission-wave trace, whose
+    chunk pair's wall time, idle share and peak memory the arm's line
+    carries as ``graph_on_off`` ([on, off])."""
     from repro_torch import convert
     from repro_torch.serve.engine import Request
 
@@ -1511,14 +1648,13 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
     # Warm-up (cuBLAS handles, allocator): two short requests.
     warm = [Request(prompt=np.arange(40, dtype=np.int32), max_new_tokens=9),
             Request(prompt=np.arange(9, dtype=np.int32), max_new_tokens=3)]
-    _serve(cfg, params, warm)
+    _serve(cfg, params, warm, check_replay=False)
 
-    # Each arm's counts are zeroed just before its run and read just after.
+    # Each arm's counts are zeroed just before its run and read just after
+    # (inside _serve).
     reqs = _requests(Request, cfg.vocab, seed)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()                              # the paged main path
-    wall, chunk_s, stats, _ = _serve(cfg, params, reqs)
-    counts_paged = counts()
+    run = _serve(cfg, params, reqs)             # the paged main path
+    stats, counts_paged = run["stats"], run["counts"]
     check_counts(name, counts_paged, cfg, stats)
     check_streams(name, reqs, cfg)
     moe = cfg.family == "moe"
@@ -1528,17 +1664,18 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
         raise AssertionError(f"{name}: the engine baked "
                              f"{stats['decode_splits']} decode splits, not "
                              "its policy engine's plan")
+    if cfg.family == "ssm" and stats["paged"]:
+        raise AssertionError(f"{name}: a cache with no pages must run "
+                             "contiguous bookkeeping")
     tokens = sum(len(r.generated) for r in reqs)
-    peak = torch.cuda.max_memory_allocated()
     line = {
         "phase": name, "gpu": gpu, "arch": cfg.arch,
         "n_layers": cfg.n_layers, "dtype": cfg.dtype,
         "params": cfg.param_count(), "init_s": init_s,
-        "requests": len(reqs), "tokens": tokens, "wall_s": wall,
-        "tok_per_s": tokens / wall,
+        "requests": len(reqs), "tokens": tokens, "wall_s": run["wall"],
+        "tok_per_s": tokens / run["wall"],
         "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
-        "ms_per_chunk": 1e3 * statistics.mean(chunk_s),
-        "ms_per_chunk_median": 1e3 * statistics.median(chunk_s),
+        **_graph_fields(run),
         "decode_steps": stats["chunks"] * 8,
         "host_syncs": stats["host_syncs"],
         "host_syncs_per_token": stats["host_syncs_per_token"],
@@ -1546,41 +1683,69 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve") -> dict:
         "engine_paged": stats["paged"],
         "decode_splits": stats["decode_splits"],
         "peak_pages_held": stats["peak_pages_held"],
-        "max_memory_allocated": peak, "launch_counts": counts_paged,
+        "launch_counts": counts_paged,
     }
     out = {"cfg": cfg, "params": params, "launches": counts_paged,
            "reqs": reqs}
     if moe:
         line["gmm_body_launches"] = out["gmm_bodies"] = gmm_bodies
-    if cfg.family == "ssm":
-        if stats["paged"]:
-            raise AssertionError(f"{name}: a cache with no pages must run "
-                                 "contiguous bookkeeping")
+    if not twins:
         emit(line)
-        phase_trace(gpu, cfg, params, seed)
         return out
 
-    # The bitwise twin over the first 16 requests (the first wave's): each
-    # slot's arithmetic does not depend on what the other slots hold.
-    gcfg = dataclasses.replace(cfg, decode_kernel="pallas_gather")
-    greqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
-    reset_counts()                              # the pallas_gather path
-    gwall, gchunk_s, gstats, _ = _serve(gcfg, params, greqs)
-    counts_gather = counts()
-    check_counts(name + " gather", counts_gather, gcfg, gstats)
+    # The graph off over the first 16 requests (the first wave's): the same
+    # kernels launched by the eager loop, streams bitwise equal.  Each
+    # slot's arithmetic does not depend on what the other slots hold; the
+    # trace times both from one state.
+    ereqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
+    erun = _serve(cfg, params, ereqs, cuda_graph=False)
+    check_counts(name + " eager", erun["counts"], cfg, erun["stats"])
     if moe:
-        check_gmm_bodies(name + " gather", gcfg, gstats)
-    if [r.generated for r in greqs] != [r.generated for r in reqs[:SLOTS]]:
-        raise AssertionError(f"{name}: pallas_gather streams differ from "
-                             "pallas_paged")
-    gtokens = sum(len(r.generated) for r in greqs)
-    line["gather"] = {"requests": len(greqs), "tokens": gtokens,
-                      "wall_s": gwall, "tok_per_s": gtokens / gwall,
-                      "ms_per_chunk": 1e3 * statistics.mean(gchunk_s),
-                      "launch_counts": counts_gather, "streams_equal": True}
+        check_gmm_bodies(name + " eager", cfg, erun["stats"])
+    if [r.generated for r in ereqs] != [r.generated for r in reqs[:SLOTS]]:
+        raise AssertionError(f"{name}: the eager loop's streams differ from "
+                             "the graph's")
+    etokens = sum(len(r.generated) for r in ereqs)
+    line["eager"] = {"requests": len(ereqs), "tokens": etokens,
+                     "wall_s": erun["wall"],
+                     "tok_per_s": etokens / erun["wall"],
+                     **_graph_fields(erun),
+                     "host_syncs_per_token":
+                         erun["stats"]["host_syncs_per_token"],
+                     "mean_ttft_ms": 1e3 * statistics.mean(
+                         r.ttft_s for r in ereqs),
+                     "launch_counts": erun["counts"], "streams_equal": True}
+    # The pallas_gather twin over the same first 16 requests.
+    if cfg.n_heads:
+        gcfg = dataclasses.replace(cfg, decode_kernel="pallas_gather")
+        greqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
+        grun = _serve(gcfg, params, greqs)      # the pallas_gather path
+        check_counts(name + " gather", grun["counts"], gcfg, grun["stats"])
+        if moe:
+            check_gmm_bodies(name + " gather", gcfg, grun["stats"])
+        if [r.generated for r in greqs] != [r.generated
+                                             for r in reqs[:SLOTS]]:
+            raise AssertionError(f"{name}: pallas_gather streams differ "
+                                 "from pallas_paged")
+        gtokens = sum(len(r.generated) for r in greqs)
+        line["gather"] = {"requests": len(greqs), "tokens": gtokens,
+                          "wall_s": grun["wall"],
+                          "tok_per_s": gtokens / grun["wall"],
+                          "ms_per_chunk":
+                              1e3 * statistics.mean(grun["chunk_s"]),
+                          "replay_kernels": grun["replay_kernels"],
+                          "launch_counts": grun["counts"],
+                          "streams_equal": True}
+        out["gather_launches"] = grun["counts"]
+    if trace:
+        # The graph on and off from one state (the trace's chunk pair).
+        tr = phase_trace(gpu, cfg, params, seed)
+        line["graph_on_off"] = {
+            key: [tr["chunk"][key], tr["chunk_eager"][key]]
+            for key in ("wall_ms", "device_idle_share",
+                        "max_memory_allocated", "max_memory_reserved")}
     emit(line)
-    phase_trace(gpu, cfg, params, seed)
-    return out | {"gather_launches": counts_gather}
+    return out
 
 
 def _profile_rows(prof):
@@ -1607,35 +1772,55 @@ def _trace_line(what: str, wall: float, traced_wall: float, rows) -> dict:
                     for us, k, c in rows[:10]]}
 
 
-def phase_trace(gpu: str, cfg, params, seed: int) -> None:
-    """One decode chunk at full width (16 slots of 512 prompt tokens), then
-    one admission wave (16 prompts of 1000 tokens, pad 1024), each timed
-    untraced and then traced with torch.profiler: device busy time, idle
-    share and the kernels that take the time."""
+def phase_trace(gpu: str, cfg, params, seed: int) -> dict:
+    """One decode chunk at full width (16 slots of 512 prompt tokens) with
+    the graph on (one replay) and off (the eager loop) from the same
+    state, then one admission wave (16 prompts of 1000 tokens, pad 1024),
+    each timed untraced and then traced with torch.profiler: device busy
+    time, idle share, the kernels that take the time and, for the replay,
+    every device event (kernels and copies) the profiler sees inside it,
+    by name with its count; each chunk's engine with its peak memory from
+    construction (the graph's pool included)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request, ServeEngine
 
     rng = np.random.default_rng(seed + 2)
-    eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
-                      chunk_size=8)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    chunk_prompts = [rng.integers(0, cfg.vocab, 512).astype(np.int32)
+                     for _ in range(SLOTS)]
+    chunks = {}
+    for graph in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
+                          chunk_size=8, cuda_graph=graph)
+        eng.submit([Request(prompt=p, max_new_tokens=25)
+                    for p in chunk_prompts])
+        eng.step()                  # admission wave + one warm chunk
+        t0 = time.perf_counter()
+        eng._run_chunk()            # ends in the chunk's device-to-host copy
+        wall = time.perf_counter() - t0
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng._run_chunk()        # the last: every budget runs out
+            traced_wall = time.perf_counter() - t0
+        rows = _profile_rows(prof)
+        chunks[graph] = _trace_line(
+            "decode_chunk" if graph else "decode_chunk_eager", wall,
+            traced_wall, rows) | {
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "max_memory_reserved": torch.cuda.max_memory_reserved()}
+        if graph:
+            chunks[graph]["kernels_seen"] = sum(c for _, _, c in rows)
+            chunks[graph]["kernel_counts"] = {k[:80]: c for _, k, c in rows}
+            del eng
 
     def prompts(n_tokens, budget):
         return [Request(prompt=rng.integers(0, cfg.vocab, n_tokens).astype(
             np.int32), max_new_tokens=budget) for _ in range(SLOTS)]
 
-    eng.submit(prompts(512, 25))
-    eng.step()                      # admission wave + one warm chunk
-    t0 = time.perf_counter()
-    eng._run_chunk()                # ends in the chunk's device-to-host copy
-    wall = time.perf_counter() - t0
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng._run_chunk()            # the last: every budget runs out
-        traced_wall = time.perf_counter() - t0
-    chunk = _trace_line("decode_chunk", wall, traced_wall,
-                        _profile_rows(prof))
     waves = []
     for traced in (False, True):
         for _, r in eng._live():    # vacate the slots for a full wave
@@ -1654,9 +1839,13 @@ def phase_trace(gpu: str, cfg, params, seed: int) -> None:
             waves.append(time.perf_counter() - t0)
     wave = _trace_line("admission_wave", waves[0], waves[1],
                        _profile_rows(prof))
-    emit({"phase": "trace", "gpu": gpu, "arch": cfg.arch, "chunk_steps": 8,
-          "wave_slots": SLOTS, "wave_prompt": 1000, "chunk": chunk,
-          "wave": wave})
+    del eng
+    line = {"phase": "trace", "gpu": gpu, "arch": cfg.arch,
+            "chunk_steps": 8, "wave_slots": SLOTS, "wave_prompt": 1000,
+            "chunk": chunks[True], "chunk_eager": chunks[False],
+            "wave": wave}
+    emit(line)
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -1690,10 +1879,8 @@ def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
     pcfg = dataclasses.replace(cfg, prefix_sharing=True, preemption=True,
                                strict_invariants=True)
     reqs = _prefix_requests(Request, cfg.vocab, seed)
-    reset_counts()                              # the prefix arm
-    wall, chunk_s, stats, held = _serve(pcfg, params, reqs,
-                                        n_pages=PREFIX_POOL)
-    got = counts()
+    run = _serve(pcfg, params, reqs, n_pages=PREFIX_POOL)   # the prefix arm
+    stats, held, got = run["stats"], run["held"], run["counts"]
     check_counts("prefix", got, pcfg, stats)
     check_streams("prefix", reqs, pcfg)
     if stats["prefix_hits_fresh"] <= 0 or stats["preempted"] <= 0:
@@ -1708,8 +1895,9 @@ def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
 
     ocfg = dataclasses.replace(pcfg, prefix_sharing=False)
     oreqs = _prefix_requests(Request, cfg.vocab, seed)
-    owall, _, ostats, oheld = _serve(ocfg, params, oreqs,
-                                     n_pages=PREFIX_POOL)
+    orun = _serve(ocfg, params, oreqs, n_pages=PREFIX_POOL)
+    owall, ostats, oheld = orun["wall"], orun["stats"], orun["held"]
+    wall = run["wall"]
     check_streams("sharing-off", oreqs, ocfg)
     equal = sum(a.generated == b.generated for a, b in zip(reqs, oreqs))
     first_equal = sum(a.generated[0] == b.generated[0]
@@ -1719,7 +1907,8 @@ def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
           "requests": len(reqs), "pool_pages": PREFIX_POOL,
           "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
           "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
-          "ms_per_chunk": 1e3 * statistics.mean(chunk_s),
+          "ms_per_chunk": 1e3 * statistics.mean(run["chunk_s"]),
+          "graph_replays": stats["graph_replays"],
           "prefix_hits_fresh": stats["prefix_hits_fresh"],
           "prefix_hit_rate": stats["prefix_hit_rate"],
           "prefix_tokens_shared": stats["prefix_tokens_shared"],
@@ -1753,10 +1942,9 @@ def phase_preempt(gpu: str, seed: int, cfg, params, unpressured) -> None:
 
     pcfg = dataclasses.replace(cfg, preemption=True, strict_invariants=True)
     reqs = _requests(Request, cfg.vocab, seed)
-    reset_counts()                              # the preemption arm
-    wall, chunk_s, stats, held = _serve(pcfg, params, reqs,
-                                        n_pages=PREFIX_POOL)
-    got = counts()
+    run = _serve(pcfg, params, reqs, n_pages=PREFIX_POOL)  # the preempt arm
+    stats, held, got = run["stats"], run["held"], run["counts"]
+    wall, chunk_s = run["wall"], run["chunk_s"]
     check_counts("preempt", got, pcfg, stats)
     check_streams("preempt", reqs, pcfg)
     if stats["preempted"] <= 0:
@@ -1772,6 +1960,7 @@ def phase_preempt(gpu: str, seed: int, cfg, params, unpressured) -> None:
           "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
           "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
           "ms_per_chunk": 1e3 * statistics.mean(chunk_s),
+          "graph_replays": stats["graph_replays"],
           "preempted": stats["preempted"],
           "readmitted": stats["readmitted"],
           "recompute_tokens": stats["recompute_tokens"],
@@ -1943,6 +2132,13 @@ def build_kernels() -> tuple[float, dict]:
     return time.perf_counter() - t0, reports
 
 
+# How the kernels line's ``launches`` were counted on the main paths.
+COUNTED = ("decode chunks: the capture's launches x graph replays, one "
+           "replay's kernels held to them by the profiler "
+           "(check_replay_kernels); prefill and the policy matmul: at "
+           "each launch")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1951,7 +2147,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import mamba2_13b, olmoe_1b_7b, yi_9b, zamba2_27b
+    from repro_torch.configs import (
+        granite_20b,
+        mamba2_13b,
+        minicpm_2b,
+        olmoe_1b_7b,
+        yi_9b,
+        zamba2_27b,
+    )
 
     from repro_torch import hw
 
@@ -2006,6 +2209,16 @@ def main() -> int:
     served["olmoe-1b-7b"] = oserve
     del oserve["params"]
     torch.cuda.empty_cache()
+    # The last two dense configs: granite's MQA (48 query heads over one
+    # KV head) and GELU MLP, minicpm's tied embeddings and 36 heads of 64.
+    for mod, name in ((granite_20b, "serve_granite"),
+                      (minicpm_2b, "serve_minicpm")):
+        dserve = phase_serve(gpu, args.seed,
+                             dataclasses.replace(mod.CONFIG, **paged), name,
+                             twins=False, trace=False)
+        served[mod.CONFIG.arch] = dserve
+        del dserve["params"]
+        torch.cuda.empty_cache()
     fp32 = dict(dtype="float32", cache_layout="paged", kv_page_size=PSZ)
     phase_e2e(gpu, args.seed,
               dataclasses.replace(yi_9b.CONFIG, n_layers=4, **fp32))
@@ -2059,7 +2272,8 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[source],
             "replaces": TPU_SITES[name], "launches": count,
-            "launches_by_path": by_path, "max_abs_err": err,
+            "launches_by_path": by_path, "launches_counted": COUNTED,
+            "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],

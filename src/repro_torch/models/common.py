@@ -615,31 +615,32 @@ class ModelApply:
     init_cache: Any      # (params, batch, max_len, n_pages=None) -> cache
     prefill: Any         # (params, cache, tokens, seg_lens, all_logits)
     decode_step: Any     # (params, cache, tokens, seg_lens)
-    reset_slots: Any = None  # (cache, mask (b,) bool) -> cache
+    reset_slots: Any = None  # (cache, mask (b,) bool) -> cache, in place
 
 
 def reset_lengths(cache: Params, mask: torch.Tensor) -> Params:
-    """Rewind the ragged cursor of masked slots; stale KV is masked and
-    overwritten as the cursor advances."""
-    cache = dict(cache)
-    cache["lengths"] = torch.where(
-        mask, 0, cache["lengths"]).to(torch.int32)
+    """Rewind the ragged cursor of masked slots, in place; stale KV is
+    masked and overwritten as the cursor advances.  Returns ``cache``."""
+    cache["lengths"].masked_fill_(mask, 0)
     return cache
 
 
 def reset_recurrent(cache: Params, mask: torch.Tensor,
                     state_keys: tuple = ("ssm", "conv")) -> Params:
-    """reset_lengths plus zeroed recurrent-state leaves.
+    """reset_lengths plus zeroed recurrent-state leaves, all in place (no
+    leaf is rebound, so a CUDA graph that captured them stays valid).
+    Returns ``cache``.
 
     Unlike KV buffers, SSM/conv state has no validity mask: a re-admitted
     slot must start from zero state.  Each ``state_keys`` entry is a key
     (batch on axis 1, the (L, b, ...) stacked-layer layout) or a
-    ``(key, axis)`` pair; the leaf's shape is checked against the mask so a
-    layout with its batch elsewhere raises instead of zeroing the wrong
-    rows.  Leaves not named (zamba2's "kv") pass through untouched."""
-    out = reset_lengths(cache, mask)
+    ``(key, axis)`` pair; every leaf's shape is checked against the mask
+    before anything is written, so a layout with its batch elsewhere
+    raises instead of zeroing the wrong rows.  Leaves not named (zamba2's
+    "kv") pass through untouched.  The state is multiplied by the kept
+    mask (``mul_``), so its values are bitwise those of ``leaf * keep``."""
     b = mask.shape[0]
-    keep = ~mask
+    leaves = []
     for entry in state_keys:
         key, axis = entry if isinstance(entry, tuple) else (entry, 1)
         leaf = cache[key]
@@ -648,7 +649,11 @@ def reset_recurrent(cache: Params, mask: torch.Tensor,
                 f"reset_recurrent: cache leaf '{key}' has shape "
                 f"{tuple(leaf.shape)} but the batch axis ({axis}) must have "
                 f"size {b}; pass (key, axis) in state_keys for this layout")
+        leaves.append((leaf, axis))
+    reset_lengths(cache, mask)
+    keep = ~mask
+    for leaf, axis in leaves:
         shape = [1] * leaf.dim()
         shape[axis] = b
-        out[key] = leaf * keep.to(leaf.dtype).reshape(shape)
-    return out
+        leaf.mul_(keep.to(leaf.dtype).reshape(shape))
+    return cache

@@ -9,6 +9,8 @@ from repro_torch.models import common as cm
 
 _CONFIG_MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2.5-32b": "repro_torch.configs.qwen25_32b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_27b",

@@ -3,17 +3,31 @@ with prefix sharing and the request lifecycle: the port of
 ``repro.serve.engine`` without speculative decode, snapshots or the
 adaptive policy.
 
-* **Chunked decode with one host sync per chunk.**  A chunk is a Python
-  loop of ``chunk_size`` single-token decode steps with on-device greedy
-  sampling; tokens, budgets and done flags stay on the device, and the
-  chunk's emitted tokens come back in one device-to-host copy.
+* **Chunked decode with one host sync per chunk.**  A chunk is
+  ``chunk_size`` single-token decode steps with on-device greedy sampling;
+  tokens, budgets and done flags stay on the device, and the chunk's
+  emitted tokens come back in one device-to-host copy.
+* **The chunk as one CUDA graph** (``cuda_graph=True``, the default on the
+  card; the reference's ``jit(scan)`` with donation).  The chunk's body
+  reads and writes only static buffers: the cache's leaves, ``cur_tok``,
+  ``remaining`` and a (2, chunk_size, slots) output of tokens and active
+  flags.  It is captured once per engine, at construction, after a
+  warm-up on a side stream (which builds the kernels at first use), both
+  with every slot parked, so neither changes any state; ``_run_chunk``
+  then replays it and copies the output to the host.  Every other write to
+  those buffers (admission's prefill, slot resets, parking, the page
+  table) is in place, and before each chunk ``_check_static`` raises if a
+  leaf was rebound or the split count moved from the one captured.  A
+  failed capture or replay raises; nothing falls back to the eager loop,
+  which runs on the CPU and with ``cuda_graph=False`` (the A/B arm).
 * **Ragged slots.**  Finished slots park (``seg_lens == 0`` leaves their KV
   and cursor untouched, including through the kernels, which still run
   for them with ``kv_len = lengths`` and ``q_len = 0``); freed slots take
   new prompts mid-stream through a right-padded ragged prefill.
 * **In-place state.**  The reference donates the cache and loop vectors to
-  each jitted dispatch; here the model writes the KV buffers in place and
-  the engine rebinds the small per-slot vectors after each step.
+  each jitted dispatch; here the model writes the KV and recurrent buffers
+  in place, and the engine copies the cursors, tokens and budgets the
+  model and sampler return back into its static buffers.
 * **Paged KV pool.**  A host-side refcounted ``PageAllocator`` assigns each
   admitted request the pages its worst case needs; admission is FIFO
   head-of-line gated on free pages.
@@ -68,6 +82,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import CachePolicyEngine, make_engine
 from repro_torch.core.characterize import attention_op
 from repro_torch.device import resolve_device
+from repro_torch.kernels import counters
 from repro_torch.kernels.decode_attention.ops import plan_splits
 from repro_torch.models import build_model
 from repro_torch.models.common import paged_kv_spec
@@ -132,6 +147,19 @@ def _pad_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _leaves(tree, path=()):
+    """(path, tensor) for every tensor in a nest of dicts and lists, in
+    insertion order."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+
+
 def _refuse_unported(cfg: ModelConfig, journal_path) -> None:
     unported = {
         "spec_k > 0": cfg.spec_k > 0,
@@ -160,14 +188,19 @@ class ServeEngine:
     queue: free slots are prefilled (ragged, right-padded, attached to
     shared prefix pages where they can be), live slots decode in
     device-resident chunks, finished slots free at chunk boundaries and
-    are re-admitted from the queue."""
+    are re-admitted from the queue.
+
+    ``cuda_graph`` (default True) replays each decode chunk as one CUDA
+    graph on the card; it has no effect on the CPU.  False runs the same
+    chunk eagerly on the card: the A/B arm, never chosen automatically."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int,
                  max_len: int, chunk_size: int = 8,
                  n_pages: int | None = None, max_queue: int | None = None,
                  journal_path: str | None = None,
                  no_progress_limit: int = 256, device=None,
-                 policy_engine: CachePolicyEngine | None = None):
+                 policy_engine: CachePolicyEngine | None = None,
+                 cuda_graph: bool = True):
         self.device = resolve_device(device)
         _refuse_unported(cfg, journal_path)
         if cfg.n_experts and cfg.moe_dispatch != "dense":
@@ -208,9 +241,20 @@ class ServeEngine:
             cfg = dataclasses.replace(cfg, decode_splits=self.decode_splits)
             self.cfg = cfg
         self.model = build_model(cfg, self.device)
-        self.cache = self.model.init_cache(
-            params, batch=batch_slots, max_len=max_len,
-            n_pages=self.n_pages if self.paged else None)
+        # The static buffers: allocated once, in inference mode (so a write
+        # outside it raises), and only ever written in place.
+        with torch.inference_mode():
+            self.cache = self.model.init_cache(
+                params, batch=batch_slots, max_len=max_len,
+                n_pages=self.n_pages if self.paged else None)
+            # Device-resident per-slot loop state: last sampled token and
+            # remaining budget (0 == parked or free), and the chunk's
+            # output, tokens over active flags.
+            self.cur_tok = torch.zeros(batch_slots, dtype=torch.int32,
+                                       device=self.device)
+            self.remaining = torch.zeros_like(self.cur_tok)
+            self._out = torch.zeros((2, self.chunk_size, batch_slots),
+                                    dtype=torch.int32, device=self.device)
         # A cache with no KV to page (mamba2's decode state is O(1) per
         # slot) falls back to contiguous bookkeeping: no allocator, no page
         # table, no admission gated on a phantom pool.
@@ -229,11 +273,6 @@ class ServeEngine:
                                and cfg.family in ("dense", "moe"))
         self.prefix = (PrefixIndex(self.page_size) if self.prefix_sharing
                        else None)
-        # Device-resident per-slot loop state: last sampled token and
-        # remaining budget (0 == parked or free).
-        self.cur_tok = torch.zeros(batch_slots, dtype=torch.int32,
-                                   device=self.device)
-        self.remaining = torch.zeros_like(self.cur_tok)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.queue: collections.deque[Request] = collections.deque()
         # Request lifecycle (DESIGN.md §5.5).
@@ -278,7 +317,19 @@ class ServeEngine:
             "deadline_total": 0,      # deadlined requests reaching terminal
             "deadline_met": 0,        # ... that finished within deadline
             "invariant_checks": 0,    # check_invariants() sweeps run
+            "graph_replays": 0,       # chunks run as a CUDA graph replay
+            "captured_launches": 0,   # kernel launches in the captured chunk
+            "graph_pool_bytes": 0,    # memory the capture reserved
         }
+        self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        self._graph = None
+        self._graph_delta: dict[str, int] = {}
+        if self.cuda_graph:
+            self._capture()
+        # Every buffer the chunk reads or writes, by address: the guard
+        # holds the eager chunk (CPU, cuda_graph=False) to the graph's rule.
+        self._static = self._static_ptrs()
+        self._static_splits = (self.decode_splits, self.cfg.decode_splits)
 
     def _make_allocator(self) -> PageAllocator:
         """The pool allocator; the chaos wrapper when an alloc or share
@@ -514,41 +565,111 @@ class ServeEngine:
 
     # -- device steps --------------------------------------------------------
 
+    def _write_back(self, cache) -> None:
+        """Copy a cache the model returned into the static one: the
+        advanced cursors (a new tensor), and any other leaf the model did
+        not write in place."""
+        for (path, dst), (src_path, src) in zip(_leaves(self.cache),
+                                                _leaves(cache), strict=True):
+            if path != src_path:
+                raise RuntimeError(f"the model returned a cache of another "
+                                   f"layout: {src_path} where {path} was")
+            if src is not dst:
+                dst.copy_(src)
+
     @torch.inference_mode()
     def _prefill(self, tokens, seg_lens, start_lens, new_remaining):
         """Ragged admission prefill: set each admitted slot's cursor to its
         attach point (0, or the shared prefix's length), prefill the
         unshared suffix (seg_lens == 0 parks the others) and sample each
-        admitted slot's first token on the device."""
+        admitted slot's first token on the device.  Eager, and in place
+        into the static buffers."""
         admitted = seg_lens > 0
-        cache = self.model.reset_slots(self.cache, admitted)
-        cache["lengths"] = torch.where(
-            admitted, start_lens, cache["lengths"]).to(torch.int32)
-        logits, self.cache = self.model.prefill(
-            self.params, cache, tokens, seg_lens=seg_lens)
+        self.model.reset_slots(self.cache, admitted)
+        lengths = self.cache["lengths"]
+        lengths.copy_(torch.where(admitted, start_lens, lengths))
+        logits, cache = self.model.prefill(
+            self.params, self.cache, tokens, seg_lens=seg_lens)
+        self._write_back(cache)
         nxt = self.sampler(logits)
-        self.cur_tok = torch.where(admitted, nxt, self.cur_tok)
-        self.remaining = torch.where(admitted, new_remaining, self.remaining)
+        self.cur_tok.copy_(torch.where(admitted, nxt, self.cur_tok))
+        self.remaining.copy_(torch.where(admitted, new_remaining,
+                                         self.remaining))
         return nxt
 
     @torch.inference_mode()
-    def _decode_chunk(self):
-        """``chunk_size`` single-token steps for every slot; slots whose
-        budget hits zero park.  Returns (chunk, b) tokens and active flags
-        stacked into one device tensor."""
-        tok, rem = self.cur_tok, self.remaining
-        toks, actives = [], []
-        for _ in range(self.chunk_size):
+    def _decode_chunk(self) -> None:
+        """The chunk's body: ``chunk_size`` single-token steps for every
+        slot, slots whose budget hits zero parking.  Reads and writes only
+        the static buffers: the step's tokens and active flags go to
+        ``_out``, and the cursors, tokens and budgets are copied back at
+        the end.  A step of a parked slot changes nothing (its KV rows go
+        to the sink, dt = 0 keeps its SSM state, its cursor advances by 0),
+        so the body with every slot parked is a no-op on the state."""
+        cache, tok, rem = self.cache, self.cur_tok, self.remaining
+        for i in range(self.chunk_size):
             active = rem > 0
             seg = active.to(torch.int32)
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache, tok[:, None], seg_lens=seg)
+            logits, cache = self.model.decode_step(
+                self.params, cache, tok[:, None], seg_lens=seg)
             tok = torch.where(active, self.sampler(logits), tok)
             rem = rem - seg
-            toks.append(tok)
-            actives.append(seg)
-        self.cur_tok, self.remaining = tok, rem
-        return torch.stack([torch.stack(toks), torch.stack(actives)])
+            self._out[0, i].copy_(tok)
+            self._out[1, i].copy_(seg)
+        self._write_back(cache)
+        self.cur_tok.copy_(tok)
+        self.remaining.copy_(rem)
+
+    @torch.inference_mode()
+    def _capture(self) -> None:
+        """Capture the chunk's body as one CUDA graph, every slot parked.
+        The warm-up on a side stream builds the kernels and sets their
+        attributes at first use; its launches are real and counted.  The
+        capture's counter ticks are kept as the delta each replay adds."""
+        dev = self.device
+        stream = torch.cuda.current_stream(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._decode_chunk()
+        stream.wait_stream(side)
+        before = counters.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._decode_chunk()
+        self._graph_delta = counters.delta(counters.snapshot(), before)
+        counters.restore(before)       # the capture itself launched nothing
+        self._graph = graph
+        self.stats["captured_launches"] = counters.launches(self._graph_delta)
+        self.stats["graph_pool_bytes"] = (torch.cuda.memory_reserved(dev)
+                                          - reserved)
+
+    def _static_ptrs(self) -> dict:
+        """Address of every buffer a chunk reads or writes: the cache's
+        leaves, the loop vectors, the output and the parameters."""
+        trees = {"cache": self.cache, "cur_tok": self.cur_tok,
+                 "remaining": self.remaining, "out": self._out,
+                 "params": self.params}
+        return {path: t.data_ptr() for path, t in _leaves(trees)}
+
+    def _check_static(self) -> None:
+        """Raise if a buffer the chunk captured was rebound (a new tensor
+        in its place) or the decode split count moved from the captured
+        one: a graph replay would read and write the old buffers."""
+        now = self._static_ptrs()
+        if now != self._static:
+            moved = sorted(str(p) for p in set(now) | set(self._static)
+                           if now.get(p) != self._static.get(p))
+            raise RuntimeError(
+                f"ServeEngine: buffers of the captured decode chunk were "
+                f"rebound: {moved[:8]}; write them in place")
+        splits = (self.decode_splits, self.cfg.decode_splits)
+        if splits != self._static_splits:
+            raise RuntimeError(
+                f"ServeEngine: decode splits {splits} differ from the "
+                f"{self._static_splits} the chunk was captured with; a "
+                "change that re-plans them must recapture")
 
     # -- host-side scheduling ------------------------------------------------
 
@@ -743,8 +864,9 @@ class ServeEngine:
         self._dirty_slots.clear()
         dev = self.device
         if stale:
-            self.remaining = self.remaining.index_fill(
-                0, torch.tensor(stale, device=dev), 0)
+            with torch.inference_mode():
+                self.remaining.index_fill_(
+                    0, torch.tensor(stale, device=dev), 0)
         if not wave:
             if self._chaos or self._strict:
                 self.check_invariants()
@@ -764,8 +886,9 @@ class ServeEngine:
             seg[slot] = n
             start[slot] = r.prefix_tokens     # page-aligned attach cursor
             new_rem[slot] = r.max_new_tokens - len(r.generated) - 1
-        if self.paged:
-            self.cache["pages"] = torch.from_numpy(self.page_table.copy()).to(dev)
+        if self.paged:                 # the whole table, -1 entries too
+            with torch.inference_mode():
+                self.cache["pages"].copy_(torch.from_numpy(self.page_table))
         # Admission consults the policy engine: the (PlanCache-memoized)
         # decode-attention plan.
         self.decode_plan = self._plan_decode()
@@ -792,7 +915,14 @@ class ServeEngine:
             self.check_invariants()
 
     def _run_chunk(self) -> None:
-        out = self._decode_chunk().cpu().numpy()   # host sync: 1 per chunk
+        self._check_static()
+        if self._graph is not None:
+            self._graph.replay()
+            counters.advance(self._graph_delta)
+            self.stats["graph_replays"] += 1
+        else:
+            self._decode_chunk()
+        out = self._out.cpu().numpy()              # host sync: 1 per chunk
         toks, actives = out[0], out[1]
         self.stats["host_syncs"] += 1
         self.stats["chunks"] += 1

@@ -126,7 +126,8 @@ def _perturbed_params(jcfg):
     return jax.tree_util.tree_unflatten(tree, moved)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "yi-9b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "yi-9b", "granite-20b",
+                                  "minicpm-2b"])
 @pytest.mark.parametrize("layout, kernel", [
     ("contiguous", "xla"), ("contiguous", "pallas_paged"),
     ("paged", "xla"), ("paged", "pallas_gather"), ("paged", "pallas_paged"),

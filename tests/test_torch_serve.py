@@ -68,6 +68,22 @@ def test_streams_equal_jax_engine(jax_params, params, kernel):
     assert stats["decode_tokens"] + stats["prefill_tokens"] == 72
 
 
+@pytest.mark.parametrize("arch", ["granite-20b", "minicpm-2b"])
+def test_granite_minicpm_streams_equal_jax_engine(arch):
+    """The last two dense configs (granite's MQA group over one KV head and
+    GELU MLP, minicpm's tied embeddings and 12-wide heads) serve the same
+    streams through both engines."""
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True),
+                               decode_kernel="xla", **PAGED)
+    jp = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    want = JaxEngine(jcfg, jp, batch_slots=4, max_len=64,
+                     chunk_size=8).run(_requests(JaxRequest))
+    tcfg = dataclasses.replace(get_config(arch, smoke=True),
+                               decode_kernel="pallas_paged", **PAGED)
+    got, _ = _serve(tcfg, convert.from_jax(jp, tcfg, "cpu"))
+    assert got == [r.generated for r in want]
+
+
 def test_streams_invariant_to_chunk_size_and_kernel(params):
     base, _ = _serve(_port(), params)
     assert _serve(_port(), params, chunk_size=3)[0] == base
