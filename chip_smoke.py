@@ -125,7 +125,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    cuda_cores), its CTAs and cluster, its time beside the plan's modeled
    time, the plain version, torch.matmul and the bound, the achieved
    TFLOP/s and GB/s and the time over the bound, and per shape the fastest
-   mode on the card beside the fastest by the model.
+   mode on the card beside the fastest by the model;
+15. speculative decode at yi-9b's width (``serve_spec``) and zamba2's
+   (``serve_spec_zamba2``, the replay rollback): benchmarks/serve_bench.py's
+   recipe scaled to the arm (64 greedy streams of seeded 64-token prompts
+   from the plain graphed engine, their tails ranked by the n-gram oracle,
+   the 16 most repetitive resumed 256 tokens in to decode 128), served by
+   the plain engine and by the speculative one (spec_k 4, n-gram 3, chunk
+   10: two draft/verify/rollback rounds a graph replay), launch counts
+   checked (one prefill a round, two under replay), one replay's kernels
+   held to the capture's, the eager twin's streams bitwise equal to the
+   graph's; acceptance, tokens a round, ms a chunk, tok/s beside the plain
+   engine's, and the streams equal to the plain engine's (counted: the
+   verify is a prefill at other bf16 shapes);
+16. the adaptive serve-tier policy at yi-9b's width (``serve_adaptive``):
+   serve_bench's mixed trace with token and page counts x16 (a 768-token
+   system prompt re-arriving beside 576-token junk prompts, 6 rounds, 2
+   slots, 128 pages, 48 warm), legs static_off, static_retain,
+   static_bypass and adaptive, the reference's placement gates (adaptive's
+   prefill work at most the best static leg's, >= 1 re-plan and warm hit,
+   the novel class at bypass, no page leaked) and per leg the re-arrival
+   TTFT;
+17. ``spec_identity``: fp32 speculative streams bitwise equal to plain
+   ones at yi-9b's width cut to 4 layers (rewind) and zamba2's cut to 6
+   (replay), 16 requests each, with the n-gram proposer and with an oracle
+   proposer that drafts the plain streams (so drafts are accepted);
+and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
+cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
+and the bound.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -784,8 +811,70 @@ def phase_flash(gpu: str, seed: int) -> dict:
                  "plain_err": e_plain,
                  "bitwise_equal": bool(torch.equal(attached,
                                                    whole[:, :, pre:]))})
+    del kp, vp, q, whole, attached
+    verify = _flash_verify(gen, n_table)
+    err = max(err, verify["err"])
+    rows.append(verify)
     emit({"phase": "kernels_flash", "gpu": gpu, "rows": rows})
-    return {"main": main, "err": err}
+    return {"main": main, "err": err, "verify": verify}
+
+
+def _flash_verify(gen, n_table: int) -> dict:
+    """The speculative verify's shape, bf16: each of 16 slots scores
+    spec_k + 1 = 5 query rows at its cursor over ragged 512-2048 keys
+    through its page table; against the plain version, SDPA with an
+    explicit mask over the gathered view, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models.common import gather_pages
+
+    dtype, b, sq = torch.bfloat16, SLOTS, SPEC_K + 1
+    kp, vp, pages = _paged_pool(gen, dtype, b, n_table, b * n_table)
+    kv_len = torch.randint(512, MAX_LEN + 1, (b,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    off = (kv_len - sq).to(torch.int32)
+    q_len = torch.full((b,), sq, dtype=torch.int32, device="cuda")
+    mapped = (kv_len.long() + PSZ - 1) // PSZ
+    pages = torch.where(torch.arange(n_table, device="cuda")[None]
+                        < mapped[:, None], pages, -1).to(torch.int32)
+    pages = pages.contiguous()
+    q = torch.randn(b, sq, HQ, D, generator=gen,
+                    device="cuda").to(dtype).transpose(1, 2)
+    kw = dict(q_offset=off, kv_len=kv_len, q_len=q_len)
+    kd = gather_pages(kp, pages).transpose(1, 2).contiguous()
+    vd = gather_pages(vp, pages).transpose(1, 2).contiguous()
+    kpos = torch.arange(kd.shape[2], device="cuda")
+    qpos = off[:, None].long() + torch.arange(sq, device="cuda")
+    mask = ((kpos[None, None] < kv_len[:, None, None])
+            & (kpos[None, None] <= qpos[:, :, None]))[:, None]
+
+    def paged():
+        return fk.paged_flash_attention_cuda(q, kp, vp, pages, **kw)
+
+    def plain():
+        return fk.paged_flash_attention_plain(q, kp, vp, pages, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+
+    got, want = paged(), plain()
+    torch.cuda.synchronize()
+    e = check_close("flash verify", got, want, dtype)
+    need, pairs = _flash_work(off, q_len, kv_len)
+    bound_ms, bound_by = _flash_bound(dtype, q_len.cpu(), need, pairs, b,
+                                      sq, HQ, HKV, D)
+    row = {"case": "verify", "dtype": "bfloat16", "body": fk.body(q, kp, vp),
+           "shape": [b, HQ, HKV, sq, MAX_LEN, D], "kv_len": kv_len.tolist(),
+           "err": e, "tol_used": tol_used(got, want, dtype),
+           "library_err": (library().float() - want.float()).abs().max()
+           .item(),
+           "ms": time_ms(paged), "plain_ms": time_ms(plain, reps=5),
+           "library_ms": time_ms(library), "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    row["over_bound"] = row["ms"] / bound_ms
+    return row
 
 
 def phase_norm(gpu: str, seed: int) -> dict:
@@ -1398,7 +1487,7 @@ def _requests(Request, vocab: int, seed: int, n: int = 48):
 
 
 def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
-           check_replay=True) -> dict:
+           check_replay=True, chunk_size: int = 8) -> dict:
     """Serve ``reqs`` on a fresh engine (its decode chunk captured as a
     CUDA graph at construction unless ``cuda_graph`` is False), with every
     kernel counter zeroed just before the run and read just after it.
@@ -1413,7 +1502,8 @@ def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
-                      chunk_size=8, n_pages=n_pages, cuda_graph=cuda_graph)
+                      chunk_size=chunk_size, n_pages=n_pages,
+                      cuda_graph=cuda_graph)
     chunk_s = []
     run_chunk = eng._run_chunk
 
@@ -1431,7 +1521,8 @@ def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
     wall = time.perf_counter() - t0
     got = counts()
     stats = eng.serve_stats() | {"paged": eng.paged,
-                                 "decode_splits": eng.decode_splits}
+                                 "decode_splits": eng.decode_splits,
+                                 "rounds_per_chunk": eng.spec_rounds}
     if stats["graph_replays"] != (stats["chunks"] if cuda_graph else 0):
         raise AssertionError(f"{cfg.arch}: {stats['graph_replays']} graph "
                              f"replays for {stats['chunks']} chunks "
@@ -1583,9 +1674,15 @@ def check_counts(arm: str, got: dict, cfg, stats: dict) -> None:
     GEMMs per MoE layer; no serve path calls the planned matmul, and
     nothing takes a plain version.  Attention layers:
     all of a dense or MoE model's, the shared block's invocations of
-    zamba2, none of mamba2's."""
-    L, steps = cfg.n_layers, stats["chunks"] * 8
-    waves = stats["admission_waves"]
+    zamba2, none of mamba2's.  A speculative chunk has no decode step:
+    each of its rounds is one prefill (the verify), two under a replay
+    rollback (recurrent families)."""
+    waves, steps = stats["admission_waves"], stats["chunks"] * 8
+    if cfg.spec_k:
+        replay = 2 if cfg.family in ("ssm", "hybrid") else 1
+        waves += stats["chunks"] * stats["rounds_per_chunk"] * replay
+        steps = 0
+    L = cfg.n_layers
     attn, ssm = {"dense": (L, 0), "moe": (L, 0), "ssm": (0, L),
                  "hybrid": (L // max(cfg.shared_attn_every, 1), L)}[cfg.family]
     moe = L if cfg.family == "moe" else 0
@@ -1976,6 +2073,410 @@ def phase_preempt(gpu: str, seed: int, cfg, params, unpressured) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Speculative decode and the adaptive serve-tier policy
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_NGRAM = 4, 3   # drafts a round, the proposer's suffix
+SPEC_CHUNK = 10             # two rounds of k + 1 = 5 a graph replay
+SPEC_PROBES, SPEC_PROMPT = 64, 64
+SPEC_CUT, SPEC_NEW = 256, 128
+
+
+def _ngram_oracle(hist: list, start: int, g: int, k: int) -> float:
+    """benchmarks/serve_bench.py's ``_ngram_oracle``: the simulated draft
+    acceptance of ``hist[start:]`` (suffix match of ``g`` tokens, the last
+    earlier occurrence wins, ``k`` drafts), with each n-gram's last start
+    kept in a dict instead of rescanned."""
+    last, indexed, acc, tot, i = {}, 0, 0, 0, start
+    while i < len(hist):
+        while indexed < i - g:
+            last[tuple(hist[indexed:indexed + g])] = indexed
+            indexed += 1
+        best = last.get(tuple(hist[i - g:i]), -1)
+        a = 0
+        for j in range(k):
+            q = best + g + j
+            d = hist[q] if best >= 0 and q < i else hist[i - 1]
+            if i + j < len(hist) and d == hist[i + j]:
+                a += 1
+            else:
+                break
+        acc += a
+        tot += k
+        i += a + 1
+    return acc / tot if tot else 0.0
+
+
+def _spec_workload(cfg, params, seed: int, probes: int = SPEC_PROBES,
+                   cut: int = SPEC_CUT, new: int = SPEC_NEW):
+    """serve_bench's spec recipe at this arm's size: greedy streams of
+    ``probes`` seeded 64-token prompts from the plain graphed engine, their
+    tails ranked by the n-gram oracle, the SLOTS most repetitive resumed
+    ``cut`` tokens in to decode ``new``.  Returns (a factory of fresh
+    request lists, the probe's numbers)."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed + 7)
+    prompts = [rng.integers(0, cfg.vocab, SPEC_PROMPT).astype(np.int32)
+               for _ in range(probes)]
+    probe = [Request(prompt=p, max_new_tokens=cut + new) for p in prompts]
+    run = _serve(cfg, params, probe, check_replay=False)
+    scored = sorted(
+        ((_ngram_oracle(list(p) + r.generated, len(p) + cut, SPEC_NGRAM,
+                        SPEC_K), i) for i, (p, r) in enumerate(zip(prompts,
+                                                                 probe))),
+        key=lambda t: (-t[0], t[1]))[:SLOTS]
+
+    def requests():
+        return [Request(prompt=np.concatenate(
+            [prompts[i], np.asarray(probe[i].generated[:cut], np.int32)]),
+            max_new_tokens=new) for _, i in scored]
+
+    return requests, {"probes": probes, "probe_wall_s": run["wall"],
+                      "oracle_acceptance": [a for a, _ in scored]}
+
+
+def _run_line(reqs, run: dict) -> dict:
+    tokens = sum(len(r.generated) for r in reqs)
+    stats = run["stats"]
+    return {"requests": len(reqs), "tokens": tokens, "wall_s": run["wall"],
+            "tok_per_s": tokens / run["wall"],
+            "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
+            "chunks": stats["chunks"],
+            "host_syncs_per_token": stats["host_syncs_per_token"],
+            **_graph_fields(run), "launch_counts": run["counts"]}
+
+
+def _trace_spec_chunk(cfg, params, reqs, skip: int = 7) -> dict:
+    """One graphed speculative chunk mid-decode: the requests admitted
+    (one wave and one chunk), ``skip`` more chunks, then one chunk timed
+    untraced and the next traced with torch.profiler: device busy time,
+    idle share, the kernels that take the time, the flash kernel's (the
+    verify's attention) share of the device time, and the slots' cursor
+    range at the traced chunk.  Every slot is still decoding there (at
+    most 2 (k + 1) tokens a chunk)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
+                      chunk_size=SPEC_CHUNK)
+    eng.submit(reqs)
+    eng.step()
+    for _ in range(skip):
+        eng._run_chunk()
+    lengths = eng.cache["lengths"].tolist()
+    t0 = time.perf_counter()
+    eng._run_chunk()            # ends in the chunk's device-to-host copy
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._run_chunk()
+        traced_wall = time.perf_counter() - t0
+    if any(r is None for r in eng.slot_req):
+        raise AssertionError(f"{cfg.arch}: a slot finished before the "
+                             "traced speculative chunk")
+    del eng
+    rows = _profile_rows(prof)
+    line = _trace_line("spec_chunk", wall, traced_wall, rows)
+    flash = [(us, c) for us, k, c in rows
+             if re.search(REPLAY_SYMBOLS["flash"][0], k)]
+    flash_ms = sum(us for us, _ in flash) / 1e3
+    busy = line["device_busy_ms"]
+    return line | {"kv_len_range": [min(lengths), max(lengths)],
+                   "flash_ms": flash_ms,
+                   "flash_launches": sum(c for _, c in flash),
+                   "flash_share": flash_ms / busy if busy else None}
+
+
+def phase_serve_spec(gpu: str, seed: int, cfg, params, name: str) -> dict:
+    """Speculative decode at ``cfg`` (a paged pallas_paged config) on
+    serve_bench's repeat-heavy recipe: the plain graphed engine's tok/s,
+    then the speculative chunk (spec_k 4, n-gram 3, two rounds a graph
+    replay) with its launch counts checked and one replay's kernels held
+    to the capture's, then its eager twin, streams bitwise equal to the
+    graph's.  Streams equal to the plain engine's are counted, not
+    required (bf16: the verify pass is a prefill at other shapes)."""
+    requests, probe = _spec_workload(cfg, params, seed)
+    plain_reqs = requests()
+    prun = _serve(cfg, params, plain_reqs)
+    scfg = dataclasses.replace(cfg, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+    reqs = requests()
+    run = _serve(scfg, params, reqs, chunk_size=SPEC_CHUNK)  # the spec path
+    stats = run["stats"]
+    check_counts(name, run["counts"], scfg, stats)
+    check_streams(name, reqs, scfg)
+    ereqs = requests()
+    erun = _serve(scfg, params, ereqs, cuda_graph=False,
+                  chunk_size=SPEC_CHUNK)
+    check_counts(name + " eager", erun["counts"], scfg, erun["stats"])
+    if [r.generated for r in ereqs] != [r.generated for r in reqs]:
+        raise AssertionError(f"{name}: the eager speculative chunk's streams "
+                             "differ from the graph's")
+    trace = _trace_spec_chunk(scfg, params, requests())
+    line = {"phase": name, "gpu": gpu, "arch": cfg.arch,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "spec_k": SPEC_K, "spec_ngram": SPEC_NGRAM,
+            "chunk_size": SPEC_CHUNK,
+            "rounds_per_chunk": stats["rounds_per_chunk"],
+            "prompt": SPEC_PROMPT + SPEC_CUT, "new_tokens": SPEC_NEW,
+            "probe": probe,
+            "spec_acceptance_rate": stats["spec_acceptance_rate"],
+            "spec_tokens_per_round": stats["spec_tokens_per_round"],
+            "spec_rounds": stats["spec_rounds"],
+            "draft_proposed": stats["draft_proposed"],
+            "draft_accepted": stats["draft_accepted"],
+            **_run_line(reqs, run),
+            "plain": _run_line(plain_reqs, prun),
+            "streams_equal_plain": sum(a.generated == b.generated
+                                       for a, b in zip(reqs, plain_reqs)),
+            "first_tokens_equal_plain": sum(
+                a.generated[0] == b.generated[0]
+                for a, b in zip(reqs, plain_reqs)),
+            "eager": {**_run_line(ereqs, erun), "streams_equal": True,
+                      "spec_acceptance_rate":
+                          erun["stats"]["spec_acceptance_rate"]},
+            "trace": trace}
+    line["speedup_over_plain"] = (line["tok_per_s"]
+                                  / line["plain"]["tok_per_s"])
+    line["streams_equal_plain_share"] = (line["streams_equal_plain"]
+                                         / len(reqs))
+    emit(line)
+    return {"launches": run["counts"]}
+
+
+def _oracle_proposer(seqs, vocab: int, device):
+    """A drop-in for ``ngram_propose`` that drafts the known greedy
+    continuation: ``seqs[i]`` is request i's prompt and plain stream, the
+    request found by its history's first token (i); the last draft of a
+    slot whose history length is a multiple of 3 is spoiled, so every
+    acceptance length occurs.  Static shapes, device tensors: capturable."""
+    width = max(len(q) for q in seqs)
+    table = torch.zeros((len(seqs), width), dtype=torch.int32, device=device)
+    for i, q in enumerate(seqs):
+        table[i, :len(q)] = torch.tensor(q, dtype=torch.int32)
+
+    def propose(hist, hist_len, ngram, k):
+        cols = torch.arange(k, device=hist.device)
+        pos = (hist_len[:, None] + cols[None]).clamp(max=width - 1).long()
+        rows = hist[:, 0].clamp(0, len(seqs) - 1).long()
+        drafts = table[rows[:, None], pos]
+        spoil = (hist_len % 3 == 0)[:, None] & (cols == k - 1)[None]
+        return torch.where(spoil, (drafts + 1) % vocab, drafts)
+
+    return propose
+
+
+def phase_spec_identity(seed: int, base, n_layers: int) -> dict:
+    """fp32 at ``base``'s width cut to ``n_layers``: the speculative
+    engine's 16 streams (graphed) bitwise equal to the plain engine's, on
+    the spec recipe at a quarter of its probes and half its lengths (each
+    prompt's first token set to its index), with the n-gram proposer and
+    then with an oracle proposer drafting the plain streams (random weights
+    need not repeat, so the n-gram leg may accept few drafts; the oracle
+    leg must accept, and the rollback then runs after every acceptance
+    length)."""
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import convert
+
+    cfg = dataclasses.replace(base, n_layers=n_layers, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    params = convert.init(cfg, gen, "cuda")
+    requests, probe = _spec_workload(
+        cfg, params, seed, probes=SPEC_PROBES // 4, cut=SPEC_CUT // 2,
+        new=SPEC_NEW // 2)
+
+    def numbered():
+        reqs = requests()
+        for i, r in enumerate(reqs):
+            r.prompt[0] = i
+        return reqs
+
+    plain_reqs = numbered()
+    _serve(cfg, params, plain_reqs, check_replay=False)
+    scfg = dataclasses.replace(cfg, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+    row = {"arch": cfg.arch, "n_layers": n_layers, "dtype": "float32",
+           "rollback": "replay" if cfg.family in ("ssm", "hybrid")
+           else "rewind", "requests": len(plain_reqs),
+           "oracle_acceptance_mean": statistics.mean(
+               probe["oracle_acceptance"])}
+    ngram_propose = engine_mod.ngram_propose
+    for leg in ("ngram", "oracle"):
+        if leg == "oracle":
+            engine_mod.ngram_propose = _oracle_proposer(
+                [list(r.prompt) + r.generated for r in plain_reqs], cfg.vocab,
+                params["embed"]["tok"].device)
+        try:
+            reqs = numbered()
+            run = _serve(scfg, params, reqs, chunk_size=SPEC_CHUNK)
+        finally:
+            engine_mod.ngram_propose = ngram_propose
+        stats = run["stats"]
+        check_counts(f"spec_identity {cfg.arch} {leg}", run["counts"], scfg,
+                     stats)
+        equal = sum(a.generated == b.generated
+                    for a, b in zip(reqs, plain_reqs))
+        row[leg] = {"streams_equal_plain": equal,
+                    "spec_acceptance_rate": stats["spec_acceptance_rate"],
+                    "spec_tokens_per_round": stats["spec_tokens_per_round"],
+                    "draft_accepted": stats["draft_accepted"],
+                    "graph_replays": stats["graph_replays"],
+                    "replay_kernels": run["replay_kernels"]}
+        if equal != len(reqs):
+            raise AssertionError(f"spec_identity {cfg.arch} {leg}: {equal} "
+                                 f"of {len(reqs)} fp32 spec streams equal "
+                                 "plain")
+    if row["oracle"]["draft_accepted"] <= 0:
+        raise AssertionError(f"spec_identity {cfg.arch}: the oracle leg "
+                             "accepted no draft")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+# serve_bench's mixed trace (adaptive_rows) with token and page counts x16.
+ADAPT = dict(sys=768, tail=64, new=128, junk=576, junk_new=64, warm=48,
+             pool=128, rounds=6, slots=2, max_len=1024)
+ADAPT_LEGS = {"static_off": (False, None),
+              "static_retain": (True, (1.0, "lru", False)),
+              "static_bypass": (True, (1.0, "lru", True)),
+              "adaptive": (True, None)}
+
+
+def adaptive_legs(cfg, params, vocab: int, device=None,
+                  check_replay: bool = False) -> dict:
+    """The four legs of serve_bench's mixed trace at ADAPT's sizes: rounds
+    of one re-arriving system prompt beside one never-repeated junk
+    prompt, each round submitted and drained.  ``cfg`` is a paged config;
+    the legs add prefix sharing and, but static_off, the adaptive policy
+    (pinned for the static stances).  Returns per leg its streams, each
+    round's system-prompt TTFT, wall time, stats, adaptive report, the
+    pool's free + warm pages after the trace and the kernel counts of its
+    run (zeroed after the engine's construction: its warm-up chunk and
+    capture are set-up); with ``check_replay``, the graphed adaptive
+    leg's replay kernels (check_replay_kernels).  Runs on the CPU too (a
+    SMOKE config, ``device="cpu"``), where the counters are the card's:
+    they depend only on lengths and budgets."""
+    from repro_torch.serve.adaptive import ServeCombo
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    legs = {}
+    for name, (adapt, pinned) in ADAPT_LEGS.items():
+        lcfg = dataclasses.replace(cfg, prefix_sharing=True, adaptive=adapt,
+                                   warm_pages=ADAPT["warm"] if adapt else 0,
+                                   adaptive_replan_every=1,
+                                   strict_invariants=True)
+        eng = ServeEngine(lcfg, params, batch_slots=ADAPT["slots"],
+                          max_len=ADAPT["max_len"], chunk_size=8,
+                          n_pages=ADAPT["pool"], device=device)
+        if pinned is not None:
+            eng.adaptive.pinned = ServeCombo.from_row(pinned)
+        on_card = torch.device(eng.device).type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+        reset_counts()
+        rng = np.random.default_rng(5)
+        sys_p = rng.integers(0, vocab, ADAPT["sys"]).astype(np.int32)
+        outs, ttft = [], []
+        t0 = time.perf_counter()
+        for _ in range(ADAPT["rounds"]):
+            junk = Request(prompt=rng.integers(0, vocab, ADAPT["junk"])
+                           .astype(np.int32),
+                           max_new_tokens=ADAPT["junk_new"])
+            sysr = Request(prompt=np.concatenate(
+                [sys_p, rng.integers(0, vocab, ADAPT["tail"])
+                 .astype(np.int32)]), max_new_tokens=ADAPT["new"])
+            eng.submit([junk, sysr])
+            eng.drain()
+            outs.append((list(junk.generated), list(sysr.generated)))
+            ttft.append(sysr.ttft_s)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        eng.check_invariants()
+        legs[name] = {"outs": outs, "ttft": ttft, "wall": wall,
+                      "stats": eng.serve_stats(),
+                      "report": eng.policy_report()["adaptive"],
+                      "pool": sorted(eng.allocator.free_pages
+                                     + list(eng.allocator.warm_pages)),
+                      "counts": got,
+                      "replay_kernels": (
+                          check_replay_kernels(cfg.arch, eng)
+                          if check_replay and name == "adaptive"
+                          and eng._graph is not None else None)}
+        del eng
+    return legs
+
+
+def check_adaptive_legs(legs: dict) -> dict:
+    """serve_bench.adaptive_rows' placement gates: no page leaked in any
+    leg; adaptive's prefill work at most the best static leg's and below
+    static_off's; at least one re-plan and one warm revive; the novel
+    class moved to bypass.  Returns the work per leg."""
+    work = {n: leg["stats"]["prefill_work_tokens"] for n, leg in legs.items()}
+    for name, leg in legs.items():
+        if leg["pool"] != list(range(ADAPT["pool"])):
+            raise AssertionError(f"serve_adaptive {name}: pages leaked")
+    best_static = min(v for n, v in work.items() if n != "adaptive")
+    ad = legs["adaptive"]
+    novel = ad["report"]["combos"].get("novel")
+    gates = {"work_le_best_static": work["adaptive"] <= best_static,
+             "work_lt_static_off": work["adaptive"] < work["static_off"],
+             "replans": ad["stats"]["replans"] >= 1,
+             "warm_hits": ad["stats"]["warm_hits"] >= 1,
+             "novel_bypass": novel is not None and novel[2] is True}
+    failed = [g for g, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_adaptive: gates {failed} failed: "
+                             f"work {work}, combos {ad['report']['combos']}")
+    return work
+
+
+def phase_serve_adaptive(gpu: str, cfg, params) -> dict:
+    """The adaptive serve-tier policy at ``cfg``'s full width: the four
+    legs of the mixed trace, their placement gates, and per leg (not
+    gated) the re-arrival TTFT and wall time; streams equal across legs
+    are counted (bf16: a warm revive prefills the tail alone, at other
+    shapes than a full prefill).  Each leg's launch counts are checked;
+    the line's are their sum, and the adaptive leg's graph replay is
+    held to its capture."""
+    legs = adaptive_legs(cfg, params, cfg.vocab, check_replay=True)
+    for name, leg in legs.items():
+        check_counts(f"serve_adaptive {name}", leg["counts"], cfg,
+                     leg["stats"])
+    if not legs["adaptive"]["replay_kernels"]:
+        raise AssertionError("serve_adaptive: the adaptive leg's graph "
+                             "replay was not checked")
+    launches = {key: sum(leg["counts"][key] for leg in legs.values())
+                for key in legs["adaptive"]["counts"]}
+    work = check_adaptive_legs(legs)
+    ref = legs["static_off"]["outs"]
+    keys = ("prefill_work_tokens", "warm_retained", "warm_reclaimed",
+            "warm_hits", "warm_tokens_saved", "replans", "admission_waves",
+            "chunks", "graph_replays")
+    out = {"launches": launches}
+    emit({"phase": "serve_adaptive", "gpu": gpu, "arch": cfg.arch,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, **ADAPT,
+          "legs": {n: {**{k: leg["stats"][k] for k in keys},
+                       "rearrival_ttft_ms": 1e3 * statistics.mean(
+                           leg["ttft"][1:]),
+                       "first_ttft_ms": 1e3 * leg["ttft"][0],
+                       "wall_s": leg["wall"],
+                       "rounds_equal_static_off_share": sum(
+                           a == b for a, b in zip(leg["outs"], ref))
+                       / len(ref),
+                       "combos": leg["report"].get("combos")}
+                   for n, leg in legs.items()},
+          "best_static_work": min(v for n, v in work.items()
+                                  if n != "adaptive"),
+          "gates": "held", "launch_counts": launches,
+          "replay_kernels": legs["adaptive"]["replay_kernels"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: kernel path against the plain path, end to end
 # ---------------------------------------------------------------------------
 
@@ -2133,7 +2634,8 @@ def build_kernels() -> tuple[float, dict]:
 
 
 # How the kernels line's ``launches`` were counted on the main paths.
-COUNTED = ("decode chunks: the capture's launches x graph replays, one "
+COUNTED = ("decode chunks (plain and speculative): the capture's "
+           "launches x graph replays, one "
            "replay's kernels held to them by the profiler "
            "(check_replay_kernels); prefill and the policy matmul: at "
            "each launch")
@@ -2187,6 +2689,11 @@ def main() -> int:
                         dataclasses.replace(yi_9b.CONFIG, **paged))
     phase_prefix(gpu, args.seed, serve["cfg"], serve["params"])
     served["yi-9b"] = serve
+    # Speculative decode and the adaptive policy at yi-9b's width.
+    served["yi-9b spec"] = phase_serve_spec(gpu, args.seed, serve["cfg"],
+                                            serve["params"], "serve_spec")
+    served["yi-9b adaptive"] = phase_serve_adaptive(gpu, serve["cfg"],
+                                                    serve["params"])
     del serve["params"]
     torch.cuda.empty_cache()
     zserve = phase_serve(gpu, args.seed,
@@ -2195,6 +2702,8 @@ def main() -> int:
     phase_preempt(gpu, args.seed, zserve["cfg"], zserve["params"],
                   zserve["reqs"])
     served["zamba2-2.7b"] = zserve
+    served["zamba2-2.7b spec"] = phase_serve_spec(
+        gpu, args.seed, zserve["cfg"], zserve["params"], "serve_spec_zamba2")
     del zserve["params"]
     torch.cuda.empty_cache()
     mserve = phase_serve(gpu, args.seed,
@@ -2219,6 +2728,14 @@ def main() -> int:
         served[mod.CONFIG.arch] = dserve
         del dserve["params"]
         torch.cuda.empty_cache()
+    # fp32 speculative streams bitwise equal to plain ones: rewind (yi-9b
+    # at 4 layers) and replay (zamba2 at 6: one shared-attention group).
+    emit({"phase": "spec_identity", "gpu": gpu, "rows": [
+        phase_spec_identity(args.seed,
+                            dataclasses.replace(yi_9b.CONFIG, **paged), 4),
+        phase_spec_identity(args.seed,
+                            dataclasses.replace(zamba2_27b.CONFIG, **paged),
+                            6)]})
     fp32 = dict(dtype="float32", cache_layout="paged", kv_page_size=PSZ)
     phase_e2e(gpu, args.seed,
               dataclasses.replace(yi_9b.CONFIG, n_layers=4, **fp32))
@@ -2283,6 +2800,11 @@ def main() -> int:
     gsum = next(r for r in summary if r["name"] == "grouped_matmul")
     gsum["launches_by_body"] = served["olmoe-1b-7b"]["gmm_bodies"]
     gsum["decode_shape"] = {key: gmm["decode"][key] for key in (
+        "shape", "body", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "over_bound")}
+    # The flash kernel at the speculative verify's shape (q_len 5).
+    fsum = next(r for r in summary if r["name"] == "flash_attention")
+    fsum["verify_shape"] = {key: flash["verify"][key] for key in (
         "shape", "body", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "over_bound")}
     emit({"kernels": summary})

@@ -18,10 +18,9 @@ the decode step's:
 On CPU tensors each kernel's wrapper takes its plain version, so the
 routes differ on the CPU only in how the plain attention is decomposed.
 
-Serving knobs whose engine slice is not ported yet (speculative decode,
-KV integrity and page corruption, crash points, adaptive, non-greedy
-sampling) are kept so configs stay interchangeable;
-``serve.engine.ServeEngine`` raises on them.
+Serving knobs whose engine slice is not ported yet (KV integrity and
+page corruption, crash points, non-greedy sampling) are kept so configs
+stay interchangeable; ``serve.engine.ServeEngine`` raises on them.
 """
 from __future__ import annotations
 

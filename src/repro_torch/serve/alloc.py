@@ -2,8 +2,8 @@
 
 A copy of ``repro.serve.alloc`` (pure Python): the port keeps its own so
 it never imports the JAX package.  The engine uses ``alloc``, ``share``
-and ``release``; quarantine and the warm tier wait for the engine slices
-that drive them (KV integrity, the adaptive policy).
+and ``release``, and under the adaptive policy the warm tier (``retain``,
+``revive``, ``reclaim``); quarantine waits for the KV-integrity slice.
 """
 from __future__ import annotations
 

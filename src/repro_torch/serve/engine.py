@@ -1,7 +1,7 @@
 """Continuous-batching serve engine over a paged (or contiguous) KV cache,
-with prefix sharing and the request lifecycle: the port of
-``repro.serve.engine`` without speculative decode, snapshots or the
-adaptive policy.
+with prefix sharing, the request lifecycle, speculative decode and the
+adaptive serve-tier cache policy: the port of ``repro.serve.engine``
+without snapshots, the journal or KV integrity.
 
 * **Chunked decode with one host sync per chunk.**  A chunk is
   ``chunk_size`` single-token decode steps with on-device greedy sampling;
@@ -61,11 +61,32 @@ adaptive policy.
 * **Recurrent families** (mamba2, zamba2).  Re-admission zeroes a slot's
   SSM state and conv window (``reset_slots``); a paged config whose cache
   has no pages (mamba2) runs contiguous bookkeeping.
+* **Speculative decode** (``cfg.spec_k > 0``, DESIGN.md §5.3).  A chunk is
+  ``spec_rounds = max(1, chunk_size // (spec_k + 1))`` draft/verify/
+  rollback rounds.  ``serve.draft.ngram_propose`` drafts ``spec_k`` tokens
+  per slot from a static (slots, max_len + 1) history, plus a sink column
+  (admission seeds it with the full effective prompt and the first
+  token); one ragged
+  ``prefill(seg_lens = spec_k + 1, all_logits=True)`` scores
+  ``[cur_tok, drafts]``; each slot emits ``min(matching prefix + 1,
+  remaining)`` greedy targets.  Rollback: KV families rewind the cursor
+  (rejected KV is stale but masked); recurrent families, whose model
+  writes its SSM state and conv window in place, restore them from a
+  static scratch copy taken before the verify and replay the block with
+  ``seg_lens = accepted``.  The body reads and writes only static buffers,
+  so with ``cuda_graph`` the whole chunk is one graph replay and one
+  device-to-host copy, as the plain chunk is.
+* **Adaptive policy** (``cfg.adaptive``, DESIGN.md §5.7,
+  ``serve.adaptive``).  Placement only: warm retention of prefix pages
+  past refcount zero (bounded by ``cfg.warm_pages``, reclaimed before any
+  preemption), the cost-aware preemption victim and per-class re-plans
+  over ``core.sweep.SERVE_COMBOS``.  It moves pages and slots, never
+  tokens; a revive writes the host page table, which admission copies
+  into the device table in place, so nothing is recaptured.
 
-Not ported yet, and refused at construction: speculative decode, KV
-integrity and page corruption, crash points, the adaptive policy, the
-request journal and non-greedy sampling (and, through ``build_model``, the
-encdec and VLM families).
+Not ported yet, and refused at construction: KV integrity and page
+corruption, crash points, the request journal and non-greedy sampling
+(and, through ``build_model``, the encdec and VLM families).
 """
 from __future__ import annotations
 
@@ -86,8 +107,10 @@ from repro_torch.kernels import counters
 from repro_torch.kernels.decode_attention.ops import plan_splits
 from repro_torch.models import build_model
 from repro_torch.models.common import paged_kv_spec
+from repro_torch.serve.adaptive import AdaptivePolicy
 from repro_torch.serve.alloc import PageAllocator
 from repro_torch.serve.chaos import ChaosAllocator
+from repro_torch.serve.draft import ngram_propose
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.sampling import Sampler
 
@@ -114,6 +137,10 @@ class Request:
                                   # is the youngest (max) resident
     prefix_tokens: int = 0        # prompt tokens attached from shared pages
                                   # at admission (0 = fully prefilled)
+    adaptive_key: str | None = None    # workload class of the prompt
+                                       # (adaptive engines, at admission)
+    adaptive_class: str | None = None  # the class deciding its retention;
+                                       # a readmission keeps it
     ttft_s: float | None = None        # first admission -> first token
     queue_wait_s: float | None = None  # submit -> first admission
     submit_t: float | None = None
@@ -162,11 +189,9 @@ def _leaves(tree, path=()):
 
 def _refuse_unported(cfg: ModelConfig, journal_path) -> None:
     unported = {
-        "spec_k > 0": cfg.spec_k > 0,
         "chaos_corrupt_p": cfg.chaos_corrupt_p > 0,
         "chaos_crash_after_wave": cfg.chaos_crash_after_wave > 0,
         "kv_integrity": cfg.kv_integrity,
-        "adaptive": cfg.adaptive,
         "journal_path": journal_path is not None,
     }
     on = [name for name, flag in unported.items() if flag]
@@ -187,11 +212,13 @@ class ServeEngine:
     ``run(requests)`` (or ``submit`` + ``drain``) pushes requests through a
     queue: free slots are prefilled (ragged, right-padded, attached to
     shared prefix pages where they can be), live slots decode in
-    device-resident chunks, finished slots free at chunk boundaries and
-    are re-admitted from the queue.
+    device-resident chunks (plain single-token steps, or draft/verify/
+    rollback rounds when ``cfg.spec_k > 0``), finished slots free at chunk
+    boundaries and are re-admitted from the queue.
 
-    ``cuda_graph`` (default True) replays each decode chunk as one CUDA
-    graph on the card; it has no effect on the CPU.  False runs the same
+    ``cuda_graph`` (default True) replays each decode chunk, plain or
+    speculative, as one CUDA graph on the card; it has no effect on the
+    CPU.  False runs the same
     chunk eagerly on the card: the A/B arm, never chosen automatically."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int,
@@ -215,6 +242,13 @@ class ServeEngine:
         self.chunk_size = max(1, chunk_size)
         self.paged = cfg.cache_layout == "paged"
         self.cfg = cfg
+        # Speculative decode (DESIGN.md §5.3): spec_k drafts verified a
+        # round, 1..spec_k + 1 tokens emitted; a chunk packs enough rounds
+        # for ~chunk_size tokens a host sync at full acceptance.
+        self.spec = cfg.spec_k > 0
+        self.spec_k = cfg.spec_k
+        self.spec_ngram = cfg.spec_ngram
+        self.spec_rounds = max(1, self.chunk_size // (cfg.spec_k + 1))
         if self.paged:
             psz = cfg.kv_page_size
             if max_len % psz:
@@ -255,6 +289,8 @@ class ServeEngine:
             self.remaining = torch.zeros_like(self.cur_tok)
             self._out = torch.zeros((2, self.chunk_size, batch_slots),
                                     dtype=torch.int32, device=self.device)
+            if self.spec:
+                self._init_spec_buffers()
         # A cache with no KV to page (mamba2's decode state is O(1) per
         # slot) falls back to contiguous bookkeeping: no allocator, no page
         # table, no admission gated on a phantom pool.
@@ -273,6 +309,19 @@ class ServeEngine:
                                and cfg.family in ("dense", "moe"))
         self.prefix = (PrefixIndex(self.page_size) if self.prefix_sharing
                        else None)
+        # The adaptive serve-tier policy (DESIGN.md §5.7): warm retention
+        # needs re-attachable page KV (paged + prefix sharing); other
+        # engines keep the cost-aware victim and the re-plans only.
+        self.adaptive: AdaptivePolicy | None = None
+        if cfg.adaptive:
+            self.adaptive = AdaptivePolicy(
+                warm_pages=cfg.warm_pages if self.prefix is not None else 0,
+                replan_every=cfg.adaptive_replan_every,
+                page_size=self.page_size if self.paged else 1,
+                spec_k=self.spec_k if self.spec else 0)
+        self._warm_tier = (self.adaptive is not None
+                           and self.adaptive.warm_pages > 0
+                           and self.prefix is not None)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.queue: collections.deque[Request] = collections.deque()
         # Request lifecycle (DESIGN.md §5.5).
@@ -317,6 +366,15 @@ class ServeEngine:
             "deadline_total": 0,      # deadlined requests reaching terminal
             "deadline_met": 0,        # ... that finished within deadline
             "invariant_checks": 0,    # check_invariants() sweeps run
+            "spec_rounds": 0,         # active draft/verify rounds
+            "draft_proposed": 0,      # usable drafts of active rounds
+            "draft_accepted": 0,      # ... the accepted (emitted) subset
+            "spec_tokens": 0,         # tokens emitted by draft/verify rounds
+            "warm_retained": 0,       # pages parked in the warm tier
+            "warm_reclaimed": 0,      # warm pages returned to the free list
+            "warm_hits": 0,           # admissions that revived warm pages
+            "warm_tokens_saved": 0,   # prompt tokens attached from warm pages
+            "replans": 0,             # adaptive lattice re-plans run
             "graph_replays": 0,       # chunks run as a CUDA graph replay
             "captured_launches": 0,   # kernel launches in the captured chunk
             "graph_pool_bytes": 0,    # memory the capture reserved
@@ -335,11 +393,35 @@ class ServeEngine:
         """The pool allocator; the chaos wrapper when an alloc or share
         refusal rate is set (seeded as the reference seeds it)."""
         cfg = self.cfg
+        warm = cfg.warm_pages if cfg.adaptive else 0
         if cfg.chaos_alloc_fail_p > 0.0 or cfg.chaos_share_fail_p > 0.0:
             return ChaosAllocator(self.n_pages, cfg.chaos_alloc_fail_p,
                                   cfg.chaos_seed,
-                                  share_fail_p=cfg.chaos_share_fail_p)
-        return PageAllocator(self.n_pages)
+                                  share_fail_p=cfg.chaos_share_fail_p,
+                                  warm_budget=warm)
+        return PageAllocator(self.n_pages, warm_budget=warm)
+
+    def _init_spec_buffers(self) -> None:
+        """The speculative chunk's static buffers, allocated once: the
+        per-slot token history the proposer mines (prompt + emitted, the
+        unconsumed current token included: at most max_len + 1 entries,
+        plus one sink column that absorbs the writes of rejected
+        positions), its valid length, the chunk's output (per round and
+        slot: the k + 1 targets, the emit mask, accepted and usable drafts,
+        the active flag; one device-to-host copy), and for recurrent
+        families a scratch copy of every SSM state and conv window leaf,
+        which the verify advances in place of the live ones."""
+        b, k1, dev = self.slots, self.spec_k + 1, self.device
+        self.hist = torch.zeros((b, self.max_len + 2), dtype=torch.int32,
+                                device=dev)
+        self.hist_len = torch.zeros(b, dtype=torch.int32, device=dev)
+        self._spec_out = torch.zeros((self.spec_rounds, b, 2 * k1 + 3),
+                                     dtype=torch.int32, device=dev)
+        self._spec_scratch = {key: torch.empty_like(self.cache[key])
+                              for key in ("ssm", "conv") if key in self.cache}
+        # Recurrent state has no per-position validity mask, so its
+        # rollback is a replay; KV-only families rewind the cursor.
+        self._spec_replay = bool(self._spec_scratch)
 
     @property
     def free_pages(self) -> list[int]:
@@ -384,8 +466,7 @@ class ServeEngine:
     def policy_report(self) -> dict:
         """Serving-side policy decisions (DESIGN.md §5) and planner
         counters: the reference's sections for the features the port has
-        (speculative decode, the adaptive policy and KV integrity come
-        with their slices)."""
+        (KV integrity's comes with its slice)."""
         report = {
             "kv_bytes_per_layer": self._kv_bytes_per_layer(),
             "kv_residency": self.kv_residency.value,
@@ -395,6 +476,13 @@ class ServeEngine:
             "sampling": self.sampler.mode,
             "plan_cache": self.policy.plan_stats(),
         }
+        if self.spec:
+            report["speculative"] = {
+                "spec_k": self.spec_k,
+                "spec_ngram": self.spec_ngram,
+                "rounds_per_chunk": self.spec_rounds,
+                "rollback": "replay" if self._spec_replay else "rewind",
+            }
         if self.paged:
             report["paged_kv"] = {
                 "n_pages": self.n_pages,
@@ -411,6 +499,17 @@ class ServeEngine:
             report["prefix_sharing"].update({
                 "trie_nodes": len(self.prefix),
                 "resident_prefix_tokens": self.prefix.resident_tokens(),
+            })
+        report["adaptive"] = {"enabled": self.adaptive is not None}
+        if self.adaptive is not None:
+            report["adaptive"].update({
+                "warm_tier": self._warm_tier,
+                "warm_pages_now": (self.allocator.warm_count()
+                                   if self.paged else 0),
+                **{k: self.stats[k] for k in (
+                    "warm_retained", "warm_reclaimed", "warm_hits",
+                    "warm_tokens_saved", "replans")},
+                **self.adaptive.report(),
             })
         alloc = self.allocator if self.paged else None
         report["lifecycle"] = {
@@ -550,6 +649,13 @@ class ServeEngine:
         out = dict(self.stats)
         total = out["decode_tokens"] + out["prefill_tokens"]
         out["host_syncs_per_token"] = out["host_syncs"] / total if total else 0.0
+        out["spec_acceptance_rate"] = (
+            out["draft_accepted"] / out["draft_proposed"]
+            if out["draft_proposed"] else 0.0)
+        # Tokens of draft/verify rounds only, over those rounds.
+        out["spec_tokens_per_round"] = (
+            out["spec_tokens"] / out["spec_rounds"]
+            if out["spec_rounds"] else 0.0)
         # Over fresh admissions: a restore's re-attach is not a new hit.
         out["prefix_hit_rate"] = (
             out["prefix_hits_fresh"] / out["admitted_fresh"]
@@ -578,12 +684,16 @@ class ServeEngine:
                 dst.copy_(src)
 
     @torch.inference_mode()
-    def _prefill(self, tokens, seg_lens, start_lens, new_remaining):
+    def _prefill(self, tokens, seg_lens, start_lens, new_remaining,
+                 hist_toks=None):
         """Ragged admission prefill: set each admitted slot's cursor to its
         attach point (0, or the shared prefix's length), prefill the
         unshared suffix (seg_lens == 0 parks the others) and sample each
-        admitted slot's first token on the device.  Eager, and in place
-        into the static buffers."""
+        admitted slot's first token on the device.  A speculative engine
+        also seeds each admitted slot's history with ``hist_toks``, its
+        FULL effective prompt (shared prefix included, so an attached slot
+        drafts what an unshared one drafts), then the first token.  Eager,
+        and in place into the static buffers."""
         admitted = seg_lens > 0
         self.model.reset_slots(self.cache, admitted)
         lengths = self.cache["lengths"]
@@ -595,6 +705,21 @@ class ServeEngine:
         self.cur_tok.copy_(torch.where(admitted, nxt, self.cur_tok))
         self.remaining.copy_(torch.where(admitted, new_remaining,
                                          self.remaining))
+        if self.spec:
+            # Rows 0 .. full - 1 take the prompt, row full the first
+            # token; past hist_len the proposer reads nothing, so the
+            # previous occupant's tail needs no clearing.
+            full = start_lens + seg_lens
+            width = hist_toks.shape[1]
+            cols = torch.arange(width, device=self.device)[None, :]
+            write = admitted[:, None] & (cols < full[:, None])
+            head = self.hist[:, :width]
+            head.copy_(torch.where(write, hist_toks, head))
+            at = full.long()[:, None]
+            self.hist.scatter_(1, at, torch.where(
+                admitted[:, None], nxt[:, None], self.hist.gather(1, at)))
+            self.hist_len.copy_(torch.where(admitted, full + 1,
+                                            self.hist_len))
         return nxt
 
     @torch.inference_mode()
@@ -621,6 +746,89 @@ class ServeEngine:
         self.remaining.copy_(rem)
 
     @torch.inference_mode()
+    def _spec_chunk(self) -> None:
+        """The speculative chunk's body: ``spec_rounds`` draft/verify/
+        rollback rounds (the reference's ``_spec_chunk_fn``).  Each round,
+        per active slot:
+
+        1. *Draft*: ``ngram_propose`` mines the slot's history for
+           ``spec_k`` tokens.
+        2. *Verify*: one ragged ``prefill`` over ``[cur_tok, d_1..d_k]``
+           (``seg_lens = k + 1``, 0 for parked slots) with every
+           position's logits; the greedy target at position j is the token
+           sequential decode would emit there, so targets are emissions.
+        3. *Accept*: ``m = min(matching prefix + 1, remaining)``, 1..k + 1.
+        4. *Rollback*: KV families set the cursor to base + m (the
+           rejected rows past it are stale but masked, and rewritten
+           before any read).  Recurrent families verify on a scratch
+           copy of the SSM state and conv windows, so the live ones still
+           hold the pre-verify state, and replay the block on them with
+           ``seg_lens = m``.
+
+        Rows the verify writes past a slot's mapped pages land on the sink
+        page (table entry -1), past a ring's end on its sink row.  Reads
+        and writes only static buffers; with every slot parked it changes
+        no state (the rejected-row writes go to the history's sink
+        column)."""
+        b, k = self.slots, self.spec_k
+        k1 = k + 1
+        sink = self.hist.shape[1] - 1
+        hist = self.hist[:, :sink]               # the proposer's (b, H) view
+        cache, lengths = self.cache, self.cache["lengths"]
+        # The verify advances the scratch's recurrent leaves in place and
+        # leaves the live ones at the pre-verify state the replay starts
+        # from; its KV rows go to the live pages.
+        verify_cache = {**cache, **self._spec_scratch}
+        tok, rem, hlen = self.cur_tok, self.remaining, self.hist_len
+        cols = torch.arange(k1, device=self.device)[None, :]
+        for j in range(self.spec_rounds):
+            active = rem > 0
+            drafts = ngram_propose(hist, hlen, self.spec_ngram, k)
+            vt = torch.cat([tok[:, None], drafts], dim=1)         # (b, k1)
+            seg_v = torch.where(active, k1, 0).to(torch.int32)
+            for key, saved in self._spec_scratch.items():
+                saved.copy_(cache[key])
+            logits, _ = self.model.prefill(self.params, verify_cache, vt,
+                                           seg_lens=seg_v, all_logits=True)
+            targets = self.sampler(logits.reshape(b * k1, -1)).reshape(b, k1)
+            match = (drafts == targets[:, :k]).to(torch.int32)
+            accepted = torch.cumprod(match, dim=1).sum(dim=1)
+            m = torch.where(active, torch.minimum(accepted + 1, rem),
+                            0).to(torch.int32)
+            # Usable drafts only: with rem tokens left a round can use at
+            # most rem - 1 of them; matches past the budget count as
+            # neither proposed nor accepted.
+            usable = torch.where(active, torch.clamp(rem - 1, max=k), 0)
+            acc_used = torch.clamp(m - 1, min=0)
+            if self._spec_replay:
+                self.model.prefill(self.params, cache, vt, seg_lens=m)
+            lengths.add_(m)             # the model left the cursor at base
+            emit = cols < m[:, None]                               # (b, k1)
+            self.hist.scatter_(1, torch.where(emit, hlen[:, None] + cols,
+                                              sink).long(), targets)
+            last = targets.gather(1, (m - 1).clamp(0, k).long()[:, None])
+            tok = torch.where(active, last[:, 0], tok)
+            hlen = hlen + m
+            rem = rem - m
+            out = self._spec_out[j]
+            out[:, :k1].copy_(targets)
+            out[:, k1:2 * k1].copy_(emit)
+            out[:, 2 * k1].copy_(acc_used)
+            out[:, 2 * k1 + 1].copy_(usable)
+            out[:, 2 * k1 + 2].copy_(active)
+        self.cur_tok.copy_(tok)
+        self.remaining.copy_(rem)
+        self.hist_len.copy_(hlen)
+
+    def _chunk_body(self) -> None:
+        """The chunk a replay (or the eager loop) runs: speculative rounds
+        when ``spec_k > 0``, else plain single-token steps."""
+        if self.spec:
+            self._spec_chunk()
+        else:
+            self._decode_chunk()
+
+    @torch.inference_mode()
     def _capture(self) -> None:
         """Capture the chunk's body as one CUDA graph, every slot parked.
         The warm-up on a side stream builds the kernels and sets their
@@ -632,12 +840,12 @@ class ServeEngine:
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            self._decode_chunk()
+            self._chunk_body()
         stream.wait_stream(side)
         before = counters.snapshot()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self._decode_chunk()
+            self._chunk_body()
         self._graph_delta = counters.delta(counters.snapshot(), before)
         counters.restore(before)       # the capture itself launched nothing
         self._graph = graph
@@ -647,10 +855,16 @@ class ServeEngine:
 
     def _static_ptrs(self) -> dict:
         """Address of every buffer a chunk reads or writes: the cache's
-        leaves, the loop vectors, the output and the parameters."""
+        leaves, the loop vectors, the output and the parameters; and for
+        the speculative chunk the history, its length, its output and the
+        recurrent scratch copy."""
         trees = {"cache": self.cache, "cur_tok": self.cur_tok,
                  "remaining": self.remaining, "out": self._out,
                  "params": self.params}
+        if self.spec:
+            trees.update(hist=self.hist, hist_len=self.hist_len,
+                         spec_out=self._spec_out,
+                         spec_scratch=self._spec_scratch)
         return {path: t.data_ptr() for path, t in _leaves(trees)}
 
     def _check_static(self) -> None:
@@ -688,11 +902,81 @@ class ServeEngine:
         r.slot = -1
         if self.paged:
             freed = self.allocator.release(self._slot_pages[slot])
+            if self._warm_tier and freed:
+                # Trie-registered prefix pages may park warm instead of
+                # freeing; what comes back must still be evicted.
+                freed = self._maybe_retain(r, freed)
             if self.prefix is not None and freed:
                 self.prefix.evict(freed)
             self._slot_pages[slot] = []
             self.page_table[slot] = -1
         self._dirty_slots.add(slot)
+
+    def _maybe_retain(self, r: Request, freed: list[int]) -> list[int]:
+        """Warm retention over pages that just reached refcount zero
+        (DESIGN.md §5.7); returns the pages still to evict from the trie.
+        Retention goes shallowest-first, within the deciding class's
+        quota, and keeps a page only if its parent is held, warm or kept
+        in this pass, so the warm set stays a depth-prefix of each chain;
+        evicting a page whose descendants were retained earlier reclaims
+        that warm subtree with it (no trie node outlives its parent)."""
+        kept: set[int] = set()
+        if r.adaptive_key is not None:
+            deciding = r.adaptive_class or r.adaptive_key
+            quota = self.adaptive.retain_quota(r.adaptive_key)
+            for p in sorted(freed,
+                            key=lambda q: (self.prefix.depth_of(q), q)):
+                depth = self.prefix.depth_of(p)
+                if depth <= 0:
+                    continue          # tail or decode page: not in the trie
+                if self.adaptive.class_warm_count(deciding) >= quota:
+                    break             # the class's share is spent
+                parent = self.prefix.parent_page(p)
+                if depth > 1 and not (
+                        parent in kept or self.allocator.is_warm(parent)
+                        or self.allocator.ref_count(parent) > 0):
+                    continue          # the chain is cut above: stay a prefix
+                if self.allocator.retain(p):
+                    self.adaptive.note_retained(p, deciding)
+                    self.stats["warm_retained"] += 1
+                    kept.add(p)
+        evict = [p for p in freed if p not in kept]
+        # Descendants of an evicted page can only be warm (a held child
+        # implies a held parent) or in this same batch.
+        extra: list[int] = []
+        for p in evict:
+            for q in self.prefix.subtree_pages(p):
+                if q != p and self.allocator.is_warm(q) and q not in extra:
+                    extra.append(q)
+        if extra:
+            self.allocator.reclaim(extra)
+            self.adaptive.note_reclaimed(extra)
+            self.stats["warm_reclaimed"] += len(extra)
+        return evict + extra
+
+    def _reclaim_warm(self, n_needed: int, protect: set[int]) -> int:
+        """Return up to ``n_needed`` warm pages to the free list so a
+        short admission can allocate (reclaim before preempt), in the
+        policy's reclaim order, each with its warm subtree.  ``protect``
+        (the chain the admission is about to revive) is never taken.
+        Capacity always wins over retention."""
+        taken: list[int] = []
+        warm = sorted(self.allocator.warm_pages)
+        for p in self.adaptive.reclaim_order(warm):
+            if len(taken) >= n_needed:
+                break
+            if p in protect or p in taken:
+                continue
+            sub = [q for q in self.prefix.subtree_pages(p) if q not in taken]
+            if any(q in protect for q in sub):
+                continue
+            taken.extend(sub)
+        if taken:
+            self.prefix.evict(taken)
+            self.allocator.reclaim(taken)
+            self.adaptive.note_reclaimed(taken)
+            self.stats["warm_reclaimed"] += len(taken)
+        return len(taken)
 
     def _retire(self, r: Request, status: str) -> None:
         """Terminal transition for a non-finish exit (cancelled/expired)."""
@@ -717,9 +1001,12 @@ class ServeEngine:
 
     def _pick_victim(self, head: Request, wave_slots: set[int]
                      ) -> Request | None:
-        """The youngest never-preempted resident outside this wave, or None.
-        A head that was itself preempted never preempts, so natural
-        preemptions are bounded by the request count."""
+        """A never-preempted resident outside this wave, or None: the
+        youngest, or under the adaptive policy the cheapest to recompute
+        (``victim_cost``: replay tokens less a page's worth per page other
+        slots still share), ties youngest-first.  A head that was itself
+        preempted never preempts, so natural preemptions are bounded by
+        the request count."""
         if not self.preemption or head.preempted_n > 0:
             return None
         cands = [r for i, r in enumerate(self.slot_req)
@@ -727,6 +1014,11 @@ class ServeEngine:
                  and r.preempted_n == 0]
         if not cands:
             return None
+        if self.adaptive is not None:
+            return min(cands, key=lambda r: (
+                self.adaptive.victim_cost(r, self.allocator,
+                                          self._slot_pages[r.slot]),
+                -r.admit_seq))
         return max(cands, key=lambda r: r.admit_seq)
 
     def _preempt(self, victim: Request, forced: bool = False) -> None:
@@ -787,7 +1079,10 @@ class ServeEngine:
         resident, so the loop ends).  The prefix lookup re-runs each try
         (a released victim can shrink the resident chain); alloc goes
         first and share only on success, and a refused share rolls the
-        alloc back, so a gated head leaves every refcount untouched.
+        alloc back, so a gated head leaves every refcount untouched.  With
+        the warm tier, a short pool first reclaims warm pages (never the
+        head's own chain), and warm pages of the chain are revived
+        (refcount 0 -> 1) rather than shared.
         Returns ``(table, chunks, shared_tokens)`` or ``(None, None, 0)``."""
         need = self._pages_needed(head)
         while True:
@@ -795,11 +1090,28 @@ class ServeEngine:
             if self.prefix is not None:
                 chunks = self.prefix.chunks(eff)
                 shared, shared_len = self._shared_prefix(eff, chunks)
-            ids = self.allocator.alloc(need - len(shared))
+            n_fresh = need - len(shared)
+            if self._warm_tier:
+                short = n_fresh - self.allocator.free_count()
+                if short > 0 and self.allocator.warm_count():
+                    self._reclaim_warm(short, protect=set(shared))
+            ids = self.allocator.alloc(n_fresh)
             if ids is not None:
-                if not shared or self.allocator.share(shared):
+                warm = ({p for p in shared if self.allocator.is_warm(p)}
+                        if self._warm_tier else set())
+                held = [p for p in shared if p not in warm]
+                if not held or self.allocator.share(held):
+                    if warm:
+                        revived = [p for p in shared if p in warm]
+                        self.allocator.revive(revived)
+                        self.adaptive.note_revived(revived)
+                        self.stats["warm_hits"] += 1
+                        self.stats["warm_tokens_saved"] += (
+                            len(revived) * self.page_size)
                     return shared + ids, chunks, shared_len
-                self.allocator.release(ids)      # refused share: roll back
+                # Refused share: roll the alloc back (warm pages were not
+                # revived yet).
+                self.allocator.release(ids)
             victim = self._pick_victim(head, wave_slots)
             if victim is None:
                 return None, None, 0
@@ -808,6 +1120,8 @@ class ServeEngine:
     def _admit_wave(self) -> None:
         if self._chaos_rng is not None:
             self._chaos_forced_preempt()
+        if self.adaptive is not None:
+            self.adaptive.begin_wave()
         # Entries carry the EFFECTIVE prompt (prompt + emitted tokens for a
         # request being restored): downstream it is the prompt.
         wave: list[tuple[int, Request, np.ndarray]] = []
@@ -837,6 +1151,8 @@ class ServeEngine:
                     # keep their (shared) nodes.
                     self.prefix.register(eff, table[:len(chunks)],
                                          chunks=chunks)
+                    if self.adaptive is not None:
+                        self._classify(head, eff, chunks, table)
                     if shared_len:
                         self.stats["prefix_hits"] += 1
                         if not head.generated:
@@ -876,6 +1192,10 @@ class ServeEngine:
         pad = _pad_bucket(max(len(eff) - r.prefix_tokens
                               for _, r, eff in wave), self.max_len)
         toks = np.zeros((self.slots, pad), np.int32)
+        # A speculative engine's history takes the full effective prompt.
+        htoks = (np.zeros((self.slots, _pad_bucket(
+            max(len(eff) for _, _, eff in wave), self.max_len)), np.int32)
+            if self.spec else None)
         seg = np.zeros((self.slots,), np.int32)
         start = np.zeros((self.slots,), np.int32)
         new_rem = np.zeros((self.slots,), np.int32)
@@ -883,6 +1203,8 @@ class ServeEngine:
             n = len(eff) - r.prefix_tokens
             self.stats["prefill_work_tokens"] += n
             toks[slot, :n] = eff[r.prefix_tokens:]
+            if self.spec:
+                htoks[slot, :len(eff)] = eff
             seg[slot] = n
             start[slot] = r.prefix_tokens     # page-aligned attach cursor
             new_rem[slot] = r.max_new_tokens - len(r.generated) - 1
@@ -895,10 +1217,19 @@ class ServeEngine:
         nxt = self._prefill(torch.from_numpy(toks).to(dev),
                             torch.from_numpy(seg).to(dev),
                             torch.from_numpy(start).to(dev),
-                            torch.from_numpy(new_rem).to(dev))
+                            torch.from_numpy(new_rem).to(dev),
+                            None if htoks is None
+                            else torch.from_numpy(htoks).to(dev))
         first = nxt.cpu().numpy()                  # host sync: 1 per wave
         self.stats["host_syncs"] += 1
         self.stats["admission_waves"] += 1
+        if (self.adaptive is not None and self.adaptive.pinned is None
+                and self.stats["admission_waves"]
+                % self.adaptive.replan_every == 0):
+            # Re-plan boundary: the counters through the serve-policy
+            # lattice, per class.  Placement only.
+            self.adaptive.replan(self.stats)
+            self.stats["replans"] += 1
         if self.paged:
             self.stats["peak_pages_held"] = max(
                 self.stats["peak_pages_held"],
@@ -914,6 +1245,22 @@ class ServeEngine:
         if self._chaos or self._strict:
             self.check_invariants()
 
+    def _classify(self, head: Request, eff: np.ndarray, chunks,
+                  table: list[int]) -> None:
+        """Key the head's workload class by its first full page, feed a
+        fresh admission to the policy's counters (which names the class
+        deciding its retention; a readmission keeps the one it had, since
+        its grown prompt would re-classify) and touch its pages."""
+        key = self.adaptive.class_key(chunks)
+        head.adaptive_key = key
+        if head.generated:
+            head.adaptive_class = head.adaptive_class or key
+        else:
+            head.adaptive_class = self.adaptive.note_arrival(
+                key, len(eff),
+                ((len(eff) - 1) // self.page_size) * self.page_size)
+        self.adaptive.touch(table)
+
     def _run_chunk(self) -> None:
         self._check_static()
         if self._graph is not None:
@@ -921,7 +1268,10 @@ class ServeEngine:
             counters.advance(self._graph_delta)
             self.stats["graph_replays"] += 1
         else:
-            self._decode_chunk()
+            self._chunk_body()
+        if self.spec:
+            self._collect_spec()
+            return
         out = self._out.cpu().numpy()              # host sync: 1 per chunk
         toks, actives = out[0], out[1]
         self.stats["host_syncs"] += 1
@@ -933,14 +1283,38 @@ class ServeEngine:
             if len(r.generated) >= r.max_new_tokens:
                 self._finish(r)
 
+    def _collect_spec(self) -> None:
+        """Read a speculative chunk's output (one device-to-host copy):
+        per round and live slot, the emitted targets and the reference's
+        exact counters (rounds, usable drafts proposed and accepted,
+        tokens)."""
+        out = self._spec_out.cpu().numpy()         # host sync: 1 per chunk
+        k1 = self.spec_k + 1
+        self.stats["host_syncs"] += 1
+        self.stats["chunks"] += 1
+        for slot, r in self._live():
+            for row in out[:, slot]:
+                if not row[2 * k1 + 2]:
+                    continue
+                emitted = row[:k1][row[k1:2 * k1] != 0]
+                r.generated.extend(int(t) for t in emitted)
+                self.stats["decode_tokens"] += len(emitted)
+                self.stats["spec_tokens"] += len(emitted)
+                self.stats["spec_rounds"] += 1
+                self.stats["draft_proposed"] += int(row[2 * k1 + 1])
+                self.stats["draft_accepted"] += int(row[2 * k1])
+            if len(r.generated) >= r.max_new_tokens:
+                self._finish(r)
+
     def check_invariants(self) -> None:
         """Raise AssertionError unless engine, allocator and trie state are
         conserved: each resident request sits in exactly the slot that maps
         it and is neither queued nor terminal; the allocator's held pages
         are exactly the union of resident slots' pages, with refcounts
         equal to the number of slots mapping each; free + held + warm +
-        quarantined partitions the pool (no leaks); every trie page is
-        held.  Identity (never ``==``) is used for request membership."""
+        quarantined partitions the pool (no leaks); the warm tier keeps
+        within its budget and inside the trie; every trie page is held or
+        warm.  Identity (never ``==``) is used for request membership."""
         self.stats["invariant_checks"] += 1
 
         def check(ok, message):
@@ -992,9 +1366,18 @@ class ServeEngine:
         check(sorted(parts) == list(range(self.n_pages)),
               "free + held + warm + quarantined is not a partition of the "
               "pool")
+        warm = self.allocator.warm_pages
+        check(len(warm) <= self.allocator.warm_budget,
+              f"warm tier over budget: {len(warm)} > "
+              f"{self.allocator.warm_budget}")
         if self.prefix is not None:
-            stray = self.prefix.resident_pages() - held
+            resident = self.prefix.resident_pages()
+            stray = resident - held - warm
             check(not stray, f"trie nodes outlive their pages: {stray}")
+            check(warm <= resident, f"warm pages outside the trie: "
+                                    f"{sorted(warm - resident)}")
+        else:
+            check(not warm, f"warm pages without a prefix index: {warm}")
 
     def step(self) -> bool:
         """One scheduler tick: lifecycle sweep (cancel/expire), admission

@@ -1,8 +1,9 @@
 """The serve engine's static-buffer decode chunk, the body of its CUDA graph:
 in-place slot resets bitwise equal to the functional ones, no captured
 buffer rebound through admission waves, preemption, cancel and prefix
-attach, the guard that raises when one is, and the kernel counters a
-replay advances.  The graph itself needs a card: the ``cuda`` cases hold
+attach (the speculative chunk's history, output and recurrent scratch
+too, and the adaptive policy's warm revives), the guard that raises when
+one is, and the kernel counters a replay advances.  The graph itself needs a card: the ``cuda`` cases hold
 graphed streams bitwise equal to the eager loop's on one and skip
 without one."""
 import dataclasses
@@ -117,6 +118,15 @@ LIFECYCLE = {
     "zamba2_preempt": ("zamba2-2.7b", dict(preemption=True, n_pages=6)),
     "mamba2": ("mamba2-1.3b", dict(chaos_preempt_p=0.5, chaos_seed=3)),
     "olmoe": ("olmoe-1b-7b", dict(prefix_sharing=True, n_pages=6)),
+    "spec_preempt_shared": ("qwen2.5-32b", dict(prefix_sharing=True,
+                                                n_pages=6, spec_k=2)),
+    "spec_zamba2_preempt": ("zamba2-2.7b", dict(preemption=True, n_pages=6,
+                                                spec_k=3)),
+    "spec_mamba2": ("mamba2-1.3b", dict(chaos_preempt_p=0.5, chaos_seed=3,
+                                        spec_k=1)),
+    "adaptive_warm": ("qwen2.5-32b", dict(prefix_sharing=True, n_pages=8,
+                                          adaptive=True, warm_pages=3,
+                                          adaptive_replan_every=1)),
 }
 
 
@@ -146,6 +156,11 @@ def test_no_static_buffer_rebound_through_the_lifecycle(case):
     fired = stats["preempted"] + stats["prefix_hits"] + getattr(
         getattr(eng, "allocator", None), "injected_failures", 0)
     assert fired > 0, f"{case}: the scenario did not fire"
+    if eng.spec:
+        assert stats["spec_rounds"] > 0
+        assert {"hist", "hist_len", "spec_out"} <= {p[0] for p in eng._static}
+    if eng.adaptive is not None:
+        assert stats["warm_retained"] > 0
 
 
 REBIND = {
@@ -162,6 +177,27 @@ REBIND = {
     "param": lambda e: e.params["layers"][0]["ln"].__setitem__(
         "w", e.params["layers"][0]["ln"]["w"].clone()),
 }
+
+
+SPEC_REBIND = {
+    "hist": lambda e: setattr(e, "hist", e.hist.clone()),
+    "hist_len": lambda e: setattr(e, "hist_len", e.hist_len.clone()),
+    "spec_out": lambda e: setattr(e, "_spec_out", e._spec_out.clone()),
+    "scratch": lambda e: e._spec_scratch.__setitem__(
+        "ssm", e._spec_scratch["ssm"].clone()),
+}
+
+
+@pytest.mark.parametrize("leaf", list(SPEC_REBIND))
+def test_guard_raises_on_a_rebound_spec_buffer(leaf):
+    """The speculative chunk's own buffers are under the same guard."""
+    eng = _engine("zamba2-2.7b", spec_k=2)
+    eng.submit(_workload(eng.cfg.vocab, n=3))
+    eng.step()
+    with torch.inference_mode():
+        SPEC_REBIND[leaf](eng)
+    with pytest.raises(RuntimeError, match="rebound"):
+        eng.step()
 
 
 @pytest.mark.parametrize("leaf", list(REBIND))
@@ -286,5 +322,30 @@ def test_graph_streams_equal_eager_on_the_card(card, arch):
         stats = eng.serve_stats()
         out[flag] = ([r.generated for r in reqs],
                      counters.delta(counters.snapshot(), before))
+        assert stats["graph_replays"] == (stats["chunks"] if flag else 0)
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "zamba2-2.7b"])
+def test_spec_graph_streams_equal_eager_on_the_card(card, arch):
+    """The graphed speculative chunk (rewind: qwen; replay: zamba2)
+    against its eager loop on the card: bitwise equal streams and
+    speculative counters, one replay a chunk."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16",
+                              decode_kernel="pallas_paged",
+                              cache_layout="paged", kv_page_size=8,
+                              spec_k=3, spec_ngram=2)
+    params = convert.init(cfg, torch.Generator("cuda").manual_seed(0),
+                          "cuda")
+    out = {}
+    for flag in (True, False):
+        eng = ServeEngine(cfg, params, batch_slots=3, max_len=48,
+                          chunk_size=8, device="cuda", cuda_graph=flag)
+        reqs = eng.run(_workload(cfg.vocab))
+        stats = eng.serve_stats()
+        out[flag] = ([r.generated for r in reqs],
+                     [stats[k] for k in ("spec_rounds", "draft_proposed",
+                                         "draft_accepted", "spec_tokens")])
         assert stats["graph_replays"] == (stats["chunks"] if flag else 0)
     assert out[True] == out[False]

@@ -144,14 +144,32 @@ def test_no_device_without_cuda_raises(params):
 
 
 @pytest.mark.parametrize("change", [
-    dict(chaos_corrupt_p=0.1), dict(spec_k=2),
-    dict(chaos_crash_after_wave=1), dict(kv_integrity=True),
-    dict(adaptive=True), dict(sampling="top_p"),
+    dict(chaos_corrupt_p=0.1), dict(chaos_crash_after_wave=1),
+    dict(kv_integrity=True), dict(sampling="top_p"),
 ])
 def test_unported_config_raises(params, change):
     with pytest.raises(NotImplementedError):
         ServeEngine(_port(**change), params, batch_slots=2, max_len=64,
                     device="cpu")
+
+
+@pytest.mark.parametrize("change, section, want", [
+    (dict(spec_k=2), "speculative",
+     {"spec_k": 2, "spec_ngram": 3, "rounds_per_chunk": 2,
+      "rollback": "rewind"}),
+    (dict(adaptive=True, warm_pages=4, prefix_sharing=True), "adaptive",
+     {"enabled": True, "warm_tier": True, "warm_budget": 4}),
+])
+def test_ported_config_constructs_and_reports(params, change, section, want):
+    """Speculative decode and the adaptive policy, once refused, now
+    construct, serve the plain engine's streams and report their section
+    of ``policy_report()`` as the reference does."""
+    eng = ServeEngine(_port(**change), params, batch_slots=2, max_len=64,
+                      chunk_size=6, device="cpu")
+    report = eng.policy_report()[section]
+    assert {k: report[k] for k in want} == want
+    reqs = eng.run(_requests(Request))
+    assert [r.generated for r in reqs] == _serve(_port(), params)[0]
 
 
 def test_journal_raises(params):
