@@ -150,6 +150,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ones at yi-9b's width cut to 4 layers (rewind) and zamba2's cut to 6
    (replay), 16 requests each, with the n-gram proposer and with an oracle
    proposer that drafts the plain streams (so drafts are accepted);
+18. ``serve_sampling``: the serve arm's 48 requests at yi-9b's width,
+   greedy and then under seeded top-p (0.9 at temperature 0.8, request i
+   seed 1000 + i), back to back: launch counts and one replay's kernels
+   checked, tok/s and ms a chunk of each, the first 16 sampled ones with
+   the graph off bitwise equal; a traced greedy and sampled chunk from
+   one state, and the sampler alone (whole, and its threefry folds,
+   Gumbel noise and top-p sort), timed, 8 steps of it over the sampled
+   chunk's device time; its keys, bits and uniforms bitwise equal to the
+   CPU's at the chunk's shape;
+19. ``serve_snapshot``: the serve arm with kv_integrity off and then on,
+   back to back (the on-device fingerprint sweep timed, streams bitwise
+   equal, no mismatch), a crash leg (journal, snapshot after wave 2, kill
+   at wave 4, restore on a fresh graphed engine; snapshot and restore
+   times, every request finished, no page held, first tokens and streams
+   equal to the uninterrupted run's counted), a chaos_corrupt_p leg
+   (every flip found and quarantined, invariants every wave), and at 4
+   layers in fp32 restore and corruption runs whose streams must equal
+   the uninterrupted run's bitwise;
+20. ``sampling_identity``: fp32 at yi-9b's width cut to 4 layers and
+   zamba2's cut to 6, 16 seeded requests: reversed submission (top-p), a
+   preempting 128-page pool (top-p) and speculative against plain decode
+   (temperature, an oracle proposer) all give the same streams bitwise;
 and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
 cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
 and the bound.
@@ -1487,12 +1509,13 @@ def _requests(Request, vocab: int, seed: int, n: int = 48):
 
 
 def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
-           check_replay=True, chunk_size: int = 8) -> dict:
+           check_replay=True, chunk_size: int = 8, prepare=None) -> dict:
     """Serve ``reqs`` on a fresh engine (its decode chunk captured as a
     CUDA graph at construction unless ``cuda_graph`` is False), with every
-    kernel counter zeroed just before the run and read just after it.
-    Returns the wall time, each chunk's seconds, ``serve_stats()``, the
-    pages still held, the counts, the peak memory (allocated and
+    kernel counter zeroed just before the run and read just after it;
+    ``prepare(engine)``, if given, runs after construction.  Returns the
+    wall time, each chunk's seconds, ``serve_stats()``, the pages still
+    held, the quarantined ones, the counts, the peak memory (allocated and
     reserved, the graph's pool included) from construction to drain and,
     graphed with ``check_replay``, one replay's kernels, each checked
     against its captured count (check_replay_kernels)."""
@@ -1513,6 +1536,8 @@ def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
         chunk_s.append(time.perf_counter() - t0)
 
     eng._run_chunk = timed_chunk
+    if prepare is not None:
+        prepare(eng)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1528,13 +1553,17 @@ def _serve(cfg, params, reqs, n_pages=None, cuda_graph=True,
                              f"replays for {stats['chunks']} chunks "
                              f"(cuda_graph={cuda_graph})")
     held = (eng.n_pages - eng.allocator.free_count()) if eng.paged else 0
+    quarantined = (sorted(eng.allocator.quarantined_pages) if eng.paged
+                   else [])
+    eng.check_invariants()
     peak = {"peak_allocated": torch.cuda.max_memory_allocated(),
             "peak_reserved": torch.cuda.max_memory_reserved()}
     replay = (check_replay_kernels(cfg.arch, eng)
               if cuda_graph and check_replay else None)
     del eng
     return {"wall": wall, "chunk_s": chunk_s, "stats": stats, "held": held,
-            "counts": got, "replay_kernels": replay, **peak}
+            "quarantined": quarantined, "counts": got,
+            "replay_kernels": replay, **peak}
 
 
 # The CUDA kernels behind each launch counter, by symbol: one wrapper call
@@ -2335,6 +2364,407 @@ def phase_spec_identity(seed: int, base, n_layers: int) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Seeded sampling, crash safety and KV page integrity
+# ---------------------------------------------------------------------------
+
+SAMPLING = dict(sampling="top_p", top_p=0.9, temperature=0.8)
+DEV = "cuda"                # the new phases' device (a CPU rehearsal sets it)
+CRASH_SNAPSHOT_WAVE, CRASH_WAVE = 2, 4   # the crash leg's snapshot, kill
+CORRUPT = dict(kv_integrity=True, chaos_corrupt_p=0.3, chaos_seed=5)
+
+
+def _seeded(reqs, base: int = 1000):
+    """Give request i the sampling seed ``base + i``."""
+    for i, r in enumerate(reqs):
+        r.seed = base + i
+    return reqs
+
+
+def _trace_sampling_chunk(cfg, params, seed: int) -> dict:
+    """The sampler's share of a sampled decode chunk: from one state (16
+    slots at 512 prompt tokens, as ``phase_trace``) one graphed chunk under
+    greedy and one under ``cfg``'s sampling, each timed untraced and then
+    traced with torch.profiler (device busy time, idle share, device
+    events, the kernels); and the sampler alone at the chunk's logits
+    shape, timed by graph replay (time_ms), whole and in its parts:
+    ``sample_keys`` (the two threefry folds), ``gumbel`` (threefry over
+    every vocabulary counter, the uniform and two logs) and
+    ``_mask_logits`` (the top-p sort, softmax and cumsum).  Its share is
+    8 steps of it over the sampled chunk's device time.  The keys, random
+    bits and uniforms at that shape must equal the CPU's bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import sampling
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(0, cfg.vocab, 512).astype(np.int32)
+               for _ in range(SLOTS)]
+
+    def chunk(c, what):
+        eng = ServeEngine(c, params, batch_slots=SLOTS, max_len=MAX_LEN,
+                          chunk_size=8, device=DEV)
+        eng.submit(_seeded([Request(prompt=p, max_new_tokens=25)
+                            for p in prompts], 2000))
+        eng.step()                  # admission wave + one warm chunk
+        t0 = time.perf_counter()
+        eng._run_chunk()            # ends in the chunk's device-to-host copy
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._run_chunk()
+            traced = time.perf_counter() - t0
+        del eng
+        rows = _profile_rows(prof)
+        return _trace_line(what, wall, traced, rows) | {
+            "device_events": sum(c for _, _, c in rows)}
+
+    greedy = chunk(dataclasses.replace(cfg, sampling="greedy"),
+                   "greedy_chunk")
+    sampled = chunk(cfg, "sampled_chunk")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 3)
+    logits = torch.randn((SLOTS, cfg.padded_vocab), generator=gen,
+                         device=DEV)
+    seeds = torch.arange(SLOTS, dtype=torch.int32, device=DEV) + 2000
+    tidx = torch.full((SLOTS,), 40, dtype=torch.int32, device=DEV)
+    sampler = sampling.Sampler.from_config(cfg)
+    keys = sampling.sample_keys(seeds, tidx)
+    # The card's keys, bits and uniforms bitwise equal to the CPU's (which
+    # the CPU tests hold bitwise equal to JAX's); the Gumbel noise close.
+    bits = sampling.random_bits(keys, cfg.padded_vocab)
+    keys_cpu = sampling.sample_keys(seeds.cpu(), tidx.cpu())
+    bits_cpu = sampling.random_bits(keys_cpu, cfg.padded_vocab)
+    for name, got, want in (
+            ("keys", keys, keys_cpu), ("bits", bits, bits_cpu),
+            ("uniforms", sampling.uniform(bits), sampling.uniform(bits_cpu))):
+        check_equal(f"sampler {name}, card against CPU", got.cpu(), want)
+    gumbel_diff = (sampling.gumbel(keys, cfg.padded_vocab).cpu()
+                   - sampling.gumbel(keys_cpu, cfg.padded_vocab)).abs().max()
+    parts = {
+        "sample_keys": time_ms(lambda: sampling.sample_keys(seeds, tidx)),
+        "gumbel": time_ms(lambda: sampling.gumbel(keys, cfg.padded_vocab)),
+        "mask_logits": time_ms(lambda: sampler._mask_logits(logits)),
+    }
+    step_ms = time_ms(lambda: sampler(logits, sampling.sample_keys(
+        seeds, tidx)))
+    busy = sampled["device_busy_ms"]
+    return {"chunk": sampled, "chunk_greedy": greedy,
+            "device_ms_over_greedy": (
+                busy - greedy["device_busy_ms"]
+                if busy is not None and greedy["device_busy_ms"] is not None
+                else None),
+            "sampler_step_ms": step_ms, "sampler_parts_ms": parts,
+            "bits_equal_cpu": True,
+            "gumbel_max_abs_diff_cpu": gumbel_diff.item(),
+            "sampler_share": 8 * step_ms / busy if busy else None}
+
+
+def phase_serve_sampling(gpu: str, seed: int, cfg, params) -> dict:
+    """The serve arm's 48 requests at ``cfg``'s full width with the graph
+    on, greedy and then under seeded top-p (0.9 at temperature 0.8, each
+    request its own seed) back to back: launch counts checked, one
+    replay's kernels held to the capture's, tok/s and ms a chunk of each;
+    the first 16 sampled ones with the graph off, streams bitwise equal;
+    the trace of a greedy and a sampled chunk from one state and the
+    sampler's share of the sampled chunk's device time."""
+    from repro_torch.serve.engine import Request
+
+    scfg = dataclasses.replace(cfg, **SAMPLING)
+    greqs = _requests(Request, cfg.vocab, seed)
+    grun = _serve(cfg, params, greqs)            # greedy, beside it
+    check_counts("serve_sampling greedy", grun["counts"], cfg,
+                 grun["stats"])
+    reqs = _seeded(_requests(Request, cfg.vocab, seed))
+    run = _serve(scfg, params, reqs)             # the sampled main path
+    stats = run["stats"]
+    check_counts("serve_sampling", run["counts"], scfg, stats)
+    check_streams("serve_sampling", reqs, scfg)
+    ereqs = _seeded(_requests(Request, cfg.vocab, seed))[:SLOTS]
+    erun = _serve(scfg, params, ereqs, cuda_graph=False)
+    check_counts("serve_sampling eager", erun["counts"], scfg, erun["stats"])
+    if [r.generated for r in ereqs] != [r.generated for r in reqs[:SLOTS]]:
+        raise AssertionError("serve_sampling: the eager loop's streams "
+                             "differ from the graph's")
+    trace = _trace_sampling_chunk(scfg, params, seed)
+    line = {"phase": "serve_sampling", "gpu": gpu, "arch": cfg.arch,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype, **SAMPLING,
+            **_run_line(reqs, run),
+            "admission_waves": stats["admission_waves"],
+            "greedy": _run_line(greqs, grun),
+            "chunk_over_greedy": (statistics.mean(run["chunk_s"])
+                                  / statistics.mean(grun["chunk_s"])),
+            "tok_per_s_over_greedy": grun["wall"] / run["wall"],
+            "streams_equal_greedy": sum(a.generated == b.generated
+                                        for a, b in zip(reqs, greqs)),
+            "eager": {**_run_line(ereqs, erun), "streams_equal": True},
+            "trace": trace}
+    emit(line)
+    return {"launches": run["counts"]}
+
+
+def _short_requests(Request, vocab: int, seed: int, n: int):
+    """n seeded requests, prompts 32-256 and budgets 16-64 tokens, seed
+    5000 + i, each prompt's first token its index (an oracle's key)."""
+    rng = np.random.default_rng(seed + 31)
+    reqs = [Request(prompt=rng.integers(0, vocab, int(m)).astype(np.int32),
+                    max_new_tokens=int(k), seed=5000 + i)
+            for i, (m, k) in enumerate(zip(rng.integers(32, 257, n),
+                                           rng.integers(16, 65, n)))]
+    for i, r in enumerate(reqs):
+        r.prompt[0] = i
+    return reqs
+
+
+def phase_sampling_identity(seed: int, base, n_layers: int) -> dict:
+    """fp32 at ``base``'s width cut to ``n_layers``, 16 seeded requests,
+    every stream bitwise equal across: the same requests submitted in
+    reverse (top-p); a 128-page pool that preempts (top-p, invariants
+    every wave); the speculative engine (spec_k 4) against the plain one
+    under temperature sampling, with an oracle proposer drafting the
+    plain streams so drafts are accepted."""
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import convert
+    from repro_torch.serve.engine import Request
+
+    cfg = dataclasses.replace(base, n_layers=n_layers, dtype="float32")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 23)
+    params = convert.init(cfg, gen, DEV)
+    tag = f"sampling_identity {cfg.arch}"
+    row = {"arch": cfg.arch, "n_layers": n_layers, "dtype": "float32",
+           "requests": SLOTS}
+
+    def run(c, reqs, **kw):
+        out = _serve(c, params, reqs, check_replay=False, **kw)
+        check_counts(tag, out["counts"], c, out["stats"])
+        return {r.seed: r.generated for r in reqs}, out["stats"]
+
+    top_p = dataclasses.replace(cfg, **SAMPLING)
+    want, _ = run(top_p, _short_requests(Request, cfg.vocab, seed, SLOTS))
+    got, _ = run(top_p, _short_requests(Request, cfg.vocab, seed,
+                                        SLOTS)[::-1])
+    row["reversed_equal"] = sum(got[k] == v for k, v in want.items())
+    pcfg = dataclasses.replace(top_p, strict_invariants=True)
+    got, stats = run(pcfg, _short_requests(Request, cfg.vocab, seed, SLOTS),
+                     n_pages=128)
+    row["preempted"] = stats["preempted"]
+    row["preempted_equal"] = sum(got[k] == v for k, v in want.items())
+    temp = dataclasses.replace(cfg, sampling="temperature", temperature=0.8)
+    plain_reqs = _short_requests(Request, cfg.vocab, seed, SLOTS)
+    plain, _ = run(temp, plain_reqs)
+    engine_mod_propose = engine_mod.ngram_propose
+    engine_mod.ngram_propose = _oracle_proposer(
+        [list(r.prompt) + r.generated for r in plain_reqs], cfg.vocab,
+        params["embed"]["tok"].device)
+    try:
+        scfg = dataclasses.replace(temp, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+        got, stats = run(scfg, _short_requests(Request, cfg.vocab, seed,
+                                               SLOTS), chunk_size=SPEC_CHUNK)
+    finally:
+        engine_mod.ngram_propose = engine_mod_propose
+    row["spec_equal_plain"] = sum(got[k] == v for k, v in plain.items())
+    row["spec_draft_accepted"] = stats["draft_accepted"]
+    row["spec_acceptance_rate"] = stats["spec_acceptance_rate"]
+    for key in ("reversed_equal", "preempted_equal", "spec_equal_plain"):
+        if row[key] != SLOTS:
+            raise AssertionError(f"{tag}: {key} {row[key]} of {SLOTS}")
+    if row["preempted"] <= 0 or row["spec_draft_accepted"] <= 0:
+        raise AssertionError(f"{tag}: no preemption or no accepted draft: "
+                             f"{row}")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _crash_and_restore(cfg, params, reqs, tmp: str, n_pages=None) -> dict:
+    """Serve ``reqs`` with a journal, snapshot after admission wave
+    CRASH_SNAPSHOT_WAVE, kill at CRASH_WAVE (chaos_crash_after_wave),
+    then restore a fresh graphed engine from the snapshot and the
+    journal's suffix and drain it: every request must end with its full
+    budget, no page held, the invariants holding and one replay a chunk.
+    Returns the restored engine's results and the snapshot, restore and
+    first-step times."""
+    from repro_torch.serve.chaos import ChaosCrash
+    from repro_torch.serve.engine import ServeEngine
+
+    jpath, spath = f"{tmp}/journal.jsonl", f"{tmp}/snapshot.json"
+    kw = dict(batch_slots=SLOTS, max_len=MAX_LEN, chunk_size=8,
+              n_pages=n_pages, journal_path=jpath, device=DEV)
+    e1 = ServeEngine(dataclasses.replace(
+        cfg, chaos_crash_after_wave=CRASH_WAVE), params, **kw)
+    e1.submit(reqs)
+    while e1.stats["admission_waves"] < CRASH_SNAPSHOT_WAVE:
+        e1.step()
+    t0 = time.perf_counter()
+    info = e1.snapshot(spath)
+    snapshot_ms = 1e3 * (time.perf_counter() - t0)
+    try:
+        e1.drain()
+    except ChaosCrash as crash:
+        wave = crash.wave
+    else:
+        raise AssertionError(f"{cfg.arch}: the crash point never fired")
+    del e1
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2 = ServeEngine(cfg, params, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = e2.restore(spath)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    e2.step()                   # ends in the chunk's device-to-host copy
+    first_step_ms = 1e3 * (time.perf_counter() - t0)
+    e2.drain()
+    stats = e2.serve_stats()
+    bad = [rid for rid, r in e2._by_id.items()
+           if r.status != "finished" or len(r.generated) != r.max_new_tokens]
+    held = (e2.n_pages - e2.allocator.free_count()) if e2.paged else 0
+    replays = stats["chunks"] if e2.cuda_graph else 0
+    if bad or held or stats["graph_replays"] != replays:
+        raise AssertionError(f"{cfg.arch} restore: unfinished {bad[:4]}, "
+                             f"{held} pages held, {stats['graph_replays']} "
+                             f"replays for {stats['chunks']} chunks")
+    e2.check_invariants()
+    results = e2.results()
+    del e2
+    torch.cuda.empty_cache()
+    return {"results": results, "snapshot_ms": snapshot_ms,
+            "restore_ms": restore_ms, "first_step_ms": first_step_ms,
+            "crash_wave": wave, "snapshot_requests": info["requests"],
+            "in_flight": info["in_flight"], "restored": rep["restored"],
+            "replayed_events": rep["replayed_events"]}
+
+
+def _corrupt_leg(name: str, cfg, params, reqs) -> dict:
+    """Serve ``reqs`` with integrity on and seeded page corruption
+    (CORRUPT): at least one flip injected, at least as many corrupted
+    pages found, each quarantined, the invariants holding after every
+    wave and at the end, every request its full budget."""
+    kcfg = dataclasses.replace(cfg, **CORRUPT)
+    run = _serve(kcfg, params, reqs, check_replay=False)
+    stats = run["stats"]
+    check_counts(name, run["counts"], kcfg, stats)
+    check_streams(name, reqs, kcfg)
+    injected, found = stats["injected_corruptions"], stats["corrupted_pages"]
+    if not 0 < injected <= found == len(run["quarantined"]):
+        raise AssertionError(f"{name}: {injected} flips injected, {found} "
+                             f"pages found, {len(run['quarantined'])} "
+                             "quarantined")
+    if run["held"] != len(run["quarantined"]):
+        raise AssertionError(f"{name}: {run['held']} pages out of the free "
+                             f"list, {len(run['quarantined'])} quarantined")
+    return {"injected_corruptions": injected, "corrupted_pages": found,
+            "healed_requests": stats["healed_requests"],
+            "quarantined_pages": len(run["quarantined"]),
+            "integrity_sweeps": stats["integrity_sweeps"],
+            "invariant_checks": stats["invariant_checks"],
+            "wall_s": run["wall"]}
+
+
+def phase_serve_snapshot(gpu: str, seed: int, cfg, params) -> dict:
+    """Crash safety and KV page integrity at ``cfg``'s full width: the
+    serve arm's 48 requests with kv_integrity off and then on, back to
+    back (the on-device sweep timed, streams bitwise equal, no mismatch
+    found); the crash leg (journal,
+    snapshot after wave 2, kill at wave 4, restore on a fresh graphed
+    engine), first tokens and streams equal to the uninterrupted run's
+    counted (bf16: a re-prefill replaces decode steps); the
+    chaos_corrupt_p leg over the first 16 requests; and at 4 layers in
+    fp32, 32 short requests whose restored and corrupted runs must give
+    the uninterrupted streams bitwise."""
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.serve.engine import Request
+
+    icfg = dataclasses.replace(cfg, kv_integrity=True)
+    sweep_ms = []
+
+    def timed_sweeps(eng):
+        sweep = eng._integrity_sweep
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bad = sweep()          # ends in its device-to-host copy
+            sweep_ms.append(1e3 * (time.perf_counter() - t0))
+            return bad
+        eng._integrity_sweep = timed
+
+    oreqs = _requests(Request, cfg.vocab, seed)
+    orun = _serve(cfg, params, oreqs)                       # integrity off
+    check_counts("serve_snapshot off", orun["counts"], cfg, orun["stats"])
+    reqs = _requests(Request, cfg.vocab, seed)
+    run = _serve(icfg, params, reqs, prepare=timed_sweeps)  # integrity on
+    stats = run["stats"]
+    check_counts("serve_snapshot integrity", run["counts"], icfg, stats)
+    equal = sum(a.generated == b.generated for a, b in zip(reqs, oreqs))
+    if equal != len(reqs) or stats["corrupted_pages"]:
+        raise AssertionError(f"serve_snapshot: integrity on changed "
+                             f"{len(reqs) - equal} streams, found "
+                             f"{stats['corrupted_pages']} corrupt pages")
+    line = {"phase": "serve_snapshot", "gpu": gpu, "arch": cfg.arch,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "integrity": {**_run_line(reqs, run),
+                          "integrity_sweeps": stats["integrity_sweeps"],
+                          "sweep_ms": statistics.mean(sweep_ms),
+                          "sweep_ms_median": statistics.median(sweep_ms),
+                          "sweep_ms_max": max(sweep_ms),
+                          "sweep_ms_per_chunk": (sum(sweep_ms)
+                                                 / stats["chunks"]),
+                          "host_syncs": stats["host_syncs"],
+                          "streams_equal_off": equal},
+            "integrity_off": _run_line(oreqs, orun),
+            "tok_per_s_on_over_off": orun["wall"] / run["wall"]}
+    uninterrupted = {r.id: r.generated for r in oreqs}
+    with tempfile.TemporaryDirectory() as tmp:
+        crash = _crash_and_restore(cfg, params,
+                                   _requests(Request, cfg.vocab, seed), tmp)
+    got = crash.pop("results")
+    line["crash"] = {**crash,
+                     "first_tokens_equal": sum(
+                         got[k][0] == v[0] for k, v in uninterrupted.items()),
+                     "streams_equal": sum(got[k] == v
+                                          for k, v in uninterrupted.items()),
+                     "requests": len(got)}
+    line["corrupt"] = _corrupt_leg(
+        "serve_snapshot corrupt", cfg, params,
+        _requests(Request, cfg.vocab, seed)[:SLOTS])
+    # fp32 at 4 layers: restore and corruption give the streams bitwise.
+    fcfg = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 29)
+    fparams = convert.init(fcfg, gen, DEV)
+    n = 2 * SLOTS
+    base = _short_requests(Request, fcfg.vocab, seed, n)
+    _serve(fcfg, fparams, base, check_replay=False)
+    want = {r.id: r.generated for r in base}
+    with tempfile.TemporaryDirectory() as tmp:
+        fcrash = _crash_and_restore(
+            fcfg, fparams, _short_requests(Request, fcfg.vocab, seed, n), tmp)
+    creqs = _short_requests(Request, fcfg.vocab, seed, n)
+    fcorrupt = _corrupt_leg("serve_snapshot fp32 corrupt", fcfg, fparams,
+                            creqs)
+    line["fp32"] = {
+        "n_layers": 4, "requests": n,
+        "restore_streams_equal": sum(fcrash["results"][k] == v
+                                     for k, v in want.items()),
+        "corrupt_streams_equal": sum(r.generated == want[r.id]
+                                     for r in creqs),
+        "crash_wave": fcrash["crash_wave"], "restored": fcrash["restored"],
+        **{f"corrupt_{k}": v for k, v in fcorrupt.items()}}
+    for key in ("restore_streams_equal", "corrupt_streams_equal"):
+        if line["fp32"][key] != n:
+            raise AssertionError(f"serve_snapshot fp32: {key} "
+                                 f"{line['fp32'][key]} of {n}")
+    del fparams
+    torch.cuda.empty_cache()
+    emit(line)
+    return {"launches": run["counts"]}
+
+
 # serve_bench's mixed trace (adaptive_rows) with token and page counts x16.
 ADAPT = dict(sys=768, tail=64, new=128, junk=576, junk_new=64, warm=48,
              pool=128, rounds=6, slots=2, max_len=1024)
@@ -2694,6 +3124,11 @@ def main() -> int:
                                             serve["params"], "serve_spec")
     served["yi-9b adaptive"] = phase_serve_adaptive(gpu, serve["cfg"],
                                                     serve["params"])
+    # Seeded top-p sampling, then crash safety and KV page integrity.
+    served["yi-9b sampling"] = phase_serve_sampling(
+        gpu, args.seed, serve["cfg"], serve["params"])
+    served["yi-9b integrity"] = phase_serve_snapshot(
+        gpu, args.seed, serve["cfg"], serve["params"])
     del serve["params"]
     torch.cuda.empty_cache()
     zserve = phase_serve(gpu, args.seed,
@@ -2736,6 +3171,12 @@ def main() -> int:
         phase_spec_identity(args.seed,
                             dataclasses.replace(zamba2_27b.CONFIG, **paged),
                             6)]})
+    # Seeded sampling's identities, torch against torch, bitwise in fp32.
+    emit({"phase": "sampling_identity", "gpu": gpu, "rows": [
+        phase_sampling_identity(args.seed,
+                                dataclasses.replace(yi_9b.CONFIG, **paged), 4),
+        phase_sampling_identity(
+            args.seed, dataclasses.replace(zamba2_27b.CONFIG, **paged), 6)]})
     fp32 = dict(dtype="float32", cache_layout="paged", kv_page_size=PSZ)
     phase_e2e(gpu, args.seed,
               dataclasses.replace(yi_9b.CONFIG, n_layers=4, **fp32))

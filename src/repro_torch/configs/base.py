@@ -18,9 +18,11 @@ the decode step's:
 On CPU tensors each kernel's wrapper takes its plain version, so the
 routes differ on the CPU only in how the plain attention is decomposed.
 
-Serving knobs whose engine slice is not ported yet (KV integrity and
-page corruption, crash points, non-greedy sampling) are kept so configs
-stay interchangeable; ``serve.engine.ServeEngine`` raises on them.
+Every serving knob is ported: sampling (``sampling``, ``temperature``,
+``top_k``, ``top_p``; ``top_k`` is also the MoE routing width, as in the
+reference), KV integrity and page corruption, crash points, and the
+chaos, adaptive and speculative knobs.  The field set is the reference's,
+so a snapshot's config fingerprint agrees across the two packages.
 """
 from __future__ import annotations
 

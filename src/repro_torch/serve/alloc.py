@@ -2,8 +2,8 @@
 
 A copy of ``repro.serve.alloc`` (pure Python): the port keeps its own so
 it never imports the JAX package.  The engine uses ``alloc``, ``share``
-and ``release``, and under the adaptive policy the warm tier (``retain``,
-``revive``, ``reclaim``); quarantine waits for the KV-integrity slice.
+and ``release``, under the adaptive policy the warm tier (``retain``,
+``revive``, ``reclaim``), and under KV integrity ``quarantine``.
 """
 from __future__ import annotations
 

@@ -3,9 +3,8 @@
 A copy of ``repro.serve.chaos`` (numpy only): the port keeps its own so it
 never imports the JAX package, with the same seeded
 ``np.random.default_rng`` draws, so injected failures fall where the
-reference's do.  The port's engine arms the alloc/share refusals and the
-forced preemptions; crash points and page corruption wait for the
-snapshot/integrity slice and are refused at construction.
+reference's do.  The port's engine arms all of them: alloc/share
+refusals, forced preemptions, crash points and page corruption.
 
 Robustness of the engine's lifecycle state machine is only credible if
 the failure paths actually run.  This module makes them run on demand:

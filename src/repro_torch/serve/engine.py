@@ -1,25 +1,28 @@
 """Continuous-batching serve engine over a paged (or contiguous) KV cache,
-with prefix sharing, the request lifecycle, speculative decode and the
-adaptive serve-tier cache policy: the port of ``repro.serve.engine``
-without snapshots, the journal or KV integrity.
+with prefix sharing, the request lifecycle, speculative decode, the
+adaptive serve-tier cache policy, seeded sampling, crash safety and KV page
+integrity: the port of ``repro.serve.engine``.
 
 * **Chunked decode with one host sync per chunk.**  A chunk is
-  ``chunk_size`` single-token decode steps with on-device greedy sampling;
-  tokens, budgets and done flags stay on the device, and the chunk's
-  emitted tokens come back in one device-to-host copy.
+  ``chunk_size`` single-token decode steps with on-device sampling
+  (``serve.sampling``: greedy, or temperature / top-k / top-p keyed by
+  each request's ``(seed, token index)``); tokens, budgets, token indices
+  and done flags stay on the device, and the chunk's emitted tokens come
+  back in one device-to-host copy.
 * **The chunk as one CUDA graph** (``cuda_graph=True``, the default on the
   card; the reference's ``jit(scan)`` with donation).  The chunk's body
   reads and writes only static buffers: the cache's leaves, ``cur_tok``,
-  ``remaining`` and a (2, chunk_size, slots) output of tokens and active
-  flags.  It is captured once per engine, at construction, after a
-  warm-up on a side stream (which builds the kernels at first use), both
-  with every slot parked, so neither changes any state; ``_run_chunk``
-  then replays it and copies the output to the host.  Every other write to
-  those buffers (admission's prefill, slot resets, parking, the page
-  table) is in place, and before each chunk ``_check_static`` raises if a
-  leaf was rebound or the split count moved from the one captured.  A
-  failed capture or replay raises; nothing falls back to the eager loop,
-  which runs on the CPU and with ``cuda_graph=False`` (the A/B arm).
+  ``remaining``, ``seeds``, ``tok_idx`` and a (2, chunk_size, slots)
+  output of tokens and active flags.  It is captured once per engine, at
+  construction, after a warm-up on a side stream (which builds the kernels
+  at first use), both with every slot parked, so neither changes any
+  state; ``_run_chunk`` then replays it and copies the output to the host.
+  Every other write to those buffers (admission's prefill, slot resets,
+  parking, the page table, a restore's reset) is in place, and before each
+  chunk ``_check_static`` raises if a leaf was rebound or the split count
+  moved from the one captured.  A failed capture or replay raises; nothing
+  falls back to the eager loop, which runs on the CPU and with
+  ``cuda_graph=False`` (the A/B arm).
 * **Ragged slots.**  Finished slots park (``seg_lens == 0`` leaves their KV
   and cursor untouched, including through the kernels, which still run
   for them with ``kv_len = lengths`` and ``q_len = 0``); freed slots take
@@ -43,21 +46,39 @@ without snapshots, the journal or KV integrity.
   cancelled, expired}.  A page-gated head preempts the youngest
   never-preempted resident, whose pages release refcount-aware and who
   re-enters at the queue front to be restored by a recompute prefill over
-  prompt + emitted tokens (greedy, so the restored stream is the same
-  stream).  ``cancel()`` and deadlines are swept at chunk boundaries,
-  ``max_queue`` rejects with a reason, ``check_invariants()`` audits the
-  slot/queue/allocator/trie state (after every wave under chaos or
-  ``strict_invariants``), and ``drain()`` raises ``NoProgressError`` when
-  it stops making progress.  With ``preemption=False`` a gated head waits.
-* **Chaos** (``serve.chaos``).  Seeded alloc and share refusals and forced
-  preemptions, drawn as the reference draws them.
+  prompt + emitted tokens, sampling from token index ``len(generated)``
+  (so the restored stream is the same stream).  ``cancel()`` and deadlines
+  are swept at chunk boundaries, ``max_queue`` rejects with a reason,
+  ``check_invariants()`` audits the slot/queue/allocator/trie state (after
+  every wave under chaos or ``strict_invariants``), and ``drain()`` raises
+  ``NoProgressError`` when it stops making progress.  With
+  ``preemption=False`` a gated head waits.
+* **Chaos** (``serve.chaos``).  Seeded alloc and share refusals, forced
+  preemptions, page corruption and crash points, drawn as the reference
+  draws them.
+* **Crash safety** (DESIGN.md §5.6, ``serve.snapshot``).  ``snapshot(path)``
+  writes host-side truth only (requests, tokens, seeds, refcounts,
+  quarantine, counters, adaptive state) as checksummed JSON;
+  ``restore(path)`` validates it, resets every static buffer in place (the
+  captured graph stays valid) and re-admits the in-flight requests, whose
+  KV the ordinary recompute prefill rebuilds.  An optional fsync'd request
+  journal (``journal_path``) replays submissions and terminations past the
+  snapshot.  Snapshots and journals are the reference's format, so either
+  package restores the other's.
+* **KV page integrity** (``cfg.kv_integrity``, DESIGN.md §5.6).  At each
+  chunk boundary the engine stamps the fingerprints of pages sealed below
+  their slots' cursors and verifies every stamp; a mismatch quarantines
+  the page and preempts every slot mapping it, so re-admission recomputes
+  its KV.  The fingerprints are computed on the device (an int8 product
+  of each page's bytes, ``_fingerprint_pool``); one device-to-host copy of
+  the mismatch flags a sweep is the only transfer.
 * **Cache policy** (``repro_torch.core``).  The policy engine
   (``make_engine()``: the H100 model unless the caller passes another)
   sets the KV residency of the pool actually allocated and plans the
   decode-attention op at every admission wave (a PlanCache hit after the
   first); its plan sets the decode kernels' split count, baked into the
   config before the model is built.  ``policy_report()`` returns these
-  decisions with the pool, sharing and lifecycle state.
+  decisions with the pool, sharing, lifecycle and integrity state.
 * **Recurrent families** (mamba2, zamba2).  Re-admission zeroes a slot's
   SSM state and conv window (``reset_slots``); a paged config whose cache
   has no pages (mamba2) runs contiguous bookkeeping.
@@ -69,7 +90,9 @@ without snapshots, the journal or KV integrity.
   token); one ragged
   ``prefill(seg_lens = spec_k + 1, all_logits=True)`` scores
   ``[cur_tok, drafts]``; each slot emits ``min(matching prefix + 1,
-  remaining)`` greedy targets.  Rollback: KV families rewind the cursor
+  remaining)`` targets, the target at position j sampled with the key of
+  token index ``tok_idx + j``, so a speculative stream is the plain one
+  under every sampling mode.  Rollback: KV families rewind the cursor
   (rejected KV is stale but masked); recurrent families, whose model
   writes its SSM state and conv window in place, restore them from a
   static scratch copy taken before the verify and replay the block with
@@ -84,9 +107,7 @@ without snapshots, the journal or KV integrity.
   tokens; a revive writes the host page table, which admission copies
   into the device table in place, so nothing is recaptured.
 
-Not ported yet, and refused at construction: KV integrity and page
-corruption, crash points, the request journal and non-greedy sampling
-(and, through ``build_model``, the encdec and VLM families).
+The encdec and VLM families are not ported (``build_model`` raises).
 """
 from __future__ import annotations
 
@@ -108,17 +129,21 @@ from repro_torch.kernels.decode_attention.ops import plan_splits
 from repro_torch.models import build_model
 from repro_torch.models.common import paged_kv_spec
 from repro_torch.serve.adaptive import AdaptivePolicy
+from repro_torch.serve import snapshot as snap
 from repro_torch.serve.alloc import PageAllocator
-from repro_torch.serve.chaos import ChaosAllocator
+from repro_torch.serve.chaos import ChaosAllocator, ChaosCrash
 from repro_torch.serve.draft import ngram_propose
 from repro_torch.serve.prefix import PrefixIndex
-from repro_torch.serve.sampling import Sampler
+from repro_torch.serve.sampling import Sampler, sample_keys
+from repro_torch.serve.snapshot import SnapshotError  # noqa: F401  (re-export)
 
 
 @dataclasses.dataclass
 class Request:
     prompt: np.ndarray            # (len,) int32
     max_new_tokens: int = 16
+    seed: int | None = None       # sampling seed (None -> 0): a stream
+                                  # depends on (seed, token index) only
     id: str | None = None         # cancellation handle; auto-assigned at
                                   # submit when None ("req-<n>")
     deadline_s: float | None = None       # submit -> finish SLO; a resident
@@ -145,6 +170,11 @@ class Request:
     queue_wait_s: float | None = None  # submit -> first admission
     submit_t: float | None = None
     admit_t: float | None = None
+
+
+# Stats that describe the engine (its captured chunk), not a run: a
+# restore keeps them.
+_ENGINE_STATS = ("captured_launches", "graph_pool_bytes")
 
 
 class AdmissionReject(ValueError):
@@ -187,18 +217,7 @@ def _leaves(tree, path=()):
             yield from _leaves(v, path + (i,))
 
 
-def _refuse_unported(cfg: ModelConfig, journal_path) -> None:
-    unported = {
-        "chaos_corrupt_p": cfg.chaos_corrupt_p > 0,
-        "chaos_crash_after_wave": cfg.chaos_crash_after_wave > 0,
-        "kv_integrity": cfg.kv_integrity,
-        "journal_path": journal_path is not None,
-    }
-    on = [name for name, flag in unported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            f"ServeEngine: {', '.join(on)} not ported yet (ROADMAP.md "
-            "queue 1 lists the engine slices still to come)")
+def _check_chaos_rates(cfg: ModelConfig) -> None:
     for knob in ("chaos_alloc_fail_p", "chaos_share_fail_p",
                  "chaos_preempt_p"):
         if not 0.0 <= getattr(cfg, knob) < 1.0:
@@ -213,8 +232,12 @@ class ServeEngine:
     queue: free slots are prefilled (ragged, right-padded, attached to
     shared prefix pages where they can be), live slots decode in
     device-resident chunks (plain single-token steps, or draft/verify/
-    rollback rounds when ``cfg.spec_k > 0``), finished slots free at chunk
-    boundaries and are re-admitted from the queue.
+    rollback rounds when ``cfg.spec_k > 0``), each token sampled on the
+    device by ``cfg.sampling`` with the request's ``(seed, token index)``
+    keys, finished slots free at chunk boundaries and are re-admitted from
+    the queue.  Every step ends on a chunk boundary that is verified
+    (``cfg.kv_integrity``) and journaled (``journal_path``);
+    ``snapshot``/``restore`` carry the host-side state across a crash.
 
     ``cuda_graph`` (default True) replays each decode chunk, plain or
     speculative, as one CUDA graph on the card; it has no effect on the
@@ -229,7 +252,7 @@ class ServeEngine:
                  policy_engine: CachePolicyEngine | None = None,
                  cuda_graph: bool = True):
         self.device = resolve_device(device)
-        _refuse_unported(cfg, journal_path)
+        _check_chaos_rates(cfg)
         if cfg.n_experts and cfg.moe_dispatch != "dense":
             raise ValueError(
                 "ServeEngine requires moe_dispatch='dense': under 'sorted', "
@@ -281,12 +304,15 @@ class ServeEngine:
             self.cache = self.model.init_cache(
                 params, batch=batch_slots, max_len=max_len,
                 n_pages=self.n_pages if self.paged else None)
-            # Device-resident per-slot loop state: last sampled token and
-            # remaining budget (0 == parked or free), and the chunk's
-            # output, tokens over active flags.
+            # Device-resident per-slot loop state: last sampled token,
+            # remaining budget (0 == parked or free), the request's
+            # sampling seed and the stream index of its next token, and
+            # the chunk's output, tokens over active flags.
             self.cur_tok = torch.zeros(batch_slots, dtype=torch.int32,
                                        device=self.device)
             self.remaining = torch.zeros_like(self.cur_tok)
+            self.seeds = torch.zeros_like(self.cur_tok)
+            self.tok_idx = torch.zeros_like(self.cur_tok)
             self._out = torch.zeros((2, self.chunk_size, batch_slots),
                                     dtype=torch.int32, device=self.device)
             if self.spec:
@@ -339,12 +365,32 @@ class ServeEngine:
         # Any chaos knob, or strict mode, arms the per-wave invariant check.
         self._chaos = cfg.chaos_preempt_p > 0.0 or (
             self.paged and (cfg.chaos_alloc_fail_p > 0.0
-                            or cfg.chaos_share_fail_p > 0.0))
+                            or cfg.chaos_share_fail_p > 0.0
+                            or cfg.chaos_corrupt_p > 0.0))
         self._strict = cfg.strict_invariants or (
             os.environ.get("REPRO_STRICT_INVARIANTS", "") not in ("", "0"))
+        # KV page integrity (DESIGN.md §5.6): fingerprints stamped at chunk
+        # boundaries over pages sealed below their slot's host-computed
+        # cursor, every stamp verified each step.  The stamps live on the
+        # device; the host keeps the set of stamped pages.
+        self.integrity = self.paged and (cfg.kv_integrity
+                                         or cfg.chaos_corrupt_p > 0.0)
+        self._stamped: set[int] = set()
+        if self.integrity:
+            self._init_fingerprints()
+        self._corrupt_rng = (np.random.default_rng(cfg.chaos_seed + 0x5EED)
+                             if self.paged and cfg.chaos_corrupt_p > 0.0
+                             else None)
+        # Crash safety (DESIGN.md §5.6): the optional fsync'd request
+        # journal; _replaying keeps restore's re-enqueues out of it.
+        self.journal_path = journal_path
+        self.journal = (snap.RequestJournal(journal_path)
+                        if journal_path is not None else None)
+        self._replaying = False
         self.no_progress_limit = max(1, no_progress_limit)
         self.stats = {
-            "host_syncs": 0,          # device->host copies (1/wave, 1/chunk)
+            "host_syncs": 0,          # device->host copies (1/wave, 1/chunk,
+                                      # 1/integrity sweep)
             "decode_tokens": 0,       # tokens emitted by decode chunks
             "prefill_tokens": 0,      # first tokens emitted by prefill
             "chunks": 0,
@@ -375,6 +421,13 @@ class ServeEngine:
             "warm_hits": 0,           # admissions that revived warm pages
             "warm_tokens_saved": 0,   # prompt tokens attached from warm pages
             "replans": 0,             # adaptive lattice re-plans run
+            "integrity_sweeps": 0,    # fingerprint stamp + verify passes
+            "corrupted_pages": 0,     # fingerprint mismatches detected
+            "healed_requests": 0,     # slots recompute-restored after
+                                      # mapping a corrupted page
+            "injected_corruptions": 0,  # chaos_corrupt_p flips landed
+            "snapshots": 0,           # snapshot() calls
+            "restores": 0,            # restore() calls completed
             "graph_replays": 0,       # chunks run as a CUDA graph replay
             "captured_launches": 0,   # kernel launches in the captured chunk
             "graph_pool_bytes": 0,    # memory the capture reserved
@@ -423,6 +476,29 @@ class ServeEngine:
         # rollback is a replay; KV-only families rewind the cursor.
         self._spec_replay = bool(self._spec_scratch)
 
+    def _init_fingerprints(self) -> None:
+        """The integrity sweep's device buffers: an int8 multiplier over a
+        page's bytes (columns 0-3 sum each byte lane of the page's 4-byte
+        words, so any single changed word changes a column; columns 4-7
+        weigh every byte by a seeded odd factor) and the stamps, one row
+        of int64 column sums per page (the sink included) and pool leaf."""
+        leaves = self._pool_leaves()
+        page_bytes = leaves[0][(0,) * (leaves[0].dim() - 3)].nbytes
+        if page_bytes % 8:
+            raise ValueError(
+                f"kv_integrity: a page holds {page_bytes} bytes a layer; "
+                "the on-device fingerprint needs a multiple of 8")
+        lane = np.arange(page_bytes) % 4
+        mult = np.zeros((page_bytes, 8), np.int8)
+        mult[np.arange(page_bytes), lane] = 1
+        rng = np.random.default_rng(0xF1A6)
+        mult[:, 4:] = 2 * rng.integers(-63, 64, (page_bytes, 4)) + 1
+        # Column-major, as the int8 GEMM takes its right operand.
+        mult = torch.from_numpy(mult).to(self.device)
+        self._fp_mult = mult.t().contiguous().t()
+        self._fp_stamp = torch.zeros((self.n_pages + 1, 8 * len(leaves)),
+                                     dtype=torch.int64, device=self.device)
+
     @property
     def free_pages(self) -> list[int]:
         """Free-list view (paged only)."""
@@ -465,8 +541,7 @@ class ServeEngine:
 
     def policy_report(self) -> dict:
         """Serving-side policy decisions (DESIGN.md §5) and planner
-        counters: the reference's sections for the features the port has
-        (KV integrity's comes with its slice)."""
+        counters, in the reference's sections."""
         report = {
             "kv_bytes_per_layer": self._kv_bytes_per_layer(),
             "kv_residency": self.kv_residency.value,
@@ -535,8 +610,21 @@ class ServeEngine:
                 "injected_share_failures": (
                     alloc.injected_share_failures
                     if isinstance(alloc, ChaosAllocator) else 0),
-                "injected_corruptions": 0,
+                "injected_corruptions": self.stats["injected_corruptions"],
             },
+        }
+        report["integrity"] = {
+            "enabled": self.integrity,
+            "strict_invariants": self._strict,
+            "journal": self.journal_path is not None,
+            "stamped_pages": len(self._stamped),
+            "quarantined_pages": (len(alloc.quarantined_pages)
+                                  + len(alloc.doomed_pages)
+                                  if alloc is not None else 0),
+            "corrupted_pages": self.stats["corrupted_pages"],
+            "healed_requests": self.stats["healed_requests"],
+            "snapshots": self.stats["snapshots"],
+            "restores": self.stats["restores"],
         }
         if self.decode_plan is not None:
             report["decode_attention"] = {
@@ -630,6 +718,12 @@ class ServeEngine:
             r.submit_t = now
             r.status = "queued"
             self.queue.append(r)
+            if self.journal is not None and not self._replaying:
+                self.journal.append(snap.submit_event(r))
+        if self.journal is not None and not self._replaying:
+            # One fsync a submitted batch: an accepted request is durable
+            # before the caller regains control.
+            self.journal.flush()
 
     def cancel(self, request_id: str) -> bool:
         """Ask for a queued or resident request to be cancelled at the next
@@ -640,6 +734,10 @@ class ServeEngine:
             return False
         r.cancel_requested = True
         return True
+
+    def request(self, request_id: str) -> Request | None:
+        """The live handle of a submitted request id (terminal ones kept)."""
+        return self._by_id.get(request_id)
 
     def results(self) -> dict[str, list[int]]:
         """Emitted tokens per request id."""
@@ -683,13 +781,23 @@ class ServeEngine:
             if src is not dst:
                 dst.copy_(src)
 
+    def _sample(self, logits, seeds, tok_idx):
+        """The sampler with per-row keys folded from (request seed, token
+        index): a function of the request, never of its slot."""
+        keys = (sample_keys(seeds, tok_idx) if self.sampler.needs_keys
+                else None)
+        return self.sampler(logits, keys)
+
     @torch.inference_mode()
     def _prefill(self, tokens, seg_lens, start_lens, new_remaining,
-                 hist_toks=None):
+                 new_tok_idx, new_seeds, hist_toks=None):
         """Ragged admission prefill: set each admitted slot's cursor to its
         attach point (0, or the shared prefix's length), prefill the
         unshared suffix (seg_lens == 0 parks the others) and sample each
-        admitted slot's first token on the device.  A speculative engine
+        admitted slot's first token on the device with the key of stream
+        index ``new_tok_idx`` (0 for a fresh request, ``len(generated)``
+        for a restored one, whose prefill ends on its last emitted token),
+        then set the slot's seed and next index.  A speculative engine
         also seeds each admitted slot's history with ``hist_toks``, its
         FULL effective prompt (shared prefix included, so an attached slot
         drafts what an unshared one drafts), then the first token.  Eager,
@@ -701,10 +809,13 @@ class ServeEngine:
         logits, cache = self.model.prefill(
             self.params, self.cache, tokens, seg_lens=seg_lens)
         self._write_back(cache)
-        nxt = self.sampler(logits)
+        nxt = self._sample(logits, new_seeds, new_tok_idx)
         self.cur_tok.copy_(torch.where(admitted, nxt, self.cur_tok))
         self.remaining.copy_(torch.where(admitted, new_remaining,
                                          self.remaining))
+        self.seeds.copy_(torch.where(admitted, new_seeds, self.seeds))
+        self.tok_idx.copy_(torch.where(admitted, new_tok_idx + 1,
+                                       self.tok_idx))
         if self.spec:
             # Rows 0 .. full - 1 take the prompt, row full the first
             # token; past hist_len the proposer reads nothing, so the
@@ -732,18 +843,22 @@ class ServeEngine:
         to the sink, dt = 0 keeps its SSM state, its cursor advances by 0),
         so the body with every slot parked is a no-op on the state."""
         cache, tok, rem = self.cache, self.cur_tok, self.remaining
+        tidx = self.tok_idx
         for i in range(self.chunk_size):
             active = rem > 0
             seg = active.to(torch.int32)
             logits, cache = self.model.decode_step(
                 self.params, cache, tok[:, None], seg_lens=seg)
-            tok = torch.where(active, self.sampler(logits), tok)
+            tok = torch.where(active, self._sample(logits, self.seeds, tidx),
+                              tok)
+            tidx = tidx + seg
             rem = rem - seg
             self._out[0, i].copy_(tok)
             self._out[1, i].copy_(seg)
         self._write_back(cache)
         self.cur_tok.copy_(tok)
         self.remaining.copy_(rem)
+        self.tok_idx.copy_(tidx)
 
     @torch.inference_mode()
     def _spec_chunk(self) -> None:
@@ -755,8 +870,9 @@ class ServeEngine:
            ``spec_k`` tokens.
         2. *Verify*: one ragged ``prefill`` over ``[cur_tok, d_1..d_k]``
            (``seg_lens = k + 1``, 0 for parked slots) with every
-           position's logits; the greedy target at position j is the token
-           sequential decode would emit there, so targets are emissions.
+           position's logits; the target at position j, sampled with the
+           key of token index ``tok_idx + j``, is the token sequential
+           decode would emit there, so targets are emissions.
         3. *Accept*: ``m = min(matching prefix + 1, remaining)``, 1..k + 1.
         4. *Rollback*: KV families set the cursor to base + m (the
            rejected rows past it are stale but masked, and rewritten
@@ -780,7 +896,9 @@ class ServeEngine:
         # from; its KV rows go to the live pages.
         verify_cache = {**cache, **self._spec_scratch}
         tok, rem, hlen = self.cur_tok, self.remaining, self.hist_len
+        tidx = self.tok_idx
         cols = torch.arange(k1, device=self.device)[None, :]
+        row_seeds = self.seeds[:, None].expand(b, k1).reshape(-1)
         for j in range(self.spec_rounds):
             active = rem > 0
             drafts = ngram_propose(hist, hlen, self.spec_ngram, k)
@@ -790,7 +908,9 @@ class ServeEngine:
                 saved.copy_(cache[key])
             logits, _ = self.model.prefill(self.params, verify_cache, vt,
                                            seg_lens=seg_v, all_logits=True)
-            targets = self.sampler(logits.reshape(b * k1, -1)).reshape(b, k1)
+            targets = self._sample(logits.reshape(b * k1, -1), row_seeds,
+                                   (tidx[:, None] + cols).reshape(-1)
+                                   ).reshape(b, k1)
             match = (drafts == targets[:, :k]).to(torch.int32)
             accepted = torch.cumprod(match, dim=1).sum(dim=1)
             m = torch.where(active, torch.minimum(accepted + 1, rem),
@@ -809,6 +929,7 @@ class ServeEngine:
             last = targets.gather(1, (m - 1).clamp(0, k).long()[:, None])
             tok = torch.where(active, last[:, 0], tok)
             hlen = hlen + m
+            tidx = tidx + m
             rem = rem - m
             out = self._spec_out[j]
             out[:, :k1].copy_(targets)
@@ -819,6 +940,7 @@ class ServeEngine:
         self.cur_tok.copy_(tok)
         self.remaining.copy_(rem)
         self.hist_len.copy_(hlen)
+        self.tok_idx.copy_(tidx)
 
     def _chunk_body(self) -> None:
         """The chunk a replay (or the eager loop) runs: speculative rounds
@@ -855,11 +977,12 @@ class ServeEngine:
 
     def _static_ptrs(self) -> dict:
         """Address of every buffer a chunk reads or writes: the cache's
-        leaves, the loop vectors, the output and the parameters; and for
-        the speculative chunk the history, its length, its output and the
-        recurrent scratch copy."""
+        leaves, the loop vectors (tokens, budgets, seeds, token indices),
+        the output and the parameters; and for the speculative chunk the
+        history, its length, its output and the recurrent scratch copy."""
         trees = {"cache": self.cache, "cur_tok": self.cur_tok,
-                 "remaining": self.remaining, "out": self._out,
+                 "remaining": self.remaining, "seeds": self.seeds,
+                 "tok_idx": self.tok_idx, "out": self._out,
                  "params": self.params}
         if self.spec:
             trees.update(hist=self.hist, hist_len=self.hist_len,
@@ -908,6 +1031,11 @@ class ServeEngine:
                 freed = self._maybe_retain(r, freed)
             if self.prefix is not None and freed:
                 self.prefix.evict(freed)
+            # A page leaving circulation (freed or quarantined) sheds its
+            # stamp; its next holder stamps fresh bytes.  Pages sharers
+            # still hold keep theirs: below every sharer's cursor they
+            # never change.
+            self._stamped.difference_update(freed)
             self._slot_pages[slot] = []
             self.page_table[slot] = -1
         self._dirty_slots.add(slot)
@@ -973,6 +1101,7 @@ class ServeEngine:
             taken.extend(sub)
         if taken:
             self.prefix.evict(taken)
+            self._stamped.difference_update(taken)
             self.allocator.reclaim(taken)
             self.adaptive.note_reclaimed(taken)
             self.stats["warm_reclaimed"] += len(taken)
@@ -986,10 +1115,14 @@ class ServeEngine:
         self.stats[status] += 1
         if r.deadline_s is not None:
             self.stats["deadline_total"] += 1
+        if self.journal is not None and not self._replaying:
+            self.journal.append(snap.terminal_event(r))
 
     def _finish(self, r: Request) -> None:
         r.done = True
         r.status = "finished"
+        if self.journal is not None and not self._replaying:
+            self.journal.append(snap.terminal_event(r))
         if r.deadline_s is not None:
             self.stats["deadline_total"] += 1
             if time.perf_counter() - r.submit_t <= r.deadline_s:
@@ -1199,6 +1332,8 @@ class ServeEngine:
         seg = np.zeros((self.slots,), np.int32)
         start = np.zeros((self.slots,), np.int32)
         new_rem = np.zeros((self.slots,), np.int32)
+        new_tidx = np.zeros((self.slots,), np.int32)
+        new_seeds = np.zeros((self.slots,), np.int32)
         for slot, r, eff in wave:
             n = len(eff) - r.prefix_tokens
             self.stats["prefill_work_tokens"] += n
@@ -1208,6 +1343,12 @@ class ServeEngine:
             seg[slot] = n
             start[slot] = r.prefix_tokens     # page-aligned attach cursor
             new_rem[slot] = r.max_new_tokens - len(r.generated) - 1
+            # A restored request samples from stream index len(generated):
+            # its prefill ends on its last emitted token.
+            new_tidx[slot] = len(r.generated)
+            # Any Python int (64-bit hashes, negatives) folds into the
+            # int32 range, still a function of the request's seed alone.
+            new_seeds[slot] = (0 if r.seed is None else r.seed) % (2 ** 31)
         if self.paged:                 # the whole table, -1 entries too
             with torch.inference_mode():
                 self.cache["pages"].copy_(torch.from_numpy(self.page_table))
@@ -1218,6 +1359,8 @@ class ServeEngine:
                             torch.from_numpy(seg).to(dev),
                             torch.from_numpy(start).to(dev),
                             torch.from_numpy(new_rem).to(dev),
+                            torch.from_numpy(new_tidx).to(dev),
+                            torch.from_numpy(new_seeds).to(dev),
                             None if htoks is None
                             else torch.from_numpy(htoks).to(dev))
         first = nxt.cpu().numpy()                  # host sync: 1 per wave
@@ -1312,9 +1455,11 @@ class ServeEngine:
         it and is neither queued nor terminal; the allocator's held pages
         are exactly the union of resident slots' pages, with refcounts
         equal to the number of slots mapping each; free + held + warm +
-        quarantined partitions the pool (no leaks); the warm tier keeps
-        within its budget and inside the trie; every trie page is held or
-        warm.  Identity (never ``==``) is used for request membership."""
+        quarantined partitions the pool (no leaks), quarantined pages stay
+        out of circulation and doomed ones held; the warm tier keeps
+        within its budget and inside the trie; every trie page and every
+        integrity stamp is held or warm.  Identity (never ``==``) is used
+        for request membership."""
         self.stats["invariant_checks"] += 1
 
         def check(ok, message):
@@ -1361,15 +1506,23 @@ class ServeEngine:
                   f"page {page}: allocator refcount "
                   f"{self.allocator.ref_count(page)} != {refs} mapping slots")
         free = self.allocator.free_pages
-        parts = (free + sorted(held) + sorted(self.allocator.warm_pages)
-                 + sorted(self.allocator.quarantined_pages))
+        quar = self.allocator.quarantined_pages
+        warm = self.allocator.warm_pages
+        check(not quar & held and not quar & set(free),
+              f"quarantined pages back in circulation: "
+              f"{sorted(quar & (held | set(free)))}")
+        check(self.allocator.doomed_pages <= held,
+              "doomed (pending-quarantine) pages must still be held")
+        parts = free + sorted(held) + sorted(warm) + sorted(quar)
         check(sorted(parts) == list(range(self.n_pages)),
               "free + held + warm + quarantined is not a partition of the "
               "pool")
-        warm = self.allocator.warm_pages
         check(len(warm) <= self.allocator.warm_budget,
               f"warm tier over budget: {len(warm)} > "
               f"{self.allocator.warm_budget}")
+        check(not self._stamped - held - warm,
+              f"integrity stamps outlive their pages: "
+              f"{sorted(self._stamped - held - warm)}")
         if self.prefix is not None:
             resident = self.prefix.resident_pages()
             stray = resident - held - warm
@@ -1379,14 +1532,384 @@ class ServeEngine:
         else:
             check(not warm, f"warm pages without a prefix index: {warm}")
 
+    # -- KV page integrity (DESIGN.md §5.6) ----------------------------------
+
+    def _pool_leaves(self) -> list[torch.Tensor]:
+        """The paged K/V pool leaves, in the cache's order: the floating
+        buffers whose trailing axes are (n_pages + 1, page_size, heads,
+        head_dim), the sink page last."""
+        return [t for path, t in _leaves(self.cache)
+                if path[-1] in ("k", "v") and t.dim() >= 4
+                and t.shape[-4] == self.n_pages + 1
+                and t.shape[-3] == self.page_size and t.is_floating_point()]
+
+    @torch.inference_mode()
+    def _fingerprint_pool(self) -> torch.Tensor:
+        """Every page's fingerprint, on the device: (n_pages + 1, 8 x pool
+        leaves) int64.  Each leaf's bytes, a page of a layer to a row, go
+        through one int8 GEMM with ``_fp_mult`` (exact int32 sums), summed
+        over the leading stack axes.  The reference CRC32s pages pulled to
+        the host; these values differ, but they change whenever a word of
+        the page does, which is what stamping and verifying need."""
+        sums = []
+        for leaf in self._pool_leaves():
+            rows = leaf.view(torch.int8).reshape(-1, self._fp_mult.shape[0])
+            part = torch._int_mm(rows, self._fp_mult)
+            sums.append(part.view(-1, self.n_pages + 1, 8).sum(
+                dim=0, dtype=torch.int64))
+        return torch.cat(sums, dim=1)
+
+    def _sealed_pages(self) -> set[int]:
+        """Pages wholly below some resident slot's host-computed write
+        cursor (len(prompt) + len(generated) - 1).  Sealed content is
+        immutable: a slot's cursor only grows during its residency (a
+        speculative rollback rewinds within the round, never below a chunk
+        boundary), and shared pages sit below every sharer's cursor."""
+        sealed: set[int] = set()
+        for slot, r in self._live():
+            cur = len(r.prompt) + len(r.generated) - 1
+            sealed.update(self._slot_pages[slot][:cur // self.page_size])
+        return sealed
+
+    @torch.inference_mode()
+    def _corrupt_page(self, page: int) -> None:
+        """Chaos flip: add 1 to element [..., page, 0, 0, 0] of the first
+        pool leaf (every layer's), in place on the device, as real memory
+        corruption would land."""
+        self._pool_leaves()[0][..., page, 0, 0, 0] += 1
+
+    def _integrity_sweep(self) -> list[int]:
+        """Chunk-boundary pass: stamp newly sealed pages, land any injected
+        corruption (chaos_corrupt_p), then verify every stamp.  Corruption
+        lands after stamping and before verification, so a flipped page is
+        found and healed before any later chunk reads it.  One
+        device-to-host copy (the verify's), the reference's one pull."""
+        self.stats["integrity_sweeps"] += 1
+        fp = self._fingerprint_pool()
+        new = sorted(self._sealed_pages() - self._stamped)
+        if new:
+            idx = torch.tensor(new, device=self.device)
+            with torch.inference_mode():
+                self._fp_stamp.index_copy_(0, idx, fp.index_select(0, idx))
+            self._stamped.update(new)
+        if (self._corrupt_rng is not None and self._stamped
+                and self._corrupt_rng.random() < self.cfg.chaos_corrupt_p):
+            stamped = sorted(self._stamped)
+            self._corrupt_page(
+                stamped[int(self._corrupt_rng.integers(len(stamped)))])
+            self.stats["injected_corruptions"] += 1
+            fp = self._fingerprint_pool()     # the pool's bytes changed
+        return self._verify(fp)
+
+    def verify_pages(self) -> list[int]:
+        """Re-fingerprint every stamped page; quarantine mismatches and
+        heal their slots by recompute restore (DESIGN.md §5.6).  Returns
+        the corrupted page ids."""
+        if not self.paged or not self._stamped:
+            return []
+        return self._verify(self._fingerprint_pool())
+
+    def _verify(self, fp: torch.Tensor) -> list[int]:
+        """Hold the stamps against ``fp`` (one device-to-host copy of a
+        flag a page).  A corrupted page is quarantined in the allocator (a
+        held one is doomed: it leaves circulation at its last release),
+        then every slot mapping it is preempted, so re-admission recomputes
+        its KV into healthy pages, oldest first back at the queue front.  A
+        corrupted warm page has no sharers: its warm subtree leaves the
+        trie, clean pages to the free list, corrupted ones to quarantine."""
+        with torch.inference_mode():
+            differs = (fp != self._fp_stamp).any(dim=1).cpu().numpy()
+        self.stats["host_syncs"] += 1
+        bad = sorted(p for p in self._stamped if differs[p])
+        if not bad:
+            return []
+        badset = set(bad)
+        for p in bad:
+            if p not in self._stamped:
+                continue          # handled with a warm subtree above it
+            if self._warm_tier and self.allocator.is_warm(p):
+                sub = self.prefix.subtree_pages(p)
+                self.prefix.evict(sub)
+                self._stamped.difference_update(sub)
+                clean = [q for q in sub if q not in badset]
+                for q in sub:
+                    if q in badset:
+                        self.stats["corrupted_pages"] += 1
+                        self.allocator.quarantine(q)
+                if clean:
+                    self.allocator.reclaim(clean)
+                    self.stats["warm_reclaimed"] += len(clean)
+                self.adaptive.note_reclaimed(sub)
+                continue
+            self._stamped.discard(p)
+            self.stats["corrupted_pages"] += 1
+            self.allocator.quarantine(p)
+        victims = [r for slot, r in self._live()
+                   if badset & set(self._slot_pages[slot])]
+        # Healing is exempt from the once-only victim guard: a slot that
+        # reads poisoned KV is restored whatever its preemption history.
+        for r in sorted(victims, key=lambda r: r.admit_seq, reverse=True):
+            self.stats["healed_requests"] += 1
+            self._preempt(r)
+        if self._chaos or self._strict:
+            self.check_invariants()
+        return bad
+
+    # -- snapshot / restore (DESIGN.md §5.6) ---------------------------------
+
+    def _geometry(self) -> dict:
+        return {"slots": self.slots, "max_len": self.max_len,
+                "paged": self.paged,
+                "page_size": self.page_size if self.paged else None,
+                "n_pages": self.n_pages if self.paged else None}
+
+    def snapshot(self, path: str) -> dict:
+        """Write host-side truth to ``path`` (atomic, checksummed), in the
+        reference's format.  Nothing on the device is saved: every KV byte
+        is recomputable from (prompt, emitted tokens, seed, token index),
+        so in-flight requests are recorded as re-queueable work and
+        terminal ones keep their streams.  The journal offset recorded
+        here is where replay resumes after an unplanned kill.  Call it
+        between steps (chunk boundaries), where host state is consistent."""
+        self.stats["snapshots"] += 1
+        residents = sorted((r for _, r in self._live()),
+                           key=lambda r: r.admit_seq)
+        queued = list(self.queue)
+        terminal = [r for r in self._by_id.values() if r.done]
+        # Residents re-enter as "preempted": re-queued work with tokens
+        # already emitted; the crash does not spend their preemption guard.
+        records = ([snap.request_record(r) for r in terminal]
+                   + [snap.request_record(r, status="preempted")
+                      for r in residents]
+                   + [snap.request_record(r) for r in queued])
+        alloc = None
+        if self.paged:
+            alloc = {
+                "refcounts": {str(p): self.allocator.ref_count(p)
+                              for p in sorted(self.allocator.held_pages)},
+                "quarantined": sorted(self.allocator.quarantined_pages),
+                "doomed": sorted(self.allocator.doomed_pages),
+                "page_tables": {str(slot): list(self._slot_pages[slot])
+                                for slot in range(self.slots)
+                                if self._slot_pages[slot]},
+            }
+        payload = {
+            "cfg": snap.cfg_fingerprint(self.cfg),
+            "geometry": self._geometry(),
+            "counters": {"next_id": self._next_id,
+                         "admit_seq": self._admit_seq},
+            "stats": dict(self.stats),
+            # Learned adaptive class state survives a restore; warm pages
+            # do not (their KV died with the process).
+            "adaptive": (self.adaptive.snapshot_state()
+                         if self.adaptive is not None else None),
+            "requests": records,
+            "allocator": alloc,
+            "journal": {"path": self.journal_path,
+                        "offset": (self.journal.offset()
+                                   if self.journal is not None else 0)},
+        }
+        snap.write_snapshot(path, payload)
+        return {"path": path, "requests": len(records),
+                "in_flight": len(residents) + len(queued)}
+
+    @staticmethod
+    def _audit_snapshot(payload: dict) -> None:
+        """Raise unless the snapshot's refcounts equal the number of page
+        tables mapping each page: one that disagrees was written corrupt
+        and must not restore."""
+        alloc = payload.get("allocator")
+        if not alloc:
+            return
+        mapped: collections.Counter[int] = collections.Counter()
+        for pages in alloc["page_tables"].values():
+            mapped.update(pages)
+        refs = {int(p): n for p, n in alloc["refcounts"].items()}
+        if refs != dict(mapped):
+            raise SnapshotError("inconsistent", (
+                "snapshot refcounts disagree with its page tables: "
+                f"refcounts={refs} mapped={dict(mapped)}"))
+
+    @staticmethod
+    def _request_from_record(rec: dict, now: float) -> Request:
+        r = Request(prompt=np.asarray(rec["prompt"], np.int32),
+                    max_new_tokens=rec["max_new_tokens"], seed=rec["seed"],
+                    id=rec["id"], deadline_s=rec["deadline_s"],
+                    max_queue_wait_s=rec["max_queue_wait_s"])
+        r.generated = list(rec["generated"])
+        r.status = rec["status"]
+        r.preempted_n = rec["preempted_n"]
+        r.cancel_requested = rec["cancel_requested"]
+        r.ttft_s = rec["ttft_s"]
+        r.queue_wait_s = rec["queue_wait_s"]
+        r.done = rec["status"] in ("finished", "cancelled", "expired")
+        if not r.done:
+            # SLO clocks restart at recovery: time spent dead is not
+            # charged to the request's deadline.
+            r.submit_t = now
+        return r
+
+    @torch.inference_mode()
+    def _hard_reset(self) -> None:
+        """Return every piece of state to the just-constructed blank: the
+        device buffers in place (the cache's leaves zeroed, its page table
+        unmapped, the loop vectors, outputs and history zeroed), so the
+        captured chunk and the rebinding guard stay valid; and on the host
+        the slots, queue, allocator, trie, stamps, adaptive state and run
+        counters (the capture's own fields are the engine's and stay)."""
+        for path, leaf in _leaves(self.cache):
+            if path == ("pages",):
+                leaf.fill_(-1)
+            else:
+                leaf.zero_()
+        bufs = [self.cur_tok, self.remaining, self.seeds, self.tok_idx,
+                self._out]
+        if self.spec:
+            bufs += [self.hist, self.hist_len, self._spec_out]
+        for t in bufs:
+            t.zero_()
+        b = self.slots
+        self.slot_req = [None] * b
+        self.queue = collections.deque()
+        self._by_id = {}
+        self._next_id = 0
+        self._admit_seq = 0
+        self._dirty_slots = set()
+        self._stamped = set()
+        if self.paged:
+            self.allocator = self._make_allocator()
+            self.page_table = np.full((b, self.pages_per_slot), -1, np.int32)
+            self._slot_pages = [[] for _ in range(b)]
+            if self.prefix is not None:
+                self.prefix = PrefixIndex(self.page_size)
+        if self.adaptive is not None:
+            a = self.adaptive
+            self.adaptive = AdaptivePolicy(
+                warm_pages=a.warm_pages, replan_every=a.replan_every,
+                page_size=a.page_size, spec_k=a.spec_k, pinned=a.pinned)
+        for k in self.stats:
+            if k not in _ENGINE_STATS:
+                self.stats[k] = 0
+
+    def restore(self, path: str | None = None) -> dict:
+        """Rebuild the engine from a snapshot and/or the request journal.
+
+        Validates before discarding anything: a corrupt or mismatched
+        snapshot raises a typed ``SnapshotError`` and leaves the live
+        engine untouched.  Then resets (``_hard_reset``), re-installs the
+        quarantine, re-enqueues every in-flight request (the snapshot's
+        residents first, in admission order, then its queue) and replays
+        the journal past the snapshot's offset: unknown submits re-enter
+        the queue, journaled terminal events re-retire their requests with
+        the tokens they had emitted.  ``path=None`` replays the whole
+        journal.  Device KV is rebuilt by the ordinary recompute prefill,
+        so the restored streams are the uninterrupted run's."""
+        if path is None and self.journal_path is None:
+            raise SnapshotError(
+                "no_source", "restore() needs a snapshot path or a journal")
+        payload = None
+        if path is not None:
+            payload = snap.load_snapshot(path)
+            mine = snap.cfg_fingerprint(self.cfg)
+            theirs = payload.get("cfg") or {}
+            if theirs != mine:
+                drift = sorted(k for k in set(mine) | set(theirs)
+                               if mine.get(k) != theirs.get(k))
+                raise SnapshotError("config_mismatch", (
+                    f"snapshot was taken under a different config: {drift}"))
+            if payload.get("geometry") != self._geometry():
+                raise SnapshotError("geometry_mismatch", (
+                    f"snapshot geometry {payload.get('geometry')} != "
+                    f"engine geometry {self._geometry()}"))
+            self._audit_snapshot(payload)
+        self._hard_reset()
+        now = time.perf_counter()
+        restored = replayed = 0
+        journal_offset = 0
+        self._replaying = True
+        try:
+            if payload is not None:
+                self._next_id = payload["counters"]["next_id"]
+                self._admit_seq = payload["counters"]["admit_seq"]
+                for k, v in payload["stats"].items():
+                    if k in self.stats and k not in _ENGINE_STATS:
+                        self.stats[k] = v
+                if self.adaptive is not None and payload.get("adaptive"):
+                    self.adaptive.restore_state(payload["adaptive"])
+                alloc = payload.get("allocator")
+                if self.paged and alloc:
+                    # The holders of doomed pages died with the crash: they
+                    # are quarantined outright.
+                    for p in alloc["quarantined"] + alloc["doomed"]:
+                        self.allocator.quarantine(p)
+                for rec in payload["requests"]:
+                    r = self._request_from_record(rec, now)
+                    self._by_id[r.id] = r
+                    if not r.done:
+                        self.queue.append(r)
+                        restored += 1
+                journal_offset = (payload.get("journal") or {}).get(
+                    "offset", 0)
+            if (self.journal_path is not None
+                    and os.path.exists(self.journal_path)):
+                for ev in snap.RequestJournal.replay(self.journal_path,
+                                                     journal_offset):
+                    replayed += 1
+                    if ev.get("ev") == "submit":
+                        if ev["id"] in self._by_id:
+                            continue
+                        r = Request(prompt=np.asarray(ev["prompt"], np.int32),
+                                    max_new_tokens=ev["max_new_tokens"],
+                                    seed=ev["seed"], id=ev["id"],
+                                    deadline_s=ev["deadline_s"],
+                                    max_queue_wait_s=ev["max_queue_wait_s"])
+                        r.status = "queued"
+                        r.submit_t = now
+                        self._by_id[r.id] = r
+                        self.queue.append(r)
+                        restored += 1
+                    elif ev.get("ev") == "terminal":
+                        r = self._by_id.get(ev["id"])
+                        if r is None:
+                            continue
+                        if not r.done and any(q is r for q in self.queue):
+                            self.queue = collections.deque(
+                                q for q in self.queue if q is not r)
+                            restored -= 1
+                        r.generated = list(ev["generated"])
+                        r.status = ev["status"]
+                        r.done = True
+        finally:
+            self._replaying = False
+        self.stats["restores"] += 1
+        if self._chaos or self._strict:
+            self.check_invariants()
+        return {"restored": restored, "replayed_events": replayed,
+                "terminal": sum(1 for r in self._by_id.values() if r.done)}
+
+    # -- scheduler loop ------------------------------------------------------
+
     def step(self) -> bool:
         """One scheduler tick: lifecycle sweep (cancel/expire), admission
-        (with preemption), then one decode chunk if anything is resident.
-        Returns True while work remains."""
+        (with preemption), one decode chunk if anything is resident, then
+        the integrity sweep and a journal flush, so every step ends on a
+        durable, verified chunk boundary.  Returns True while work
+        remains."""
         self._sweep_lifecycle()
         self._admit_wave()
         if any(r is not None for r in self.slot_req):
             self._run_chunk()
+        if self.integrity:
+            self._integrity_sweep()
+        if self.journal is not None:
+            self.journal.flush()
+        if (self.cfg.chaos_crash_after_wave > 0
+                and self.stats["admission_waves"]
+                >= self.cfg.chaos_crash_after_wave):
+            # Injected kill (DESIGN.md §5.6): the journal is flushed and the
+            # host state sits at a chunk boundary, what a kill between
+            # steps leaves on disk; recovery restores a fresh engine.
+            raise ChaosCrash(self.stats["admission_waves"])
         return bool(self.queue) or any(r is not None for r in self.slot_req)
 
     def _progress_marker(self) -> tuple:
@@ -1413,6 +1936,11 @@ class ServeEngine:
                     "resident": len(self._live()),
                     "free_pages": (self.allocator.free_count()
                                    if self.paged else None),
+                    "usable_pages": (self.allocator.usable_pages()
+                                     if self.paged else None),
+                    "quarantined": (len(self.allocator.quarantined_pages)
+                                    + len(self.allocator.doomed_pages)
+                                    if self.paged else 0),
                     "chaos_alloc_fail_p": self.cfg.chaos_alloc_fail_p,
                     "chaos_share_fail_p": self.cfg.chaos_share_fail_p,
                 }

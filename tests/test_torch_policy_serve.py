@@ -25,11 +25,10 @@ from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 torch.set_num_threads(1)
 ARCHS = ["qwen2.5-32b", "yi-9b", "zamba2-2.7b", "mamba2-1.3b", "olmoe-1b-7b"]
-# The report sections of the features the port has; KV integrity's comes
-# with its slice.
+# The reference's report sections, every one of which the port now has.
 SHARED = ("kv_bytes_per_layer", "kv_residency", "cache_layout", "sampling",
           "plan_cache", "speculative", "paged_kv", "prefix_sharing",
-          "adaptive", "lifecycle", "decode_attention")
+          "adaptive", "lifecycle", "integrity", "decode_attention")
 
 _PARAMS = {}
 

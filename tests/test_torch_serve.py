@@ -1,6 +1,7 @@
 """The port's ServeEngine held against the JAX ServeEngine (greedy streams
-equal), its own scheduling invariances, its refusals, and the rule that
-the port imports nothing of JAX or the JAX package."""
+equal), its own scheduling invariances, its refusals and the serving knobs
+it once refused, and the rule that the port imports nothing of JAX or the
+JAX package."""
 import ast
 import dataclasses
 import pathlib
@@ -17,7 +18,9 @@ from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as JaxEngine  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import get_config  # noqa: E402
+from repro_torch.serve.chaos import ChaosCrash  # noqa: E402
 from repro_torch.serve.engine import AdmissionReject, Request, ServeEngine  # noqa: E402
+from repro_torch.serve.snapshot import RequestJournal  # noqa: E402
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -148,9 +151,28 @@ def test_no_device_without_cuda_raises(params):
     dict(kv_integrity=True), dict(sampling="top_p"),
 ])
 def test_unported_config_raises(params, change):
-    with pytest.raises(NotImplementedError):
-        ServeEngine(_port(**change), params, batch_slots=2, max_len=64,
-                    device="cpu")
+    """The knobs the engine once refused (page corruption, crash points,
+    KV integrity, non-greedy sampling) now construct and serve; of them
+    only the crash point raises, ChaosCrash after its wave.  Integrity
+    sweeps (with or without injected corruption) keep the greedy streams;
+    top-p streams run their full budgets inside the vocabulary."""
+    eng = ServeEngine(_port(**change), params, batch_slots=2, max_len=64,
+                      chunk_size=6, device="cpu")
+    reqs = _requests(Request)
+    if "chaos_crash_after_wave" in change:
+        with pytest.raises(ChaosCrash):
+            eng.run(reqs)
+        return
+    eng.run(reqs)
+    assert all(len(r.generated) == r.max_new_tokens
+               and all(0 <= t < eng.cfg.padded_vocab for t in r.generated)
+               for r in reqs)
+    if "sampling" in change:
+        assert eng.policy_report()["sampling"] == "top_p"
+    else:
+        assert [r.generated for r in reqs] == _serve(_port(), params)[0]
+        assert eng.stats["integrity_sweeps"] > 0
+        assert eng.policy_report()["integrity"]["enabled"]
 
 
 @pytest.mark.parametrize("change, section, want", [
@@ -172,10 +194,22 @@ def test_ported_config_constructs_and_reports(params, change, section, want):
     assert [r.generated for r in reqs] == _serve(_port(), params)[0]
 
 
-def test_journal_raises(params):
-    with pytest.raises(NotImplementedError, match="journal_path"):
+def test_journal_raises(params, tmp_path):
+    """A journal that cannot be opened raises at construction; one that
+    can records every submission and every terminal stream."""
+    with pytest.raises(OSError):
         ServeEngine(_port(), params, batch_slots=2, max_len=64,
-                    journal_path="requests.jsonl", device="cpu")
+                    journal_path=str(tmp_path / "absent" / "requests.jsonl"),
+                    device="cpu")
+    path = str(tmp_path / "requests.jsonl")
+    eng = ServeEngine(_port(), params, batch_slots=2, max_len=64,
+                      journal_path=path, device="cpu")
+    reqs = eng.run(_requests(Request))
+    events = list(RequestJournal.replay(path))
+    assert [e["id"] for e in events if e["ev"] == "submit"] == [
+        r.id for r in reqs]
+    assert {e["id"]: e["generated"] for e in events
+            if e["ev"] == "terminal"} == {r.id: r.generated for r in reqs}
 
 
 def _imports(path):
