@@ -7,7 +7,11 @@ biases, ``embed.tok`` and ``embed.unembed``; a Mamba-2 layer's ``{"ln",
 "mamba": {in_proj, conv_w, conv_b, dt_bias, A_log, D, norm_w,
 out_proj}}``; an MoE layer's ``moe: {router, wg, wu, wd}``), with the
 stacked ``layers`` leaves (leading ``L`` axis) split into a per-layer list
-and the hybrid's ``shared`` block (not stacked) carried whole.  Each leaf keeps its dtype (the Mamba-2 fp32
+and the hybrid's ``shared`` block (not stacked) carried whole.  whisper's
+stacked ``enc_layers`` and ``dec_layers`` become per-layer lists beside
+``dec_pos`` and ``ln_enc``; the VLM's ``self_layers`` (g, span, ...) become
+g lists of span layers, its ``cross_layers`` (g, ...) a list, beside
+``vis_proj``.  Each leaf keeps its dtype (the Mamba-2 fp32
 leaves and the MoE router stay fp32 in a bf16 model); bfloat16 leaves
 cross through float32, which is exact.
 """
@@ -33,29 +37,46 @@ def _tree(x, fn):
     return fn(x)
 
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+def _unstack(stacked, dims: tuple, device):
+    """A stacked subtree (leading axes ``dims``) as nested lists of
+    subtrees, one list level an axis."""
+    if not dims:
+        return _tree(stacked, lambda x: _leaf(x, device))
+    return [_unstack(_tree(stacked, lambda x, i=i: x[i]), dims[1:], device)
+            for i in range(dims[0])]
+
+
+# The top-level entries each family's parameters hold; the stacked layer
+# subtrees among them are split along their leading axes.
+_FAMILIES = {
+    "dense": ("embed", "ln_f", "layers"),
+    "moe": ("embed", "ln_f", "layers"),
+    "ssm": ("embed", "ln_f", "layers"),
+    "hybrid": ("embed", "ln_f", "layers", "shared"),
+    "encdec": ("embed", "dec_pos", "enc_layers", "dec_layers", "ln_enc",
+               "ln_f"),
+    "vlm": ("embed", "ln_f", "self_layers", "cross_layers", "vis_proj"),
+}
+
+
+def _stack_dims(cfg: ModelConfig) -> dict:
+    g = cfg.n_layers // max(cfg.cross_attn_every, 1)
+    return {"layers": (cfg.n_layers,), "dec_layers": (cfg.n_layers,),
+            "enc_layers": (cfg.enc_layers,),
+            "self_layers": (g, cfg.cross_attn_every - 1),
+            "cross_layers": (g,)}
 
 
 def from_jax(params, cfg: ModelConfig, device=None):
-    """The reference's dense, MoE, Mamba-2 or Zamba2 params -> the port's,
-    on ``device``."""
-    if cfg.family not in _FAMILIES or "layers" not in params:
-        raise NotImplementedError(
-            f"from_jax bridges the {', '.join(_FAMILIES)} families only, "
-            f"got {cfg.family!r}")
+    """The reference's params of any family the port serves -> the
+    port's, on ``device``."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"from_jax: unknown family {cfg.family!r}")
     device = resolve_device(device)
-    stacked = _tree(params["layers"], np.asarray)
-    out = {
-        "embed": _tree(params["embed"], lambda x: _leaf(x, device)),
-        "ln_f": _tree(params["ln_f"], lambda x: _leaf(x, device)),
-        "layers": [
-            _tree(stacked, lambda x, i=i: _leaf(x[i], device))
-            for i in range(cfg.n_layers)
-        ],
-    }
-    if cfg.family == "hybrid":
-        out["shared"] = _tree(params["shared"], lambda x: _leaf(x, device))
-    return out
+    dims = _stack_dims(cfg)
+    return {key: _unstack(_tree(params[key], np.asarray), dims.get(key, ()),
+                          device)
+            for key in _FAMILIES[cfg.family]}
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None):

@@ -25,8 +25,14 @@ Differences from the reference, all deliberate:
   (N + 1, page_size, ...) with sink page N.  Dropped rows are redirected
   to the sink by a static-shape ``torch.where``; nothing ever reads it,
   since readers take the public ``[:, :S]`` / ``[:N]`` views.
-* Cross-attention, the loss and the scan-unroll switch are not ported
-  yet.
+* **Cross-attention reads its fixed-source K/V only.**  The reference's
+  ``apply_attn`` projects ``kv_src`` through ``wk``/``wv`` and then takes
+  the cached K/V in their place (XLA drops the dead work); here a cross
+  cache skips those projections.  On the kernel routes the encoder's and
+  cross-attention's s > 1 blocks run the flash kernel with
+  ``causal=False`` and a cross decode step the dense split-KV decode
+  kernel; the reference computes both with ``_sdpa``.
+* The loss and the scan-unroll switch are not ported yet.
 """
 from __future__ import annotations
 
@@ -418,27 +424,93 @@ def _prefill_kernel(q, kc, vc, lengths, kv_len, seg_lens, cfg, pages):
     return out.transpose(1, 2)                         # (b, s, hq, dh)
 
 
+def _cross_decode_kernel(q, kc, vc):
+    """The s == 1 step of cross-attention over fixed-source K/V
+    (b, t, hkv, dh): the dense split-KV decode kernel over the whole
+    source, read by strides.  Its split count is planned over the source
+    length, never the engine's baked ``decode_splits``, which belongs to
+    the self-attention pool."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    b, t = kc.shape[:2]
+    bkv = min(512, t)
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    out = dec_ops.decode_attention(
+        q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_len, bkv=bkv,
+        splits=dec_ops.plan_splits(t, bkv))
+    return out[:, None]                                # (b, 1, hq, dh)
+
+
+def _source_attention(q, k, v, cfg, causal: bool, seg_lens):
+    """Attention with no self-KV cache: the encoder's bidirectional
+    layers and cross-attention over a fixed source (b, t, hkv, dh).  On
+    the kernel routes an s > 1 block runs the flash kernel (query rows past
+    ``seg_lens`` come out as zeros), a cross s == 1 step the dense decode
+    kernel; ``"xla"`` stays plain."""
+    s = q.shape[1]
+    if cfg.decode_kernel == "xla":
+        return _sdpa(q, k, v, causal=causal, q_offset=0)
+    if s == 1 and not causal:
+        return _cross_decode_kernel(q, k, v)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    out = fa_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 q_len=seg_lens)
+    return out.transpose(1, 2)
+
+
 def apply_attn(
     p: Params,
     x: torch.Tensor,                  # (b, s, d)
     cfg: ModelConfig,
     positions: torch.Tensor,          # (b, s)
-    cache: Params,                    # {"k","v" (with sink), "lengths", ["pages"]}
+    cache: Params | None = None,      # self: {"k","v" (with sink), "lengths",
+                                      # ["pages"]}; cross: {"k","v"}
     seg_lens: torch.Tensor | None = None,  # (b,) valid new tokens per slot
+    *,
+    kv_src: torch.Tensor | None = None,    # cross-attention source (b, t, d)
+    causal: bool = True,
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Causal self-attention over a ragged KV cache.  Appends this block's
-    K/V to the cache buffers in place and returns the (b, s, d) output."""
+    """GQA attention, returning the (b, s, d) output.
+
+    * A self cache (it has ``"lengths"``): causal attention over the
+      ragged cache, this block's K/V appended to its buffers in place.
+    * A cross cache (no ``"lengths"``): the fixed-source K/V it holds,
+      nothing appended.  The K/V projections of ``kv_src`` are not
+      computed (the reference computes and discards them).
+    * No cache: attention over ``x`` (or ``kv_src``), bidirectional when
+      ``causal`` is False (the encoder).
+
+    RoPE applies to self-attention only (``use_rope`` and no ``kv_src``);
+    cross-attention is never causal."""
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    cross_cached = cache is not None and "lengths" not in cache
     q = (x @ p["wq"].reshape(d, hq * dh)).reshape(b, s, hq, dh)
-    k = (x @ p["wk"].reshape(d, hkv * dh)).reshape(b, s, hkv, dh)
-    v = (x @ p["wv"].reshape(d, hkv * dh)).reshape(b, s, hkv, dh)
     if cfg.qkv_bias:
         q = q + p["bq"]
+    rotate = use_rope and kv_src is None
+    if rotate:
+        q = rope(q, positions, cfg.rope_theta)
+    if cross_cached:
+        out = _source_attention(q, cache["k"], cache["v"], cfg, False,
+                                seg_lens)
+        return out.reshape(b, s, hq * dh) @ p["wo"].reshape(hq * dh, d)
+    src = x if kv_src is None else kv_src
+    t = src.shape[1]
+    k = (src @ p["wk"].reshape(d, hkv * dh)).reshape(b, t, hkv, dh)
+    v = (src @ p["wv"].reshape(d, hkv * dh)).reshape(b, t, hkv, dh)
+    if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if rotate:
+        k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = _source_attention(q, k, v, cfg, causal and kv_src is None,
+                                seg_lens)
+        return out.reshape(b, s, hq * dh) @ p["wo"].reshape(hq * dh, d)
 
     lengths = cache["lengths"]
     pages = cache.get("pages")
@@ -612,10 +684,19 @@ class ModelApply:
 
     config: ModelConfig
     init: Any            # (generator) -> params
-    init_cache: Any      # (params, batch, max_len, n_pages=None) -> cache
+    init_cache: Any      # (params, batch, max_len, n_pages=None, **source)
+                         # -> cache; source: vis= (VLM), frames= (whisper)
     prefill: Any         # (params, cache, tokens, seg_lens, all_logits)
     decode_step: Any     # (params, cache, tokens, seg_lens)
     reset_slots: Any = None  # (cache, mask (b,) bool) -> cache, in place
+    # The path of the self-attention K/V subtree ({"k", "v"}) in the cache:
+    # the page pool of a paged cache, the leaves the page table addresses.
+    # None: no KV (mamba2).
+    kv_pool: tuple | None = None
+    # (params, cache, **source) -> None: recompute the fixed-source leaves
+    # (cross K/V, and what they are made from) in place, as init_cache
+    # made them.  None: the cache has none.
+    fill_source: Any = None
 
 
 def reset_lengths(cache: Params, mask: torch.Tensor) -> Params:

@@ -16,19 +16,19 @@ _CONFIG_MODULES = {
     "zamba2-2.7b": "repro_torch.configs.zamba2_27b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "llama-3.2-vision-90b": "repro_torch.configs.llama32_vision_90b",
 }
 
 ARCHS = tuple(_CONFIG_MODULES)
 
-# Families the port does not run yet, with the title of the ROADMAP.md
-# queue 1 item porting them (titles, not item numbers, which shift).
-_WHISPER_VLM = "models/whisper.py (encdec) and the VLM cross-attention layers"
-_PENDING = {"encdec": _WHISPER_VLM, "vlm": _WHISPER_VLM}
 _MODULES = {
     "dense": "repro_torch.models.transformer",
     "moe": "repro_torch.models.transformer",
     "ssm": "repro_torch.models.mamba2",
     "hybrid": "repro_torch.models.zamba2",
+    "encdec": "repro_torch.models.whisper",
+    "vlm": "repro_torch.models.transformer",
 }
 
 
@@ -41,11 +41,6 @@ def build_model(cfg: ModelConfig, device=None) -> cm.ModelApply:
     """The model for ``cfg`` on ``device`` (default: the CUDA card; raises
     without one unless ``device="cpu"`` is given)."""
     if cfg.family not in _MODULES:
-        if cfg.family in _PENDING:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: ROADMAP.md "
-                f"queue 1, the item {_PENDING[cfg.family]!r}"
-            )
         raise ValueError(f"unknown family: {cfg.family}")
     module = importlib.import_module(_MODULES[cfg.family])
     return module.build(cfg, resolve_device(device))

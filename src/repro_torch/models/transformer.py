@@ -1,11 +1,18 @@
-"""Decoder-only transformer LM, dense GQA and MoE families (the serving
+"""Decoder-only transformer LM: dense GQA, MoE and the VLM with
+interleaved cross-attention to stub vision-patch embeddings (the serving
 path of ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors in the reference's layouts, with
 ``params["layers"]`` a list of per-layer dicts (the reference stacks them
 on a leading axis for ``lax.scan``; here a Python loop walks the layers).
-The KV cache stacks layers on a leading axis, and each layer's buffers are
-views of it, updated in place.
+A VLM (``cfg.cross_attn_every``) has instead ``self_layers``, g lists of
+``cross_attn_every - 1`` layers, ``cross_layers`` (attention + MLP, never
+MoE), one closing each group, and ``vis_proj``.  The KV cache stacks
+layers on leading axes ((L,) or, for the VLM's self pool, (g, span)), and
+each layer's buffers are views of it, updated in place.  The VLM's cross
+K/V, one (b, n_vis, hkv, dh) pair a cross layer, are computed from the
+projected vision tokens when the cache is made (``fill_source``) and only
+read after.
 """
 from __future__ import annotations
 
@@ -18,13 +25,13 @@ from repro_torch.device import torch_dtype
 from repro_torch.models import common as cm
 
 
-def _layer_init(gen, cfg: ModelConfig, device):
+def _layer_init(gen, cfg: ModelConfig, device, cross: bool = False):
     p = {
         "ln1": cm.norm_init(cfg, device),
         "attn": cm.attn_init(gen, cfg, device),
         "ln2": cm.norm_init(cfg, device),
     }
-    if cfg.family == "moe":
+    if cfg.family == "moe" and not cross:
         p["moe"] = cm.moe_init(gen, cfg, device)
     else:
         p["mlp"] = cm.mlp_init(gen, cfg, device)
@@ -34,11 +41,27 @@ def _layer_init(gen, cfg: ModelConfig, device):
 def init(gen: torch.Generator, cfg: ModelConfig, device):
     """Random parameters from the reference's distributions (not its
     numbers: torch and JAX generators differ)."""
-    return {
-        "embed": cm.embed_init_params(gen, cfg, device),
-        "ln_f": cm.norm_init(cfg, device),
-        "layers": [_layer_init(gen, cfg, device) for _ in range(cfg.n_layers)],
-    }
+    params = {"embed": cm.embed_init_params(gen, cfg, device),
+              "ln_f": cm.norm_init(cfg, device)}
+    if cfg.cross_attn_every:
+        g, span = _groups(cfg)
+        params["self_layers"] = [[_layer_init(gen, cfg, device)
+                                  for _ in range(span)] for _ in range(g)]
+        params["cross_layers"] = [_layer_init(gen, cfg, device, cross=True)
+                                  for _ in range(g)]
+        params["vis_proj"] = cm.dense_init(
+            gen, (cfg.d_model, cfg.d_model), cfg.d_model,
+            torch_dtype(cfg.dtype), device)
+    else:
+        params["layers"] = [_layer_init(gen, cfg, device)
+                            for _ in range(cfg.n_layers)]
+    return params
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """A VLM's (groups, self layers a group): each group is ``span`` self
+    layers then one cross layer."""
+    return (cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1)
 
 
 def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
@@ -52,19 +75,44 @@ def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
     return x + m
 
 
+def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache):
+    x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
+                          positions, cache, kv_src=vis, causal=False,
+                          use_rope=False)
+    return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg)
+
+
 def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
                   seg_lens=None):
     """Loop over layers threading each layer's KV buffers (views of the
     stacked cache, written in place).  ``cache["lengths"]`` is the (b,)
-    ragged cursor shared by every layer."""
+    ragged cursor shared by every layer.  A VLM runs its groups: ``span``
+    self layers over the (g, span) pool, then the group's cross layer over
+    its fixed-source K/V."""
     lengths = cache["lengths"]
     pages = cache.get("pages")
-    layers = cache["layers"]
-    for i, lp in enumerate(params["layers"]):
-        lc = {"k": layers["k"][i], "v": layers["v"][i], "lengths": lengths}
+
+    def self_kv(kv, *at):
+        lc = {"k": kv["k"][at], "v": kv["v"][at], "lengths": lengths}
         if pages is not None:
             lc["pages"] = pages
-        x = _self_block(lp, x, cfg, positions, lc, seg_lens=seg_lens)
+        return lc
+
+    if cfg.cross_attn_every:
+        layers = cache["layers"]
+        cross = layers["cross"]
+        for gi, group in enumerate(params["self_layers"]):
+            for j, lp in enumerate(group):
+                x = _self_block(lp, x, cfg, positions,
+                                self_kv(layers["self"], gi, j),
+                                seg_lens=seg_lens)
+            x = _cross_block(params["cross_layers"][gi], x, cfg, positions,
+                             cache["vis"], {"k": cross["k"][gi],
+                                            "v": cross["v"][gi]})
+    else:
+        for i, lp in enumerate(params["layers"]):
+            x = _self_block(lp, x, cfg, positions,
+                            self_kv(cache["layers"], i), seg_lens=seg_lens)
     new_cache = dict(cache)
     new_cache["lengths"] = (
         lengths + (x.shape[1] if seg_lens is None else seg_lens)
@@ -73,24 +121,60 @@ def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
-               n_pages=None, *, device):
+               n_pages=None, *, device, vis=None):
     """Contiguous ring (L, b, max_len + 1, hkv, dh) or paged pool
     (L, N + 1, page_size, hkv, dh) plus table; the extra unit is the sink
-    of dropped rows (models.common)."""
-    del params
-    L, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
+    of dropped rows (models.common).  A VLM's self pool has lead axes
+    (g, span), and ``vis`` (b, n_vis, d) gives its cross K/V
+    (g, b, n_vis, hkv, dh) and the projected ``"vis"`` leaf."""
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim_
+    dt = torch_dtype(cfg.dtype)
+    lead = _groups(cfg) if cfg.cross_attn_every else (cfg.n_layers,)
     cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
     if cfg.cache_layout == "paged":
-        kv, pages = cm.paged_kv_buffers((L,), batch, max_len, cfg, n_pages,
+        kv, pages = cm.paged_kv_buffers(lead, batch, max_len, cfg, n_pages,
                                         device=device)
         cache["pages"] = pages
     else:
-        shape = (L, batch, max_len + 1, hkv, dh)
-        dt = torch_dtype(cfg.dtype)
+        shape = (*lead, batch, max_len + 1, hkv, dh)
         kv = {"k": torch.zeros(shape, dtype=dt, device=device),
               "v": torch.zeros(shape, dtype=dt, device=device)}
-    cache["layers"] = kv
+    if not cfg.cross_attn_every:
+        cache["layers"] = kv
+        return cache
+    if vis is None:
+        raise ValueError("a VLM cache needs the vision tokens (vis=)")
+    g = lead[0]
+    t = vis.shape[1]
+    shape = (g, batch, t, hkv, dh)
+    cache["layers"] = {
+        "self": kv,
+        "cross": {"k": torch.empty(shape, dtype=dt, device=device),
+                  "v": torch.empty(shape, dtype=dt, device=device)}}
+    cache["vis"] = torch.empty((batch, t, cfg.d_model), dtype=dt,
+                               device=device)
+    fill_source(params, cache, cfg, vis=vis)
     return cache
+
+
+def fill_source(params, cache, cfg: ModelConfig, vis):
+    """Write the VLM's fixed-source leaves in place: ``"vis"`` = vis @
+    vis_proj and each cross layer's K/V (plus the QKV bias when
+    ``cfg.qkv_bias``), the reference's init_cache arithmetic."""
+    dt = torch_dtype(cfg.dtype)
+    d, hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim_
+    visp = cache["vis"]
+    visp.copy_(vis.to(device=visp.device, dtype=dt) @ params["vis_proj"])
+    b, t = visp.shape[:2]
+    cross = cache["layers"]["cross"]
+    for gi, lp in enumerate(params["cross_layers"]):
+        a = lp["attn"]
+        for key in ("k", "v"):
+            kv = (visp @ a["w" + key].reshape(d, hkv * dh)).reshape(
+                b, t, hkv, dh)
+            if cfg.qkv_bias:
+                kv = kv + a["b" + key]
+            cross[key][gi].copy_(kv)
 
 
 def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
@@ -111,6 +195,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
 
 
 def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
+    vlm = bool(cfg.cross_attn_every)
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),
@@ -118,4 +203,6 @@ def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),
         reset_slots=cm.reset_lengths,
+        kv_pool=("layers", "self") if vlm else ("layers",),
+        fill_source=functools.partial(fill_source, cfg=cfg) if vlm else None,
     )

@@ -107,4 +107,5 @@ def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),
         reset_slots=cm.reset_recurrent,
+        kv_pool=("kv",),
     )

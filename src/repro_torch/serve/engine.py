@@ -106,8 +106,14 @@ integrity: the port of ``repro.serve.engine``.
   over ``core.sweep.SERVE_COMBOS``.  It moves pages and slots, never
   tokens; a revive writes the host page table, which admission copies
   into the device table in place, so nothing is recaptured.
-
-The encdec and VLM families are not ported (``build_model`` raises).
+* **Fixed-source families** (whisper's encoder-decoder, the VLM's
+  cross-attention).  ``extras`` gives each slot its source: ``frames``
+  (slots, enc_seq, d) or ``vis`` (slots, n_vis, d), numpy or tensors.  The
+  source belongs to the slot, not the request, as in the reference.  The
+  cross K/V (and the VLM's projected ``"vis"``) are static buffers,
+  filled at construction before the chunk is captured and recomputed in
+  place by a restore; prefix sharing stays off for them (a prefix's KV
+  depends on its slot's source).
 """
 from __future__ import annotations
 
@@ -250,7 +256,7 @@ class ServeEngine:
                  journal_path: str | None = None,
                  no_progress_limit: int = 256, device=None,
                  policy_engine: CachePolicyEngine | None = None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, extras: dict | None = None):
         self.device = resolve_device(device)
         _check_chaos_rates(cfg)
         if cfg.n_experts and cfg.moe_dispatch != "dense":
@@ -298,12 +304,18 @@ class ServeEngine:
             cfg = dataclasses.replace(cfg, decode_splits=self.decode_splits)
             self.cfg = cfg
         self.model = build_model(cfg, self.device)
+        # Each slot's fixed source (encoder frames, vision tokens) on the
+        # device, kept for a restore's recompute.
+        self.extras = {
+            k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.array(v))).to(self.device)
+            for k, v in (extras or {}).items()}
         # The static buffers: allocated once, in inference mode (so a write
         # outside it raises), and only ever written in place.
         with torch.inference_mode():
             self.cache = self.model.init_cache(
                 params, batch=batch_slots, max_len=max_len,
-                n_pages=self.n_pages if self.paged else None)
+                n_pages=self.n_pages if self.paged else None, **self.extras)
             # Device-resident per-slot loop state: last sampled token,
             # remaining budget (0 == parked or free), the request's
             # sampling seed and the stream index of its next token, and
@@ -330,7 +342,8 @@ class ServeEngine:
                 (batch_slots, self.pages_per_slot), -1, np.int32)
             self._slot_pages: list[list[int]] = [[] for _ in range(batch_slots)]
         # Prefix sharing rides the paged pool, pure-KV decoders only: the
-        # recurrent state of mamba2/zamba2 is not page-shareable.
+        # recurrent state of mamba2/zamba2 is not page-shareable, and an
+        # encdec/VLM prefix's KV depends on its slot's source.
         self.prefix_sharing = (bool(cfg.prefix_sharing) and self.paged
                                and cfg.family in ("dense", "moe"))
         self.prefix = (PrefixIndex(self.page_size) if self.prefix_sharing
@@ -958,6 +971,11 @@ class ServeEngine:
         capture's counter ticks are kept as the delta each replay adds."""
         dev = self.device
         stream = torch.cuda.current_stream(dev)
+        # The capture empties the allocator's cache first; so does this,
+        # so that construction's freed blocks (a whisper engine's encoder
+        # activations) do not count against the graph's pool.
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
@@ -1535,13 +1553,15 @@ class ServeEngine:
     # -- KV page integrity (DESIGN.md §5.6) ----------------------------------
 
     def _pool_leaves(self) -> list[torch.Tensor]:
-        """The paged K/V pool leaves, in the cache's order: the floating
-        buffers whose trailing axes are (n_pages + 1, page_size, heads,
-        head_dim), the sink page last."""
-        return [t for path, t in _leaves(self.cache)
-                if path[-1] in ("k", "v") and t.dim() >= 4
-                and t.shape[-4] == self.n_pages + 1
-                and t.shape[-3] == self.page_size and t.is_floating_point()]
+        """The paged K/V pool leaves: the K and V of the cache's self-KV
+        subtree (the model's ``kv_pool`` path), whose trailing axes are
+        (n_pages + 1, page_size, heads, head_dim), the sink page last.
+        Chosen by the cache's structure, never by shape: a cross K/V leaf
+        (slots, src_len, heads, head_dim) can have the pool's shape."""
+        pool = self.cache
+        for key in self.model.kv_pool:
+            pool = pool[key]
+        return [pool["k"], pool["v"]]
 
     @torch.inference_mode()
     def _fingerprint_pool(self) -> torch.Tensor:
@@ -1762,6 +1782,10 @@ class ServeEngine:
                 leaf.fill_(-1)
             else:
                 leaf.zero_()
+        if self.model.fill_source is not None:
+            # The fixed-source leaves (cross K/V, the encoder's states or
+            # the projected vision tokens) recomputed into their buffers.
+            self.model.fill_source(self.params, self.cache, **self.extras)
         bufs = [self.cur_tok, self.remaining, self.seeds, self.tok_idx,
                 self._out]
         if self.spec:

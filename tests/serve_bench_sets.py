@@ -2,8 +2,9 @@
 own functions with its seeds and constants, and the check that serves one
 set through the JAX engine and the port's engine with equal greedy
 streams.  Shared by
-``test_torch_serve_bench_sets.py`` (the attention families) and
-``test_torch_serve_bench_sets_recurrent.py`` (the recurrent ones), split
+``test_torch_serve_bench_sets.py`` (the attention families),
+``test_torch_serve_bench_sets_recurrent.py`` (the recurrent ones) and
+``test_torch_encdec_vlm.py`` (``ENCDEC_VLM``, on the family set), split
 so that each file stays near a minute on one worker.
 
 Each set is served by both engines at the bench row's geometry (slots,
@@ -36,6 +37,9 @@ def bench_module():
 
 
 BENCH = bench_module()
+# The fixed-source families: whisper-small is in the bench's family rows,
+# the VLM is served beside it on the same set.
+ENCDEC_VLM = ("whisper-small", "llama-3.2-vision-90b")
 CHAOS = dict(chaos_alloc_fail_p=0.4, chaos_preempt_p=0.25, chaos_seed=0)
 # name: (runs (each a function of the JAX config giving the bench's request
 # list), engine geometry, config knobs), from the bench row that serves
@@ -90,8 +94,10 @@ def check_set(weights, name, arch):
                                decode_kernel="xla", **knobs)
     tcfg = dataclasses.replace(get_config(arch, smoke=True),
                                decode_kernel="pallas_paged", **knobs)
-    jeng = JaxEngine(jcfg, jp, **geometry)
-    eng = ServeEngine(tcfg, tp, device="cpu", **geometry)
+    # The bench's per-slot sources (encoder frames, vision tokens).
+    extras = BENCH._family_extras(jcfg)
+    jeng = JaxEngine(jcfg, jp, extras=extras, **geometry)
+    eng = ServeEngine(tcfg, tp, device="cpu", extras=extras, **geometry)
     for build in runs:
         # The chaos set's requests carry a sampling seed, which greedy
         # decoding does not read (the port's Request has no such field).

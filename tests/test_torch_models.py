@@ -225,12 +225,12 @@ def test_init_draws_reference_distributions():
     assert abs(layer["mlp"]["wd"].std().item() - 192 ** -0.5) < 0.01
 
 
-def test_unported_family_raises():
+def test_unknown_family_raises():
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
-                              family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                              family="diffusion")
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="'encdec'"):
+    with pytest.raises(ValueError, match="'diffusion'"):
         convert.from_jax({"layers": {}}, cfg, "cpu")
 
 
