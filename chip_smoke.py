@@ -58,7 +58,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    from the same state (device busy time, idle share, peak memory,
    kernels by device time, and every kernel the profiler sees inside the
    replay) and of one admission wave;
-4. prefix sharing and preemption at the same width: 48 requests on four
+4. prefix sharing and preemption at the same width, cut to 12 of the 48
+   layers: 48 requests on four
    shared 512-token system prompts over a 256-page pool, invariants
    checked after every wave, hits and preemptions required, no page left
    held; the same requests with sharing off for comparison;
@@ -134,7 +135,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    TFLOP/s and GB/s and the time over the bound, and per shape the fastest
    mode on the card beside the fastest by the model;
 15. speculative decode at yi-9b's width (``serve_spec``) and zamba2's
-   (``serve_spec_zamba2``, the replay rollback): benchmarks/serve_bench.py's
+   cut to 18 of its 54 layers (``serve_spec_zamba2``, the replay
+   rollback): benchmarks/serve_bench.py's
    recipe scaled to the arm (64 greedy streams of seeded 64-token prompts
    from the plain graphed engine, their tails ranked by the n-gram oracle,
    the 16 most repetitive resumed 256 tokens in to decode 128), served by
@@ -145,7 +147,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    graph's; acceptance, tokens a round, ms a chunk, tok/s beside the plain
    engine's, and the streams equal to the plain engine's (counted: the
    verify is a prefill at other bf16 shapes);
-16. the adaptive serve-tier policy at yi-9b's width (``serve_adaptive``):
+16. the adaptive serve-tier policy at yi-9b's width, cut to 12 layers
+   (``serve_adaptive``):
    serve_bench's mixed trace with token and page counts x16 (a 768-token
    system prompt re-arriving beside 576-token junk prompts, 6 rounds, 2
    slots, 128 pages, 48 warm), legs static_off, static_retain,
@@ -200,9 +203,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    against plain route as in 5 (the encoder, the cross prefill and the
    cross decode on each route): fp32 logits within 2e-3, then in bf16
    the routes' gap measured beside the logits' magnitude;
+24. the trainer at minicpm-2b's full width (d 2304, 36 heads of 64, tied
+   vocab 122753 -> 122880), bf16 but where stated: ``forward_kernels``,
+   ``forward`` under no_grad on the kernel route (flash causal with no
+   cache, the fused norm) against "xla", fp32 at 4 layers within TOL and
+   bf16 at 40 layers measured, launches flash L and norms 2 L + 1;
+   ``train_remat``, one forward + backward under each activation policy
+   at 4 layers from one state and batch (saved and peak bytes above the
+   state, a layer's share beside choose_policy's 0.45 / 0.06, time beside
+   extra_flops_factor's 1.12 / 1.33, losses and gradients agreeing);
+   ``train_minicpm``, 8 train steps at full depth (2.725 B parameters,
+   4 x 2048 tokens, SAVE_DOTS, warmup-stable-decay): finite, falling
+   losses, every gradient reached, step ms, tokens/s, model TFLOP/s, peak
+   memory; ``train_resume``, loop.run 3 steps + checkpoint + restore + 3
+   against 6 straight at 2 layers (restore and batches bitwise);
 and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
 cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
-and the bound.
+and the bound.  Every phase line carries ``at_s``, the seconds since the
+script started.
 
 Then the kernels' summary line, the card's line from nvidia-smi, and the
 result line ``{"ok": true, "device": {...}}`` last.  Without a CUDA card it
@@ -214,6 +232,8 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
+import os
 import pathlib
 import re
 import statistics
@@ -263,7 +283,14 @@ TPU_SITES = {
 PREFILL_PAD = 1024          # the serve traffic's widest prefill bucket
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets ``at_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2261,7 +2288,15 @@ def _prefix_requests(Request, vocab: int, seed: int, n: int = 48):
     return out
 
 
-def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
+def _cut_depth(cfg, params, n_layers: int):
+    """``cfg`` and ``params`` cut to their first ``n_layers`` layers (a
+    dense or hybrid model; the layer list is sliced, nothing copied)."""
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            {**params, "layers": params["layers"][:n_layers]})
+
+
+def phase_prefix(gpu: str, seed: int, cfg, params,
+                 cut: str | None = None) -> None:
     """Serve the shared-prompt traffic with prefix sharing and preemption
     over a 256-page pool, invariants checked after every wave; then the
     same requests with sharing off."""
@@ -2294,7 +2329,7 @@ def phase_prefix(gpu: str, seed: int, cfg, params) -> None:
     first_equal = sum(a.generated[0] == b.generated[0]
                       for a, b in zip(reqs, oreqs))
     emit({"phase": "prefix", "gpu": gpu, "arch": cfg.arch,
-          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "cut": cut, "dtype": cfg.dtype,
           "requests": len(reqs), "pool_pages": PREFIX_POOL,
           "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
           "mean_ttft_ms": 1e3 * statistics.mean(r.ttft_s for r in reqs),
@@ -2484,7 +2519,8 @@ def _trace_spec_chunk(cfg, params, reqs, skip: int = 7) -> dict:
                    "flash_share": flash_ms / busy if busy else None}
 
 
-def phase_serve_spec(gpu: str, seed: int, cfg, params, name: str) -> dict:
+def phase_serve_spec(gpu: str, seed: int, cfg, params, name: str,
+                     cut: str | None = None) -> dict:
     """Speculative decode at ``cfg`` (a paged pallas_paged config) on
     serve_bench's repeat-heavy recipe: the plain graphed engine's tok/s,
     then the speculative chunk (spec_k 4, n-gram 3, two rounds a graph
@@ -2510,7 +2546,7 @@ def phase_serve_spec(gpu: str, seed: int, cfg, params, name: str) -> dict:
                              "differ from the graph's")
     trace = _trace_spec_chunk(scfg, params, requests())
     line = {"phase": name, "gpu": gpu, "arch": cfg.arch,
-            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "cut": cut, "dtype": cfg.dtype,
             "spec_k": SPEC_K, "spec_ngram": SPEC_NGRAM,
             "chunk_size": SPEC_CHUNK,
             "rounds_per_chunk": stats["rounds_per_chunk"],
@@ -3129,7 +3165,8 @@ def check_adaptive_legs(legs: dict) -> dict:
     return work
 
 
-def phase_serve_adaptive(gpu: str, cfg, params) -> dict:
+def phase_serve_adaptive(gpu: str, cfg, params,
+                         cut: str | None = None) -> dict:
     """The adaptive serve-tier policy at ``cfg``'s full width: the four
     legs of the mixed trace, their placement gates, and per leg (not
     gated) the re-arrival TTFT and wall time; streams equal across legs
@@ -3153,7 +3190,8 @@ def phase_serve_adaptive(gpu: str, cfg, params) -> dict:
             "chunks", "graph_replays")
     out = {"launches": launches}
     emit({"phase": "serve_adaptive", "gpu": gpu, "arch": cfg.arch,
-          "n_layers": cfg.n_layers, "dtype": cfg.dtype, **ADAPT,
+          "n_layers": cfg.n_layers, "cut": cut, "dtype": cfg.dtype,
+          **ADAPT,
           "legs": {n: {**{k: leg["stats"][k] for k in keys},
                        "rearrival_ttft_ms": 1e3 * statistics.mean(
                            leg["ttft"][1:]),
@@ -3282,6 +3320,459 @@ def phase_e2e(gpu: str, seed: int, base, want=None,
           "gated": gated})
 
 
+# ---------------------------------------------------------------------------
+# The trainer: forward/loss, activation remat, AdamW, checkpoints, the loop
+# ---------------------------------------------------------------------------
+
+LN_VOCAB_GATE = 0.5         # step 1's loss within this of ln(vocab)
+MIN_FREE_BYTES = 4 << 30    # halve the batch if the peak leaves less free
+
+
+def _sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mem_reset() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _mem() -> dict:
+    """Allocated now, and the peaks since the last ``_mem_reset`` (zeros
+    off the card)."""
+    if DEV != "cuda":
+        return {"allocated": 0, "max_allocated": 0, "max_reserved": 0}
+    torch.cuda.synchronize()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "max_allocated": torch.cuda.max_memory_allocated(),
+            "max_reserved": torch.cuda.max_memory_reserved()}
+
+
+def _total_memory() -> int:
+    return (torch.cuda.get_device_properties(0).total_memory
+            if DEV == "cuda" else 1 << 40)
+
+
+def _train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """6 N T for the parameters (a tied head counted once, as it is used
+    once as a matmul) plus the plain attention's 12 b s^2 hq dh a layer
+    (QK^T and PV, forward and backward), recompute not counted."""
+    return (6 * n_params * b * s
+            + 12 * b * s * s * cfg.n_heads * cfg.head_dim_ * cfg.n_layers)
+
+
+def _grads_reached(leaves) -> dict:
+    """Every leaf's .grad finite with a nonzero norm (one host sync)."""
+    missing = [i for i, p in enumerate(leaves) if p.grad is None]
+    if missing:
+        raise AssertionError(f"train: {len(missing)} parameter leaves got "
+                             f"no .grad (first: leaf {missing[0]})")
+    norms = torch.stack([p.grad.float().norm() for p in leaves]).cpu()
+    bad = [i for i, n in enumerate(norms.tolist())
+           if not (math.isfinite(n) and n > 0)]
+    if bad:
+        raise AssertionError(f"train: {len(bad)} parameter leaves have a "
+                             f"zero or non-finite gradient (first: leaf "
+                             f"{bad[0]}, norm {norms[bad[0]].item()})")
+    return {"leaves": len(leaves), "min_norm": norms.min().item(),
+            "max_norm": norms.max().item()}
+
+
+def _trace_train_step(train_step, state, batch, wall_ms: float) -> dict:
+    """One more train step under torch.profiler: device busy time and idle
+    share (against ``wall_ms``, the untraced median), the kernels by device
+    time, and the aten operators that launched them (``by_op``: an
+    operator's own device time, the backward's included), which says how
+    much is the attention's fp32 ``bmm`` and softmax and how much the bf16
+    ``mm`` projections."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        _sync()
+        traced = time.perf_counter() - t0
+    line = _trace_line("train step", wall_ms / 1e3, traced,
+                       _profile_rows(prof))
+    ops = sorted(((e.self_device_time_total, e.key, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0), reverse=True)
+    line["by_op"] = [{"op": k, "ms": us / 1e3, "count": c}
+                     for us, k, c in ops[:16]]
+    return line
+
+
+def phase_train_minicpm(gpu: str, seed: int, cfg, batch: int = 4,
+                        seq: int = 2048, steps: int = 8,
+                        per_layer_save_all: float | None = None) -> dict:
+    """minicpm-2b's train step at full width and depth, bf16, SAVE_DOTS,
+    MiniCPM's own warmup-stable-decay schedule, on SyntheticLM batches
+    ``step % 2``: every loss finite, step 1's within LN_VOCAB_GATE of
+    ln(vocab), the last below the first, and after step 1 every parameter
+    leaf's gradient finite and nonzero (a gradient cut by a kernel would
+    show here).  If the peak leaves under MIN_FREE_BYTES free, the batch is
+    halved (``cut``); the sequence is never shortened.  A ninth step is
+    traced (``trace``).  ``per_layer_save_all`` (train_remat's measured
+    bytes) asks the H100 policy engine which policy it would pick here."""
+    from repro_torch.core import make_engine
+    from repro_torch.core.remat import RematPolicy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    from repro_torch.utils import tree
+
+    t_phase = time.perf_counter()
+    tcfg = TrainConfig(remat=RematPolicy.SAVE_DOTS, adamw=opt.AdamWConfig(
+        schedule="wsd", warmup_steps=2, total_steps=steps))
+
+    def attempt(batch):
+        train_step, model = make_train_step(cfg, tcfg, DEV)
+        state = init_train_state(
+            model, torch.Generator(device=DEV).manual_seed(seed + 41))
+        data = SyntheticLM(cfg, batch=batch, seq=seq, seed=seed)
+        _mem_reset()
+        rows = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, m = train_step(state, data(i % 2))
+            rows.append({"step": i + 1, "loss": float(m["loss"]),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "lr": float(m["lr"]),
+                         "grad_norm": float(m["grad_norm"])})
+            if i == 0:
+                reached = _grads_reached(tree.leaves(state["params"]))
+                mem1 = _mem()
+                if _total_memory() - mem1["max_reserved"] < MIN_FREE_BYTES:
+                    raise torch.cuda.OutOfMemoryError("under 4 GB free")
+        return train_step, state, data, rows, reached, mem1
+
+    cut = None
+    while True:
+        try:
+            train_step, state, data, rows, reached, mem1 = attempt(batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if batch == 1:
+                raise
+            cut = f"batch {batch} -> {batch // 2} ({e})"[:200]
+        gc.collect()            # the failed attempt's state, out of scope
+        torch.cuda.empty_cache()
+        batch //= 2
+    n_params = tree.tree_param_count(state["params"])
+    state_bytes = tree.tree_bytes(state)
+    mem = _mem()
+    step_ms = statistics.median(r["ms"] for r in rows[1:])
+    trace = (_trace_train_step(train_step, state, data(steps % 2), step_ms)
+             if DEV == "cuda" else None)
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_minicpm: non-finite loss {losses}")
+    if abs(losses[0] - math.log(cfg.vocab)) > LN_VOCAB_GATE:
+        raise AssertionError(f"train_minicpm: step 1 loss {losses[0]} not "
+                             f"within {LN_VOCAB_GATE} of ln {cfg.vocab}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_minicpm: loss did not fall {losses}")
+    tokens = batch * seq
+    flops = _train_flops(cfg, n_params, batch, seq)
+    engine = make_engine(chip="h100")
+    pick = None
+    if per_layer_save_all:
+        free = _total_memory() - state_bytes
+        pick = {"activation_bytes_per_layer": per_layer_save_all,
+                "n_layers": cfg.n_layers, "hbm_free_bytes": free,
+                "policy": engine.remat_policy(per_layer_save_all,
+                                              cfg.n_layers, free).value,
+                "policy_engine_default_free": engine.remat_policy(
+                    per_layer_save_all, cfg.n_layers).value}
+    out = {"phase": "train_minicpm", "gpu": gpu, "arch": cfg.arch,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "params": n_params,
+           "state_bytes": state_bytes, "batch": batch, "seq": seq,
+           "cut": cut, "remat": tcfg.remat.value, "schedule": "wsd",
+           "steps": rows, "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "flops_per_step": flops,
+           "flops": "6 N T + 12 b s^2 hq dh L (plain attention, recompute "
+                    "not counted)",
+           "model_tflops_per_s": flops / step_ms * 1e-9,
+           "max_memory_allocated": mem["max_allocated"],
+           "max_memory_reserved": mem["max_reserved"],
+           "step1_memory": mem1, "grads_reached": reached,
+           "remat_pick": pick, "trace": trace,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_train_remat(gpu: str, seed: int, cfg, cut: str, batch: int = 4,
+                      seq: int = 2048, reps: int = 3) -> dict:
+    """The three activation policies on one state and batch at ``cfg``'s
+    (cut) depth: each one's saved bytes after the forward above the state
+    (``saved``), the peak of forward + backward above it (``peak``), the
+    same for the model with no layers (``head``: embedding, final norm,
+    LM head, loss), so a layer's share is (saved - head) / L; the median
+    forward + backward ms of ``reps`` after a warm one.  Measured ratios
+    beside choose_policy's modelled 0.45 / 0.06 and extra_flops_factor's
+    1.12 / 1.33.  Losses and gradients must agree across the policies
+    (bf16 TOL per leaf, relative to the leaf's max |grad|); whether they
+    are bitwise equal is printed."""
+    from repro_torch.core.remat import RematPolicy, extra_flops_factor
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.step import batch_to_device, init_train_state
+    from repro_torch.utils import tree
+
+    t_phase = time.perf_counter()
+    data = batch_to_device(SyntheticLM(cfg, batch, seq, seed=seed)(0), DEV)
+    gen_seed = seed + 47
+
+    def measure(c, policy, keep_grads):
+        model = build_model(c, DEV)
+        params = init_train_state(
+            model, torch.Generator(device=DEV).manual_seed(gen_seed))[
+            "params"]
+        leaves = tree.leaves(params)
+        state_bytes = tree.tree_bytes(params)
+        ms = []
+        for rep in range(reps + 1):
+            _sync()
+            base = _mem()["allocated"]
+            _mem_reset()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(params, data, remat=policy)
+            saved = _mem()["allocated"] - base
+            grads = torch.autograd.grad(loss, leaves)
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak = _mem()["max_allocated"] - base
+            if rep < reps:
+                del grads
+        return {"loss": loss.detach(), "grads": grads if keep_grads else None,
+                "saved": saved, "peak": peak, "state_bytes": state_bytes,
+                "ms": statistics.median(ms[1:])}
+
+    head = measure(dataclasses.replace(cfg, n_layers=0),
+                   RematPolicy.SAVE_ALL, False)
+    runs = {pol: measure(cfg, pol, True) for pol in RematPolicy}
+    base = runs[RematPolicy.SAVE_ALL]
+    agree = {}
+    for pol, run in runs.items():
+        errs = []
+        for g, w in zip(run["grads"], base["grads"]):
+            scale = w.float().abs().max().item() or 1.0
+            err = (g.float() - w.float()).abs().max().item() / scale
+            errs.append(err)
+        if max(errs) > 2 ** -7 or not math.isfinite(run["loss"].item()):
+            raise AssertionError(f"train_remat: {pol.value} gradients off "
+                                 f"SAVE_ALL's by {max(errs)} of max |grad|")
+        agree[pol.value] = {
+            "loss": run["loss"].item(),
+            "loss_bitwise": bool(torch.equal(run["loss"], base["loss"])),
+            "grads_bitwise": all(torch.equal(g, w) for g, w in
+                                 zip(run["grads"], base["grads"])),
+            "max_rel_grad_err": max(errs)}
+    L = cfg.n_layers
+    rows = {}
+    for pol, run in runs.items():
+        rows[pol.value] = {
+            "saved_bytes": run["saved"], "peak_bytes": run["peak"],
+            "per_layer_saved_bytes": (run["saved"] - head["saved"]) / L,
+            "fwd_bwd_ms": run["ms"]}
+    per = {k: r["per_layer_saved_bytes"] for k, r in rows.items()}
+    ms = {k: r["fwd_bwd_ms"] for k, r in rows.items()}
+
+    def ratio(a, b):        # no memory counters off the card
+        return a / b if b else None
+    out = {"phase": "train_remat", "gpu": gpu, "arch": cfg.arch,
+           "n_layers": L, "dtype": cfg.dtype, "batch": batch, "seq": seq,
+           "cut": cut,
+           "state_bytes": base["state_bytes"],
+           "head": {"saved_bytes": head["saved"], "peak_bytes": head["peak"],
+                    "fwd_bwd_ms": head["ms"]},
+           "policies": rows, "agree": agree,
+           "saved_ratio": {
+               "save_dots": ratio(per["save_dots"], per["save_all"]),
+               "recompute": ratio(per["recompute"], per["save_all"]),
+               "modelled": {"save_dots": 0.45, "recompute": 0.06}},
+           "time_ratio": {
+               "save_dots": ratio(ms["save_dots"], ms["save_all"]),
+               "recompute": ratio(ms["recompute"], ms["save_all"]),
+               "modelled": {
+                   "save_dots": extra_flops_factor(RematPolicy.SAVE_DOTS),
+                   "recompute": extra_flops_factor(RematPolicy.RECOMPUTE)}},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del runs, base
+    return out
+
+
+def phase_forward_kernels(gpu: str, seed: int, cfg, batch: int = 2,
+                          seq: int = 2048, gated: bool = True) -> dict:
+    """``forward`` under no_grad on the kernel route (pallas_paged: flash
+    causal with no cache, the fused norm) against "xla" from the same
+    params and tokens: fp32 (``gated``) within TOL, bf16 the gap beside
+    max |logit|.  The kernel run must launch flash once a layer and the
+    norm 2 L + 1 times, with no plain call."""
+    from repro_torch import convert
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(seed + 53)
+    params = convert.init(cfg, gen, DEV)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(batch, seq)).astype(np.int32)).to(DEV)
+    out, ms, launched = {}, {}, None
+    with torch.no_grad():
+        for kernel in ("xla", "pallas_paged"):
+            model = build_model(dataclasses.replace(cfg, decode_kernel=kernel),
+                                DEV)
+            model.forward(params, toks)          # warm
+            _sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            out[kernel], _ = model.forward(params, toks)
+            _sync()
+            ms[kernel] = (time.perf_counter() - t0) * 1e3
+            if kernel == "pallas_paged":
+                launched = counts()
+    L = cfg.n_layers
+    want = {"flash_dense": L, "fused_norm": 2 * L + 1, "plain": 0}
+    if DEV == "cuda" and any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"forward_kernels: launches {launched}, "
+                             f"expected {want}")
+    got, ref = out["pallas_paged"], out["xla"]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("forward_kernels: non-finite kernel logits")
+    err = (check_close("forward_kernels", got, ref, dt) if gated
+           else (got.float() - ref.float()).abs().max().item())
+    row = {"phase": "forward_kernels", "gpu": gpu, "arch": cfg.arch,
+           "n_layers": L, "dtype": cfg.dtype, "batch": batch, "seq": seq,
+           "launches": launched, "expected": want, "max_abs_err": err,
+           "max_abs_logit": ref.float().abs().max().item(),
+           "tol": list(TOL[dt]) if gated else None, "gated": gated,
+           "kernel_ms": ms["pallas_paged"], "xla_ms": ms["xla"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    del out, params
+    return row
+
+
+def phase_train_resume(gpu: str, seed: int, cfg, cut: str, batch: int = 2,
+                       seq: int = 2048) -> dict:
+    """``loop.run`` at ``cfg``'s (cut) depth: 3 steps and a checkpoint,
+    the checkpoint restored into a fresh state (bitwise the saved state),
+    3 more from it by auto-resume; separately 6 straight.  The resumed
+    run's batches must equal the straight run's bitwise, and its final
+    params the straight run's within 4 x lr_max x 3 (three Adam steps of
+    at most about lr each, apart) plus one bf16 step of the leaf's max;
+    whether they are bitwise equal is printed."""
+    import hashlib
+    import tempfile
+
+    from repro_torch.core.remat import RematPolicy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    from repro_torch.utils import tree
+
+    t_phase = time.perf_counter()
+    adamw = opt.AdamWConfig(schedule="wsd", warmup_steps=2, total_steps=6)
+    train_step, model = make_train_step(
+        cfg, TrainConfig(remat=RematPolicy.SAVE_DOTS, adamw=adamw), DEV)
+    data = SyntheticLM(cfg, batch=batch, seq=seq, seed=seed)
+    seen = {"straight": {}, "resumed": {}}
+
+    def fresh():
+        return init_train_state(
+            model, torch.Generator(device=DEV).manual_seed(seed + 59))
+
+    def source(run):
+        def batch_of(step):
+            b = data(step)
+            seen[run][step] = hashlib.sha256(
+                b["tokens"].tobytes() + b["labels"].tobytes()).hexdigest()
+            return b
+        return batch_of
+
+    def loop_cfg(d, total, every):
+        return train_loop.LoopConfig(total_steps=total, ckpt_every=every,
+                                     ckpt_dir=d, handle_signals=False)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        straight, rep_s = train_loop.run(
+            train_step, fresh(), source("straight"),
+            loop_cfg(f"{tmp}/straight", 6, 100))
+        straight_s = time.perf_counter() - t0
+        straight = ckpt.host_copy(straight["params"])
+        gc.collect()
+        first, rep1 = train_loop.run(train_step, fresh(), source("resumed"),
+                                     loop_cfg(f"{tmp}/run", 3, 3))
+        saved = ckpt.host_copy(first)
+        del first
+        ck_dir = f"{tmp}/run/step_{3:08d}"
+        written = sum(os.path.getsize(os.path.join(ck_dir, f))
+                      for f in os.listdir(ck_dir))
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(f"{tmp}/run", template=fresh())
+        _sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        bad = [tree.path_str(p) for (p, a), (_, b) in zip(
+            tree.leaves_with_paths(ckpt.host_copy(restored)),
+            tree.leaves_with_paths(saved)) if not torch.equal(a, b)]
+        if step != 3 or bad:
+            raise AssertionError(f"train_resume: restored state not the "
+                                 f"saved one bitwise (step {step}, {bad[:3]})")
+        del restored
+        gc.collect()
+        resumed, rep2 = train_loop.run(train_step, fresh(),
+                                       source("resumed"),
+                                       loop_cfg(f"{tmp}/run", 6, 3))
+        resumed = ckpt.host_copy(resumed["params"])
+    if rep2.resumed_from != 3:
+        raise AssertionError(f"train_resume: resumed from "
+                             f"{rep2.resumed_from}, not 3")
+    if seen["straight"] != seen["resumed"]:
+        raise AssertionError("train_resume: replayed batches differ")
+    lr_max = adamw.lr
+    worst, bitwise = 0.0, True
+    for (path, a), (_, b) in zip(tree.leaves_with_paths(resumed),
+                                 tree.leaves_with_paths(straight)):
+        diff = (a.float() - b.float()).abs().max().item()
+        bound = 4 * lr_max * 3 + 2 ** -8 * b.float().abs().max().item()
+        if diff > bound:
+            raise AssertionError(f"train_resume: {tree.path_str(path)} off "
+                                 f"the straight run by {diff} > {bound}")
+        worst = max(worst, diff)
+        bitwise = bitwise and torch.equal(a, b)
+    out = {"phase": "train_resume", "gpu": gpu, "arch": cfg.arch,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+           "seq": seq,
+           "cut": cut,
+           "checkpoint_bytes": written, "restore_ms": restore_ms,
+           "straight_s": straight_s,
+           "losses_straight": rep_s.losses,
+           "losses_resumed": rep1.losses + rep2.losses,
+           "restored_bitwise": True, "batches_bitwise": True,
+           "final_params_max_abs_diff": worst,
+           "final_params_bitwise": bitwise,
+           "tol": "4 x lr x 3 + 2^-8 max|p| a leaf",
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
                 "fused_norm", "moe_gmm")
 
@@ -3352,9 +3843,10 @@ def build_kernels() -> tuple[float, dict]:
 COUNTED = ("decode chunks (plain and speculative): the capture's "
            "launches x graph replays, one "
            "replay's kernels held to them by the profiler "
-           "(check_replay_kernels); prefill and the policy matmul: at "
-           "each launch; decode_attention: the cross-attention steps of "
-           "the fixed-source arms and the pallas_gather twins")
+           "(check_replay_kernels); prefill, the policy matmul and the "
+           "trainer's kernel-route forward: at each launch; "
+           "decode_attention: the cross-attention steps of the "
+           "fixed-source arms and the pallas_gather twins")
 
 
 def main() -> int:
@@ -3405,13 +3897,20 @@ def main() -> int:
                  decode_kernel="pallas_paged")
     serve = phase_serve(gpu, args.seed,
                         dataclasses.replace(yi_9b.CONFIG, **paged))
-    phase_prefix(gpu, args.seed, serve["cfg"], serve["params"])
+    # The prefix and adaptive arms run yi-9b's first 12 layers: their
+    # gates (hits, preemptions, invariants, placement, prefill work) do not
+    # depend on depth, and the run has a time limit.
+    cut12 = ("n_layers 48 -> 12: the run's 1200 s limit (the trainer "
+             "phases took the time)")
+    cfg12, params12 = _cut_depth(serve["cfg"], serve["params"], 12)
+    phase_prefix(gpu, args.seed, cfg12, params12, cut=cut12)
     served["yi-9b"] = serve
     # Speculative decode and the adaptive policy at yi-9b's width.
     served["yi-9b spec"] = phase_serve_spec(gpu, args.seed, serve["cfg"],
                                             serve["params"], "serve_spec")
-    served["yi-9b adaptive"] = phase_serve_adaptive(gpu, serve["cfg"],
-                                                    serve["params"])
+    served["yi-9b adaptive"] = phase_serve_adaptive(gpu, cfg12, params12,
+                                                    cut=cut12)
+    del cfg12, params12
     # Seeded top-p sampling, then crash safety and KV page integrity.
     served["yi-9b sampling"] = phase_serve_sampling(
         gpu, args.seed, serve["cfg"], serve["params"])
@@ -3425,8 +3924,13 @@ def main() -> int:
     phase_preempt(gpu, args.seed, zserve["cfg"], zserve["params"],
                   zserve["reqs"])
     served["zamba2-2.7b"] = zserve
+    # Its replay rollback at 3 of the 9 shared-attention groups.
+    cfg18, params18 = _cut_depth(zserve["cfg"], zserve["params"], 18)
     served["zamba2-2.7b spec"] = phase_serve_spec(
-        gpu, args.seed, zserve["cfg"], zserve["params"], "serve_spec_zamba2")
+        gpu, args.seed, cfg18, params18, "serve_spec_zamba2",
+        cut="n_layers 54 -> 18 (3 shared-attention groups): the run's "
+            "1200 s limit (the trainer phases took the time)")
+    del cfg18, params18
     del zserve["params"]
     torch.cuda.empty_cache()
     mserve = phase_serve(gpu, args.seed,
@@ -3509,6 +4013,35 @@ def main() -> int:
                                   kv_page_size=PSZ)
     phase_e2e(gpu, args.seed, dataclasses.replace(whisper, dtype="float32"))
     phase_e2e(gpu, args.seed, whisper, gated=False)
+    torch.cuda.empty_cache()
+    # The trainer at minicpm-2b's full width: forward on the kernel route
+    # (fp32 at 4 layers, gated; bf16 at full depth, the gap), the three
+    # activation policies at 4 layers, the train step at full depth, and
+    # checkpoints with the loop at 2 layers.
+    minicpm = minicpm_2b.CONFIG
+    fwd = [phase_forward_kernels(
+               gpu, args.seed,
+               dataclasses.replace(minicpm, n_layers=4, dtype="float32")),
+           phase_forward_kernels(gpu, args.seed, minicpm, gated=False)]
+    served["minicpm-2b forward"] = {"launches": {
+        k: fwd[0]["launches"][k] + fwd[1]["launches"][k]
+        for k in fwd[0]["launches"]}}
+    torch.cuda.empty_cache()
+    rem = phase_train_remat(
+        gpu, args.seed, dataclasses.replace(minicpm, n_layers=4),
+        cut="n_layers 40 -> 4: SAVE_ALL's activations at 40 layers exceed "
+            "the card")
+    torch.cuda.empty_cache()
+    phase_train_minicpm(
+        gpu, args.seed, minicpm,
+        per_layer_save_all=rem["policies"]["save_all"][
+            "per_layer_saved_bytes"])
+    torch.cuda.empty_cache()
+    phase_train_resume(
+        gpu, args.seed, dataclasses.replace(minicpm, n_layers=2),
+        cut="n_layers 40 -> 2: a checkpoint's bytes (its write and read) "
+            "and three train states")
+    torch.cuda.empty_cache()
 
     def launched(*keys, runs=("launches",)):
         """(total, by path) of the main paths' launches of ``keys``, over

@@ -14,6 +14,12 @@ g lists of span layers, its ``cross_layers`` (g, ...) a list, beside
 ``vis_proj``.  Each leaf keeps its dtype (the Mamba-2 fp32
 leaves and the MoE router stay fp32 in a bf16 model); bfloat16 leaves
 cross through float32, which is exact.
+
+``train_state_from_jax`` carries the reference's whole train state across
+(its ``mu``/``nu`` unstacked like the params), and ``to_jax_layout`` goes
+the other way for any tree shaped like the port's params (params, grads,
+moments): the per-layer lists stacked back into the reference's leading
+axes, as numpy, so the tests compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.utils.tree import leaves as tree_leaves
 
 
 def _leaf(x, device) -> torch.Tensor:
@@ -85,3 +92,49 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
     from repro_torch.models import build_model
 
     return build_model(cfg, device).init(generator)
+
+
+def train_state_from_jax(state, cfg: ModelConfig, device=None):
+    """The reference's ``{"params", "opt": {"mu", "nu", "count"}}`` -> the
+    port's train state on ``device``, the params requiring grad."""
+    device = resolve_device(device)
+    params = from_jax(state["params"], cfg, device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    o = state["opt"]
+    return {"params": params,
+            "opt": {"mu": from_jax(o["mu"], cfg, device),
+                    "nu": from_jax(o["nu"], cfg, device),
+                    "count": torch.tensor(int(np.asarray(o["count"])),
+                                  dtype=torch.int32, device=device)}}
+
+
+def _numpy(t) -> np.ndarray:
+    """A copy (a CPU tensor's ``.numpy()`` would alias a leaf that the
+    optimizer updates in place)."""
+    t = t.detach().cpu()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+
+
+def _stack(x):
+    """Nested per-layer lists of subtrees -> one subtree of stacked numpy
+    arrays (one leading axis a list level)."""
+    if isinstance(x, list):
+        return _stack_trees([_stack(v) for v in x])
+    return _tree(x, _numpy)
+
+
+def _stack_trees(trees):
+    """Same-structured numpy trees -> one tree, leaves stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def to_jax_layout(tree, cfg: ModelConfig) -> dict:
+    """A tree shaped like the port's params of ``cfg`` (params, their
+    gradients, AdamW moments) -> the reference's layout as numpy: stacked
+    layer subtrees, bf16 leaves as float32 (exact)."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"to_jax_layout: unknown family {cfg.family!r}")
+    return {key: _stack(tree[key]) for key in _FAMILIES[cfg.family]}

@@ -13,20 +13,67 @@ characterize->predict->plan structure assigns a per-layer policy:
 residency, demote toward recompute only under capacity pressure, never "OOM
 stall".
 
-A copy of the framework-free part of ``repro.core.remat``: the policy
-enum, ``choose_policy`` and ``extra_flops_factor``.  ``apply_remat``
-(``jax.checkpoint`` in the reference, ``torch.utils.checkpoint`` here)
-comes with the port of ``train/``.
+The port of ``repro.core.remat``: ``apply_remat`` wraps a layer body in
+``torch.utils.checkpoint`` where the reference uses ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import enum
+import functools
+
+import torch
+import torch.utils.checkpoint as tuc
 
 
 class RematPolicy(enum.Enum):
     SAVE_ALL = "save_all"
     SAVE_DOTS = "save_dots"
     RECOMPUTE = "recompute"
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of dots without batch dimensions (``aten.mm``,
+    ``aten.addmm``: the projections and MLP products, which ``x @ W`` on a
+    (b, s, d) input reaches as a 2-D ``mm``), recompute everything else,
+    ``aten.bmm`` included (the attention einsums, MoE's expert einsums)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return tuc.CheckpointPolicy.MUST_SAVE
+    return tuc.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat(fn, policy: RematPolicy):
+    """Wrap a layer-apply function with the chosen activation policy.
+
+    * ``SAVE_ALL``: ``fn`` itself;
+    * ``SAVE_DOTS``: selective checkpointing that saves the outputs of
+      ``aten.mm``/``aten.addmm`` only; it raises where this torch has no
+      selective-checkpoint API, never falling back to ``RECOMPUTE``;
+    * ``RECOMPUTE``: a plain non-reentrant checkpoint (the layer's inputs
+      only).
+
+    With grad mode off (a forward under ``torch.no_grad()``), nothing is
+    saved for a backward, so the wrapper calls ``fn`` directly."""
+    if policy is RematPolicy.SAVE_ALL:
+        return fn
+    context_fn = tuc.noop_context_fn
+    if policy is RematPolicy.SAVE_DOTS:
+        make = getattr(tuc, "create_selective_checkpoint_contexts", None)
+        if make is None:
+            raise NotImplementedError(
+                f"SAVE_DOTS needs torch.utils.checkpoint."
+                f"create_selective_checkpoint_contexts (torch "
+                f"{torch.__version__} has none)")
+        context_fn = functools.partial(make, _dots_saveable)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return tuc.checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=context_fn, **kwargs)
+
+    return wrapped
 
 
 def choose_policy(

@@ -1,5 +1,6 @@
 """Shared helpers for the port's CUDA kernels: shape arithmetic, the masking
-sentinel, the page gather, and the ``nvcc`` build + ``ctypes`` loader.
+sentinel, the page gather, the guard against differentiating a launch,
+and the ``nvcc`` build + ``ctypes`` loader.
 
 Kernels are plain-C-interface shared libraries compiled for ``sm_90a`` at
 first use into ``build/repro_torch/`` at the repository root (a few seconds
@@ -16,6 +17,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 NEG_INF = -1e30     # the same finite sentinel as the reference's kernels
 
@@ -41,6 +44,24 @@ def gather_pages(pool, pages):
     b, P = pages.shape
     g = pool[pages.to(pool.device).long().clamp(0, N - 1)]   # (b, P, psz, ...)
     return g.reshape((b, P * psz) + tuple(pool.shape[2:]))
+
+
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise if autograd would have to differentiate this launch.
+
+    A kernel is launched through ``ctypes`` into an output allocated
+    beforehand, so its result carries no ``grad_fn``: everything upstream
+    of it would silently get no gradient while the loss still fell through
+    the residual path.  Every CUDA branch of a kernel wrapper calls this
+    first; train on the plain route (``decode_kernel="xla"``, what
+    ``train.step.make_train_step`` does) or run the kernel route under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel records no "
+            f"autograd graph; differentiate the plain route "
+            f"(decode_kernel='xla') or call it under torch.no_grad()")
 
 
 def _nvcc() -> str:

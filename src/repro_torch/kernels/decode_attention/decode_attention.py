@@ -35,7 +35,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.common import NEG_INF, cdiv, load_library
+from repro_torch.kernels.common import NEG_INF, cdiv, load_library, refuse_grad
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "decode_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -292,6 +292,7 @@ def decode_attention_cuda(q, k, v, lengths=None, *, scale=None, bkv=512,
                           splits=1):
     """The CUDA kernel over a dense (b, hkv, s, d) view (any strides with a
     contiguous head dim).  CUDA tensors only."""
+    refuse_grad("decode_attention", q, k, v)
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     if hq % hkv:
@@ -312,6 +313,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, pages, lengths=None, *,
                                 scale=None, splits=1):
     """The CUDA kernel reading an (N, page_size, hkv, d) pool in place
     through a (b, P) int32 page table.  CUDA tensors only."""
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     b, hq, d = q.shape
     N, psz, hkv, _ = k_pool.shape
     P = pages.shape[1]

@@ -36,7 +36,8 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.common import NEG_INF, gather_pages, load_library
+from repro_torch.kernels.common import (
+    NEG_INF, gather_pages, load_library, refuse_grad)
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -248,6 +249,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, scale=None, q_offset=0,
                          kv_len=None, q_len=None):
     """The CUDA kernel over dense (b, hkv, skv, d) K/V (any strides with a
     contiguous head dim).  CUDA tensors only."""
+    refuse_grad("flash_attention", q, k, v)
     _check_inputs("flash_attention", q, k, v, None)
     _, hkv, skv, _ = k.shape
     out = _launch("flash_attention", q, k, v,
@@ -262,6 +264,7 @@ def paged_flash_attention_cuda(q, k_pool, v_pool, pages, *, causal=True,
                                q_len=None):
     """The CUDA kernel reading an (N, page_size, hkv, d) pool in place
     through a (b, P) int32 page table.  CUDA tensors only."""
+    refuse_grad("paged_flash_attention", q, k_pool, v_pool)
     _check_inputs("paged_flash_attention", q, k_pool, v_pool, pages)
     N, psz, hkv, _ = k_pool.shape
     P = pages.shape[1]

@@ -27,7 +27,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.common import cdiv, load_library
+from repro_torch.kernels.common import cdiv, load_library, refuse_grad
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "fused_norm.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -183,6 +183,7 @@ def fused_norm_cuda(x, weight, bias=None, residual=None, *, eps=1e-6,
     ``launch`` defaults to :func:`launch_of`'s; another plan (``scalar`` on
     aligned rows, to time it) runs if its body takes these rows, else the
     C entry refuses it and this raises."""
+    refuse_grad("fused_norm", x, weight, bias, residual)
     if launch is None:
         launch = launch_of(x, weight, bias, residual, kind=kind)
     else:

@@ -56,7 +56,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.common import cdiv, load_library
+from repro_torch.kernels.common import cdiv, load_library, refuse_grad
 from repro_torch.kernels.matmul import ref
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "matmul.cu"
@@ -271,6 +271,7 @@ def matmul_cuda(a, b, *, bm: int = 256, bn: int = 256, bk: int = 256,
     """The CUDA kernel; CUDA tensors only.  a and b may be strided along
     their rows (last axis contiguous); the result is contiguous, in
     ``out_dtype`` from the kernel for both schedules."""
+    refuse_grad("matmul", a, b)
     out_dtype = out_dtype or a.dtype
     _check_inputs(a, b, out_dtype, order, (bm, bn, bk, split_k))
     m, k = a.shape

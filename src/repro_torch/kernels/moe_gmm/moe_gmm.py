@@ -42,7 +42,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.common import cdiv, load_library
+from repro_torch.kernels.common import cdiv, load_library, refuse_grad
 from repro_torch.kernels.moe_gmm import ref
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "moe_gmm.cu"
@@ -215,6 +215,7 @@ def grouped_matmul_cuda(x, w, counts=None, *, out_dtype=None):
     """The CUDA kernel; CUDA tensors only.  x and w may be strided along
     their two leading axes (last axis contiguous); y is written
     contiguous.  ``counts`` (e,) int32 or None (every row live)."""
+    refuse_grad("grouped_matmul", x, w)
     out_dtype = out_dtype or x.dtype
     body = _check_inputs(x, w, counts, out_dtype)
     e, c, k = x.shape

@@ -44,7 +44,7 @@ import pathlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.common import load_library
+from repro_torch.kernels.common import load_library, refuse_grad
 
 _SOURCE = pathlib.Path(__file__).parent / "csrc" / "ssd.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -293,6 +293,7 @@ def ssd_cuda(x, dt, A, B, C, D=None, *, init_state=None,
     ``launch`` defaults to :func:`launch_of`'s; another plan (the
     ``cuda_cores`` body on bf16, to time it) runs if its body takes these
     inputs, else the C entry refuses it and this raises."""
+    refuse_grad("ssd", x, dt, A, B, C, D, init_state)
     if launch is None:
         launch = launch_of(x, dt, A, B, C, D, init_state=init_state)
     else:

@@ -32,7 +32,16 @@ Differences from the reference, all deliberate:
   cross-attention's s > 1 blocks run the flash kernel with
   ``causal=False`` and a cross decode step the dense split-KV decode
   kernel; the reference computes both with ``_sdpa``.
-* The loss and the scan-unroll switch are not ported yet.
+* **No scan, no scan-unroll switch.**  The reference scans stacked layers
+  (``cm.scan``, with an unroll flag for the dry run's cost counting); the
+  port's layers are Python lists walked by a ``for`` loop, so there is
+  nothing to unroll.
+* **The loss's chunked logsumexp has its own backward.**  Above
+  ``_CE_CHUNK_VOCAB`` the reference scans vocab chunks so the fp32 logits
+  never exist whole; autograd through the same loop would save each
+  chunk's fp32 exponentials for the backward, which is that tensor after
+  all.  :class:`_ChunkedLogSumExp` saves only the logits (in their dtype)
+  and the result, and recomputes each chunk's softmax in the backward.
 """
 from __future__ import annotations
 
@@ -599,10 +608,15 @@ def _expert_products(cfg: ModelConfig):
 
 
 def _swiglu_experts(p: Params, xe: torch.Tensor, gmm, counts=None):
-    """silu(xe @ wg) * (xe @ wu) @ wd, expert by expert; each intermediate
-    is freed as soon as the next product has read it."""
-    h = torch.nn.functional.silu(gmm(xe, p["wg"], counts), inplace=True)
-    h.mul_(gmm(xe, p["wu"], counts))
+    """silu(xe @ wg) * (xe @ wu) @ wd, expert by expert; without grad mode
+    each intermediate is freed as soon as the next product has read it
+    (in place), with it the products stay out of place for autograd."""
+    g = gmm(xe, p["wg"], counts)
+    if torch.is_grad_enabled():
+        h = torch.nn.functional.silu(g) * gmm(xe, p["wu"], counts)
+    else:
+        h = torch.nn.functional.silu(g, inplace=True)
+        h.mul_(gmm(xe, p["wu"], counts))
     return gmm(h, p["wd"], counts)
 
 
@@ -672,10 +686,104 @@ def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ p["unembed"]
 
 
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+# Vocab-chunked logsumexp above this size: never materializes the fp32
+# logit tensor (a 51k-vocab, 65k-token device batch would need 12.5 GiB).
+_CE_CHUNK_VOCAB = 16384
+# ... taken when the logits hold more elements than this (256 MiB of fp32).
+_CE_CHUNK_MIN_ELEMENTS = 256 * 1024**2 // 4
+
+
+def _chunk_bounds(v: int):
+    return [(j, min(j + _CE_CHUNK_VOCAB, v))
+            for j in range(0, v, _CE_CHUNK_VOCAB)]
+
+
+def _masked_chunk(logits, lo, hi, vocab_valid):
+    """Columns [lo, hi) in fp32, those at or past ``vocab_valid`` -1e30."""
+    x = logits[..., lo:hi].float()
+    if hi > vocab_valid:
+        idx = torch.arange(lo, hi, device=logits.device)
+        x = torch.where(idx < vocab_valid, x, -1e30)
+    return x
+
+
+class _ChunkedLogSumExp(torch.autograd.Function):
+    """The reference's online logsumexp over ``_CE_CHUNK_VOCAB``-wide vocab
+    chunks (the padded tail of the last chunk is simply not read: it would
+    add exp(-1e30 - m) = 0).  The backward's gradient is softmax(x) chunk
+    by chunk from the saved logits and result, written in the logits'
+    dtype; padded columns get exactly 0."""
+
+    @staticmethod
+    def forward(ctx, logits, vocab_valid: int):
+        lead = logits.shape[:-1]
+        m = torch.full(lead, -1e30, dtype=torch.float32,
+                       device=logits.device)
+        l = torch.zeros(lead, dtype=torch.float32, device=logits.device)
+        for lo, hi in _chunk_bounds(logits.shape[-1]):
+            x = _masked_chunk(logits, lo, hi, vocab_valid)
+            m_cur = torch.maximum(m, x.amax(dim=-1))
+            l = l * torch.exp(m - m_cur) + torch.exp(
+                x - m_cur[..., None]).sum(dim=-1)
+            m = m_cur
+        out = m + torch.log(l.clamp_min(1e-30))
+        ctx.save_for_backward(logits, out)
+        ctx.vocab_valid = vocab_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, out = ctx.saved_tensors
+        dx = torch.empty_like(logits)
+        for lo, hi in _chunk_bounds(logits.shape[-1]):
+            x = _masked_chunk(logits, lo, hi, ctx.vocab_valid)
+            dx[..., lo:hi] = (torch.exp(x - out[..., None])
+                              * grad[..., None]).to(dx.dtype)
+        return dx, None
+
+
+def _chunked_logsumexp(logits: torch.Tensor, vocab_valid: int
+                       ) -> torch.Tensor:
+    """logsumexp over the first ``vocab_valid`` columns, in fp32, one vocab
+    chunk at a time."""
+    return _ChunkedLogSumExp.apply(logits, vocab_valid)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_valid: int) -> torch.Tensor:
+    """Mean next-token loss; padded vocab entries masked out."""
+    v = logits.shape[-1]
+    labels = labels.long()[..., None]
+    if logits.numel() > _CE_CHUNK_MIN_ELEMENTS and v > _CE_CHUNK_VOCAB:
+        logz = _chunked_logsumexp(logits, vocab_valid)
+        gold = torch.gather(logits, -1, labels)[..., 0].float()
+        return (logz - gold).mean()
+    lf = logits.float()
+    if vocab_valid < v:
+        lf = torch.where(torch.arange(v, device=lf.device) < vocab_valid,
+                         lf, -1e30)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels)[..., 0]
+    return (logz - gold).mean()
+
+
 @dataclasses.dataclass
 class ModelApply:
-    """Bundle returned by each model module (the serving subset of the
-    reference's: no ``forward``/``loss`` until training is ported).
+    """Bundle returned by each model module, the reference's fields plus
+    the port's serving extras (``kv_pool``, ``fill_source``).
+
+    ``forward(params, tokens, **source, remat=...)`` -> ``(logits, aux)``
+    and ``loss(params, batch, remat=...)`` -> ``(loss, {"ce", "aux"})``
+    train or score a whole block with no cache (``source``: ``vis=`` for
+    the VLM, ``frames=`` for whisper).  They honour ``cfg.decode_kernel``
+    as every entry point does, so a kernel route under ``torch.no_grad()``
+    runs the CUDA kernels; those record no autograd graph and refuse to be
+    differentiated, which is why ``train.step.make_train_step`` builds its
+    model on ``"xla"``.
 
     ``prefill``/``decode_step`` take ``seg_lens`` ((b,) int32, valid new
     tokens per slot; None = the whole block).  ``seg_lens[b] == 0`` leaves
@@ -684,6 +792,8 @@ class ModelApply:
 
     config: ModelConfig
     init: Any            # (generator) -> params
+    forward: Any         # (params, tokens, **source, remat) -> (logits, aux)
+    loss: Any            # (params, batch, remat) -> (loss, metrics)
     init_cache: Any      # (params, batch, max_len, n_pages=None, **source)
                          # -> cache; source: vis= (VLM), frames= (whisper)
     prefill: Any         # (params, cache, tokens, seg_lens, all_logits)

@@ -1,5 +1,5 @@
-"""Mamba-2 LM (SSD, attention-free), the serving path of
-``repro.models.mamba2`` (arXiv:2405.21060).
+"""Mamba-2 LM (SSD, attention-free), the port of ``repro.models.mamba2``
+(arXiv:2405.21060): training's ``forward``/``loss`` and the serving path.
 
 Parameters are the reference's layouts with ``params["layers"]`` a list of
 per-layer dicts ``{"ln", "mamba": {in_proj, conv_w, conv_b, dt_bias, A_log,
@@ -12,7 +12,9 @@ Every prefill (a block of more than one token) runs the SSD chunked scan:
 through the CUDA kernel on the kernel routes (``decode_kernel != "xla"``,
 the rule ``models.common.apply_attn`` follows), its plain version on the
 ``"xla"`` route and on CPU tensors.  A single-token step with a state runs
-``ssd_decode_step`` (plain torch, as in the reference).
+``ssd_decode_step`` (plain torch, as in the reference).  ``forward`` runs
+every layer over the whole block from a zero state, the reference's
+training use of ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat import RematPolicy, apply_remat
 from repro_torch.device import torch_dtype
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ssd import ssd_decode_step, ssd_plain
@@ -201,10 +204,37 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
+def mamba_block(lp, h, cfg: ModelConfig):
+    """One pre-norm Mamba-2 residual layer with no cache (training)."""
+    y, _ = apply_mamba(lp["mamba"], cm.apply_norm(lp["ln"], h, cfg), cfg)
+    return h + y
+
+
+def forward(params, tokens, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    """tokens (b, s) -> (logits, aux = 0)."""
+    x = cm.embed(params["embed"], tokens)
+    body = apply_remat(functools.partial(mamba_block, cfg=cfg), remat)
+    for lp in params["layers"]:
+        x = body(lp, x)
+    x = cm.apply_norm(params["ln_f"], x, cfg)
+    return (cm.unembed(params["embed"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params, batch, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),
+        forward=functools.partial(forward, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg=cfg, device=device),
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM: dense GQA, MoE and the VLM with
-interleaved cross-attention to stub vision-patch embeddings (the serving
-path of ``repro.models.transformer``).
+interleaved cross-attention to stub vision-patch embeddings (the port of
+``repro.models.transformer``: training's ``forward``/``loss`` and the
+serving path).
 
 Parameters are plain dicts of tensors in the reference's layouts, with
 ``params["layers"]`` a list of per-layer dicts (the reference stacks them
@@ -13,6 +14,10 @@ each layer's buffers are views of it, updated in place.  The VLM's cross
 K/V, one (b, n_vis, hkv, dh) pair a cross layer, are computed from the
 projected vision tokens when the cache is made (``fill_source``) and only
 read after.
+
+``forward`` walks the layers with no cache; the activation policy wraps
+each layer's body (a VLM: each group's span of self layers and its cross
+layer), as the reference's remat wraps its scan body.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat import RematPolicy, apply_remat
 from repro_torch.device import torch_dtype
 from repro_torch.models import common as cm
 
@@ -64,15 +70,22 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
     return (cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1)
 
 
-def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
+def _self_block_aux(p, x, cfg: ModelConfig, positions, cache=None,
+                    seg_lens=None):
+    """One self-attention layer -> (x, the MoE layer's aux loss, None for
+    a dense layer)."""
     x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
                           positions, cache, seg_lens=seg_lens)
     h = cm.apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        m, _ = cm.apply_moe(p["moe"], h, cfg)    # aux loss: training only
+        m, aux = cm.apply_moe(p["moe"], h, cfg)
     else:
-        m = cm.apply_mlp(p["mlp"], h, cfg)
-    return x + m
+        m, aux = cm.apply_mlp(p["mlp"], h, cfg), None
+    return x + m, aux
+
+
+def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
+    return _self_block_aux(p, x, cfg, positions, cache, seg_lens)[0]
 
 
 def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache):
@@ -80,6 +93,34 @@ def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache):
                           positions, cache, kv_src=vis, causal=False,
                           use_rope=False)
     return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg)
+
+
+def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
+                   remat: RematPolicy):
+    """The training stack: every layer over the whole block, no cache;
+    -> (x, the MoE layers' summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.cross_attn_every:
+        def group_body(h, self_layers, cross_layer, vis):
+            for lp in self_layers:       # the VLM family has no MoE
+                h = _self_block(lp, h, cfg, positions, None)
+            return _cross_block(cross_layer, h, cfg, positions, vis, None)
+
+        body = apply_remat(group_body, remat)
+        for group, cross in zip(params["self_layers"],
+                                params["cross_layers"]):
+            x = body(x, group, cross, vis)
+        return x, aux
+
+    def layer_body(h, lp):
+        return _self_block_aux(lp, h, cfg, positions)
+
+    body = apply_remat(layer_body, remat)
+    for lp in params["layers"]:
+        x, da = body(x, lp)
+        if da is not None:
+            aux = aux + da
+    return x, aux
 
 
 def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
@@ -194,11 +235,36 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
+def forward(params, tokens, cfg: ModelConfig, vis=None,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    """tokens (b, s) -> (logits (b, s, padded vocab), aux loss)."""
+    s = tokens.shape[1]
+    x = cm.embed(params["embed"], tokens)
+    if cfg.cross_attn_every:
+        if vis is None:
+            raise ValueError("a VLM forward needs the vision tokens (vis=)")
+        vis = vis.to(device=x.device, dtype=x.dtype) @ params["vis_proj"]
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    x, aux = _stack_nocache(params, x, cfg, positions, vis, remat)
+    x = cm.apply_norm(params["ln_f"], x, cfg)
+    return cm.unembed(params["embed"], x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    logits, aux = forward(params, batch["tokens"], cfg, vis=batch.get("vis"),
+                          remat=remat)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
     vlm = bool(cfg.cross_attn_every)
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),
+        forward=functools.partial(forward, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg=cfg, device=device),
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),

@@ -1,5 +1,6 @@
-"""Whisper-style encoder-decoder backbone (the serving path of
-``repro.models.whisper``; arXiv:2212.04356).
+"""Whisper-style encoder-decoder backbone (the port of
+``repro.models.whisper``, training's ``forward``/``loss`` and the serving
+path; arXiv:2212.04356).
 
 The conv audio front end is a stub, as in the reference: the caller gives
 frame embeddings (b, enc_seq, d) and ``encode`` adds sinusoidal positions.
@@ -13,6 +14,9 @@ Parameters are the reference's with the stacked ``enc_layers`` and
 (L, b, enc_seq, hkv, dh), which ``fill_source`` computes once from the
 frames (the encoder and each layer's ``wk``/``wv``, no bias, as the
 reference's) and every step only reads, and the ragged cursors.
+``forward`` encodes the frames and runs the decoder over the whole block
+with no cache, cross-attending to the encoder states; the activation
+policy wraps each encoder and each decoder layer.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat import RematPolicy, apply_remat
 from repro_torch.device import torch_dtype
 from repro_torch.models import common as cm
 
@@ -66,17 +71,24 @@ def init(gen: torch.Generator, cfg: ModelConfig, device):
     }
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """frames: stub embeddings (b, s_enc, d) -> encoder states."""
+def _enc_block(lp, x, cfg: ModelConfig, positions):
+    x = x + cm.apply_attn(lp["attn"], cm.apply_norm(lp["ln1"], x, cfg), cfg,
+                          positions, causal=False, use_rope=False)
+    return x + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln2"], x, cfg), cfg)
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           remat: RematPolicy = RematPolicy.SAVE_DOTS) -> torch.Tensor:
+    """frames: stub embeddings (b, s_enc, d) -> encoder states.  ``remat``
+    wraps each layer when grad mode is on (it is a no-op without it)."""
     b, s, d = frames.shape
     dt = torch_dtype(cfg.dtype)
     x = frames.to(dt) + _sinusoid(s, d, frames.device).to(dt)
     positions = torch.arange(s, device=frames.device)[None, :]
+    body = apply_remat(functools.partial(_enc_block, cfg=cfg,
+                                         positions=positions), remat)
     for lp in params["enc_layers"]:
-        x = x + cm.apply_attn(lp["attn"], cm.apply_norm(lp["ln1"], x, cfg),
-                              cfg, positions, causal=False, use_rope=False)
-        x = x + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln2"], x, cfg),
-                             cfg)
+        x = body(lp, x)
     return cm.apply_norm(params["ln_enc"], x, cfg)
 
 
@@ -166,10 +178,50 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
+def _train_dec_block(lp, h, enc_out, cfg: ModelConfig, positions):
+    """A decoder layer with no cache: causal self-attention over the block,
+    cross-attention projecting ``enc_out`` through ``wk``/``wv``."""
+    h = h + cm.apply_attn(lp["self_attn"], cm.apply_norm(lp["ln1"], h, cfg),
+                          cfg, positions, use_rope=False)
+    h = h + cm.apply_attn(lp["cross_attn"], cm.apply_norm(lp["ln2"], h, cfg),
+                          cfg, positions, kv_src=enc_out, causal=False,
+                          use_rope=False)
+    return h + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln3"], h, cfg), cfg)
+
+
+def forward(params, tokens, cfg: ModelConfig, frames=None,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    """tokens (b, s), frames (b, s_enc, d) -> (logits, aux = 0)."""
+    if frames is None:
+        raise ValueError("a whisper forward needs the encoder frames "
+                         "(frames=)")
+    enc_out = encode(params, frames.to(tokens.device), cfg, remat)
+    s = tokens.shape[1]
+    x = cm.embed(params["embed"], tokens) + params["dec_pos"][None, :s]
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    body = apply_remat(functools.partial(_train_dec_block, cfg=cfg,
+                                         positions=positions), remat)
+    for lp in params["dec_layers"]:
+        x = body(lp, x, enc_out)
+    x = cm.apply_norm(params["ln_f"], x, cfg)
+    return (cm.unembed(params["embed"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params, batch, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          frames=batch["frames"], remat=remat)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),
+        forward=functools.partial(forward, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg=cfg, device=device),
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),

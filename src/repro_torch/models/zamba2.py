@@ -1,6 +1,6 @@
 """Zamba2-style hybrid: a Mamba-2 backbone plus ONE shared attention block
-applied after every k SSM layers, the serving path of
-``repro.models.zamba2`` (arXiv:2411.15242).
+applied after every k SSM layers, the port of ``repro.models.zamba2``
+(arXiv:2411.15242): training's ``forward``/``loss`` and the serving path.
 
 The reference's simplifications are kept (DESIGN.md §5): the shared block
 works at d_model and has no per-invocation LoRA deltas.  Its weights are
@@ -10,7 +10,8 @@ dh) or a paged pool (g, N + 1, page_size, hkv, dh) with one page table for
 all invocations (the extra unit is the sink of dropped rows,
 ``models.common``).  The reference's ``_group_view`` reshape becomes index
 arithmetic: group i runs layers i*k .. i*k + k - 1, then the shared block
-over KV cache i.
+over KV cache i.  ``forward`` runs the same groups with no cache, the
+activation policy wrapping each group's body.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat import RematPolicy, apply_remat
 from repro_torch.device import torch_dtype
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2 as mb
@@ -99,10 +101,40 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
+def forward(params, tokens, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    """tokens (b, s) -> (logits, aux = 0)."""
+    k = cfg.shared_attn_every
+    x = cm.embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+
+    def group_body(h, group, shared):
+        for lp in group:
+            h = mb.mamba_block(lp, h, cfg)
+        return _shared_block(shared, h, cfg, positions, None)
+
+    body = apply_remat(group_body, remat)
+    layers = params["layers"]
+    for gi in range(cfg.n_layers // k):
+        x = body(x, layers[gi * k:gi * k + k], params["shared"])
+    x = cm.apply_norm(params["ln_f"], x, cfg)
+    return (cm.unembed(params["embed"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params, batch, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),
+        forward=functools.partial(forward, cfg=cfg),
+        loss=functools.partial(loss_fn, cfg=cfg),
         init_cache=functools.partial(init_cache, cfg=cfg, device=device),
         prefill=functools.partial(prefill, cfg=cfg),
         decode_step=functools.partial(decode_step, cfg=cfg),
