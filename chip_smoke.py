@@ -217,6 +217,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    losses, every gradient reached, step ms, tokens/s, model TFLOP/s, peak
    memory; ``train_resume``, loop.run 3 steps + checkpoint + restore + 3
    against 6 straight at 2 layers (restore and batches bitwise);
+25. ``suite``: the paper's 17 workloads (``workloads.suite``) costed by the
+   H100 policy engine's model under each static mode beside adaptive's
+   (how many of the 17 adaptive matches within 5 %: recorded, not gated),
+   and the runnables (relu, softmax, the 3 x 3 stride-2 pool, the GEMMs,
+   DGEMM in float32 and float64) on the card against the CPU on the same
+   inputs, fp32 within TOL with TF32 off;
+26. ``sp_decode``: sequence-parallel decode (``distributed.sp_decode``)
+   at yi-9b's attention width (32/4 heads of 128, bf16): 4 spawned ranks
+   share the card over gloo (NCCL will not put two ranks on one device),
+   each running the split-KV kernel over its quarter of the sequence (one
+   launch a rank, counted there; no plain call), merged by a log-sum-exp
+   all-reduce through the host; long_500k (b 1, 524288 tokens, 1.07 GB of
+   K/V) and a ragged b 4 case whose last shard holds no live position;
+   V's rows carry a ramp in position so the output is O(1); each slot
+   within bf16 3e-2 of its largest |output| against the one-rank kernel
+   over the whole cache and its plain version, each rank's merged
+   partials against the plain ones of its shard; the ranks' local
+   kernel, merge and whole ms beside the one-rank kernel's and the bound;
+27. ``train_dp``: data-parallel ZeRO-1 training (``train.step`` over a
+   (2, 1) mesh) at minicpm-2b's full width, 2 spawned ranks on the card
+   over gloo: fp32 at 2 layers, one step equal to the one-process step on
+   the same global batch (loss rtol 1e-4, params 5e-3, the gathered first
+   moments 1e-3 of each leaf's largest), parameters bitwise across ranks
+   (checksums of their bits), each rank's moments half the bytes, the
+   ranks' checkpoint restored in a one-rank layout bitwise; bf16 cut to 8
+   layers, 3 steps with the step's fp32 gradient all-reduce and 3 with
+   each gradient averaged by ``compressed_all_reduce`` (step and
+   all-reduce ms, payload bytes, moment bytes, the loss gap);
 and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
 cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
 and the bound.  Every phase line carries ``at_s``, the seconds since the
@@ -3773,6 +3801,681 @@ def phase_train_resume(gpu: str, seed: int, cfg, cut: str, batch: int = 2,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The paper's workload suite, sequence-parallel decode, data-parallel training
+# ---------------------------------------------------------------------------
+
+def phase_suite(gpu: str, seed: int) -> dict:
+    """The paper's 17 workloads (``workloads.suite``): each one's ops costed
+    by the H100 policy engine's model under every static mode (modeled ms
+    of each beside adaptive's, the class it assigns beside the paper's)
+    and how many of the 17 adaptive matches (within 5 % of the best static
+    mode, ``examples/policy_explorer.py``'s check; counted, not gated);
+    then every runnable on the card against the same inputs on the CPU,
+    fp32 within TOL with TF32 off (DGEMM also in float64, ``x64``)."""
+    from repro_torch import hw
+    from repro_torch.core.characterize import classify_workload
+    from repro_torch.core.cost_model import workload_cost
+    from repro_torch.core.policy import StaticMode
+    from repro_torch.workloads.suite import build_suite
+
+    t_phase = time.perf_counter()
+    static = (StaticMode.UNCACHED, StaticMode.CACHER, StaticMode.CACHERW)
+    rows, matches = [], 0
+    for name, w in build_suite().items():
+        cost = {m: workload_cost(w.ops, mode=m, chip=hw.H100,
+                                 launches_per_op=1) for m in StaticMode}
+        best = min(static, key=lambda m: cost[m].t_total)
+        adaptive = cost[StaticMode.ADAPTIVE].t_total
+        match = adaptive <= cost[best].t_total * 1.05
+        matches += match
+        rows.append({"workload": name,
+                     "class": classify_workload(w.ops, chip=hw.H100).value,
+                     "paper_class": w.expected.value,
+                     "modeled_ms": {m.value: cost[m].t_total * 1e3
+                                    for m in StaticMode},
+                     "best_static": best.value,
+                     "adaptive_over_best": adaptive / cost[best].t_total,
+                     "adaptive_matches": bool(match)})
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = []
+    try:
+        for x64 in (False, True):
+            for name, w in build_suite(x64=x64).items():
+                if w.runnable is None or (x64 and name != "DGEMM"):
+                    continue
+                xs = w.runnable.inputs(torch.Generator().manual_seed(seed))
+                want = w.runnable.compute(*xs)
+                dev = [x.to(DEV) for x in xs]
+                got = w.runnable.compute(*dev)
+                if got.dtype != want.dtype or got.shape != want.shape:
+                    raise AssertionError(f"suite {name}: {got.dtype} "
+                                         f"{tuple(got.shape)} on the card")
+                err = check_close(f"suite {name}", got.cpu(), want,
+                                  torch.float32)
+                runs.append({"workload": name, "dtype": str(got.dtype),
+                             "shape": list(got.shape), "max_abs_err": err,
+                             "ms": time_ms(lambda: w.runnable.compute(*dev))
+                             if DEV == "cuda" else None})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32["matmul"]
+        torch.backends.cudnn.allow_tf32 = tf32["cudnn"]
+    out = {"phase": "suite", "gpu": gpu, "chip_model": "h100",
+           "adaptive_matches": matches, "workloads": len(rows),
+           "rows": rows, "runnables": runs,
+           "tf32": {"during_gate": False, "before": tf32},
+           "tol": list(TOL[torch.float32]),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+SP_RANKS = 4
+# (case, batch, sequence, lengths; None = every slot full).  long_500k is
+# yi-9b's attention at the configs' long_500k shape; the ragged case
+# leaves the last shard with no live position in any slot.
+SP_CASES = (("long_500k", 1, 524288, None),
+            ("ragged_b4", 4, 131072, (98304, 70000, 33000, 5)))
+SP_HEADS = (32, 4, 128)            # yi-9b: query heads, KV heads, head dim
+SP_TOL = 3e-2                      # bf16, the reference's (tests/test_kernels)
+SP_PARTIAL_TOL = 1e-2              # a shard's fp32 (acc, l) vs the plain's
+SP_M_TOL = 1e-3                    # a shard's fp32 running max vs the plain's
+SP_RAMP = 4.0                      # V's mean rises 0 -> SP_RAMP over the cache
+
+
+def _sp_inputs(seed: int, case: int, b: int, s: int, lengths, device,
+               dtype=torch.bfloat16):
+    """q and lengths of a case (the same on every rank), and a function
+    giving shard r's K and V: each drawn from its own seeded generator on
+    ``device``, so the ranks and the one-rank run build the same cache.
+
+    V's rows are N(0, 1) plus ``SP_RAMP * position / s``: the output is a
+    softmax-weighted mean over up to 524288 rows, which for zero-mean rows
+    would sit near 0 (a zero output or a dropped shard inside any
+    tolerance); with the ramp it is O(1) and says where the mass was."""
+    hq, hkv, d = SP_HEADS
+    g = torch.Generator(device=device).manual_seed(seed * 1000 + case)
+    q = torch.randn((b, hq, d), generator=g, device=device, dtype=dtype)
+    lens = torch.tensor(lengths or (s,) * b, dtype=torch.int32,
+                        device=device)
+    s_local = s // SP_RANKS
+
+    def shard(r):
+        gr = torch.Generator(device=device).manual_seed(
+            seed * 1000 + case * 16 + r + 1)
+        k, v = (torch.randn((b, hkv, s_local, d), generator=gr,
+                            device=device, dtype=dtype) for _ in range(2))
+        pos = torch.arange(r * s_local, (r + 1) * s_local, device=device)
+        v += (SP_RAMP * pos / s).to(dtype)[None, None, :, None]
+        return k, v
+    return q, lens, shard
+
+
+def _sp_err(got, want) -> float:
+    """The largest over slots of max |got - want| / max |want| within the
+    slot (0 where both are 0; an empty shard's m = -1e30 compared
+    exactly).  Inf if ``got`` is not finite where ``want`` is."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or bool(
+            (torch.isfinite(want) & ~torch.isfinite(got)).any()):
+        return math.inf
+    err = (got - want).abs().reshape(want.shape[0], -1).amax(dim=1)
+    size = want.abs().reshape(want.shape[0], -1).amax(dim=1)
+    return max((e / z if z > 0 else (0.0 if e == 0 else math.inf))
+               for e, z in zip(err.tolist(), size.tolist()))
+
+
+def _sp_m_err(got, want) -> float:
+    """max |got - want| of two running maxima; -1e30 (no live position)
+    must match exactly."""
+    dead = want <= -1e29
+    if not torch.equal(got <= -1e29, dead):
+        return math.inf
+    return (got - want).abs().masked_fill(dead, 0).max().item()
+
+
+def _sp_splits(b: int, ranks: int) -> int:
+    """Splits a rank's kernel takes: about 128 blocks a rank (b x KV heads
+    x splits), so the four ranks together fill the card's 132 SMs ~4x."""
+    return max(1, 128 // (b * SP_HEADS[1])) * (SP_RANKS // ranks)
+
+
+def _sp_rank(rank: int, world: int, tmp: str, seed: int, device: str,
+             cases, reps: int) -> None:
+    """One rank of the sp_decode phase (a spawned process): its shard of
+    each case's cache, ``sp_decode_attention`` once with the counters
+    zeroed (its launches), then the local kernel, the merge and the whole
+    timed ``reps`` times in lockstep; the result to ``tmp``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sp_decode as sp
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/sp.store",
+                            rank=rank, world_size=world)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = []
+    try:
+        for i, (name, b, s, lengths) in enumerate(cases):
+            q, lens, shard = _sp_inputs(seed, i, b, s, lengths, device)
+            k, v = shard(rank)
+            splits = _sp_splits(b, SP_RANKS)
+            scale = q.shape[-1] ** -0.5
+            sync()
+            dist.barrier()
+            dk.reset_counters()
+            staged0 = dict(collectives.STAGED)
+            got = sp.sp_decode_attention(q, k, v, lens, splits=splits)
+            sync()
+            launches = dk.decode_attention.launches
+            plain = dk.decode_attention_plain.calls
+            staged = {key: collectives.STAGED[key] - staged0[key]
+                      for key in staged0}
+            local_len = sp.local_lengths(lens, rank * k.shape[2], k.shape[2])
+            # This rank's merged partials, the kernel's and the plain
+            # version's on the same shard (launches not counted above).
+            bkv = min(512, k.shape[2])
+            part = sp.merge_splits(*dk.decode_attention_partials(
+                q, k, v, local_len, scale=scale, bkv=bkv, splits=splits))
+            part_plain = sp.merge_splits(*dk.decode_attention_partials_plain(
+                q, k, v, local_len, scale=scale, bkv=bkv, splits=splits))
+            times = {"kernel": [], "merge": [], "whole": []}
+            for _ in range(reps):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                parts = dk.decode_attention_partials(
+                    q, k, v, local_len, scale=scale, bkv=bkv, splits=splits)
+                sync()
+                t1 = time.perf_counter()
+                sp.merge_partials(*sp.merge_splits(*parts))
+                sync()
+                t2 = time.perf_counter()
+                dist.barrier()
+                sync()
+                t3 = time.perf_counter()
+                sp.sp_decode_attention(q, k, v, lens, splits=splits)
+                sync()
+                t4 = time.perf_counter()
+                times["kernel"].append((t1 - t0) * 1e3)
+                times["merge"].append((t2 - t1) * 1e3)
+                times["whole"].append((t4 - t3) * 1e3)
+            out.append({"case": name, "out": got.cpu(), "launches": launches,
+                        "plain_calls": plain, "splits": splits,
+                        "partials": [t.cpu() for t in part],
+                        "partials_plain": [t.cpu() for t in part_plain],
+                        "staged": staged,
+                        **{f"{k_}_ms": statistics.median(t)
+                           for k_, t in times.items()}})
+            del k, v
+        torch.save(out, f"{tmp}/sp_rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, world: int, *args) -> None:
+    import torch.multiprocessing as mp
+
+    mp.start_processes(fn, args=(world, *args), nprocs=world,
+                       start_method="spawn")
+
+
+def phase_sp_decode(gpu: str, seed: int, cases=SP_CASES,
+                    reps: int = 5) -> dict:
+    """Sequence-parallel decode (``distributed.sp_decode``) at yi-9b's
+    attention width: 4 ranks share the card over gloo (NCCL will not put
+    two ranks on one device; the collectives stage their few KB through
+    the host), each holding a quarter of the cache's sequence and running
+    the split-KV kernel over it (its launches counted, no plain call),
+    merged across ranks.  V's rows carry a ramp in position
+    (:func:`_sp_inputs`), so the output is O(1).  Each slot held within
+    bf16 3e-2 of its largest |output| against the one-rank kernel over the
+    whole cache and the plain version, and each rank's merged (acc, m, l)
+    against the plain version's partials of its shard; the ranks' local
+    kernel, merge and whole ms (host clock, lockstep, the four ranks'
+    kernels overlapping on the card) beside the one-rank kernel's device
+    ms and the bound (K and V read once).  The kernels were built before the
+    ranks were spawned."""
+    import tempfile
+
+    from repro_torch.distributed import sp_decode as sp
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(_sp_rank, SP_RANKS, tmp, seed, DEV, cases, reps)
+        ranks_s = time.perf_counter() - t0
+        per_rank = [torch.load(f"{tmp}/sp_rank{r}.pt", weights_only=False)
+                    for r in range(SP_RANKS)]
+    rows, total = [], 0
+    for i, (name, b, s, lengths) in enumerate(cases):
+        q, lens, shard = _sp_inputs(seed, i, b, s, lengths, DEV)
+        kv = [shard(r) for r in range(SP_RANKS)]
+        k = torch.cat([x[0] for x in kv], dim=2)
+        v = torch.cat([x[1] for x in kv], dim=2)
+        del kv
+        splits = _sp_splits(b, 1)
+        whole = dk.decode_attention(q, k, v, lens, splits=splits).float().cpu()
+        plain = sp.reference(q, k, v, lens).float().cpu()
+        res = [rk[i] for rk in per_rank]
+        # On the card one launch a rank and no plain call (a CPU rehearsal
+        # takes the plain version: the wrapper's CPU branch).
+        want_calls = (1, 0) if DEV == "cuda" else (0, 1)
+        for r, rr in enumerate(res):
+            if (rr["launches"], rr["plain_calls"]) != want_calls:
+                raise AssertionError(
+                    f"sp_decode {name}: rank {r} launched the kernel "
+                    f"{rr['launches']} times, plain version "
+                    f"{rr['plain_calls']} times (want {want_calls})")
+            for label, want in (("one-rank kernel", whole),
+                                ("plain version", plain)):
+                err = _sp_err(rr["out"], want)
+                if not err <= SP_TOL:
+                    raise AssertionError(
+                        f"sp_decode {name}: rank {r} vs the {label}: error "
+                        f"{err:.3e} of the slot's largest |output|, beyond "
+                        f"{SP_TOL}")
+            (acc, m, l), (acc_p, m_p, l_p) = (rr["partials"],
+                                              rr["partials_plain"])
+            perr = max(_sp_err(acc, acc_p), _sp_err(l, l_p))
+            merr = _sp_m_err(m, m_p)
+            if not (perr <= SP_PARTIAL_TOL and merr <= SP_M_TOL):
+                raise AssertionError(
+                    f"sp_decode {name}: rank {r}'s partials vs the plain "
+                    f"version's on its shard: (acc, l) error {perr:.3e} "
+                    f"(limit {SP_PARTIAL_TOL}), m error {merr:.3e} (limit "
+                    f"{SP_M_TOL})")
+        if any(not torch.equal(rr["out"], res[0]["out"]) for rr in res):
+            raise AssertionError(f"sp_decode {name}: ranks disagree")
+        kv_bytes = 2 * k.numel() * k.element_size()
+        live = [min(n, s) for n in (lengths or (s,) * b)]
+        live_bytes = kv_bytes * sum(live) / (b * s)
+        one_ms = plain_ms = library_ms = None
+        if DEV == "cuda":
+            import torch.nn.functional as F
+
+            mask = (torch.arange(s, device=DEV)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            one_ms = time_ms(lambda: dk.decode_attention_partials(
+                q, k, v, lens, splits=splits))
+            plain_ms = time_ms(lambda: sp.reference(q, k, v, lens), reps=5)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+            del mask
+        empty = [r for r in range(SP_RANKS)
+                 if all(n <= r * (s // SP_RANKS) for n in live)]
+        total += sum(rr["launches"] for rr in res)
+        rows.append({
+            "case": name, "batch": b, "seq": s, "lengths": live,
+            "heads": list(SP_HEADS), "dtype": "bfloat16",
+            "ranks": SP_RANKS, "splits_a_rank": res[0]["splits"],
+            "one_rank_splits": splits, "empty_shards": empty,
+            "kv_bytes": kv_bytes, "live_kv_bytes": live_bytes,
+            "max_abs_err_vs_one_rank": max(
+                (rr["out"].float() - whole).abs().max().item() for rr in res),
+            "max_abs_err_vs_plain": max(
+                (rr["out"].float() - plain).abs().max().item() for rr in res),
+            "max_rel_err_vs_one_rank": max(_sp_err(rr["out"], whole)
+                                           for rr in res),
+            "max_rel_err_vs_plain": max(_sp_err(rr["out"], plain)
+                                        for rr in res),
+            "largest_abs_output": plain.abs().max().item(),
+            "partials_rel_err": max(
+                max(_sp_err(rr["partials"][j], rr["partials_plain"][j])
+                    for j in (0, 2)) for rr in res),
+            "partials_m_abs_err": max(
+                _sp_m_err(rr["partials"][1], rr["partials_plain"][1])
+                for rr in res),
+            "launches_a_rank": [rr["launches"] for rr in res],
+            "local_kernel_ms": [rr["kernel_ms"] for rr in res],
+            "merge_ms": [rr["merge_ms"] for rr in res],
+            "whole_ms": [rr["whole_ms"] for rr in res],
+            "one_rank_kernel_ms": one_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "staged_through_host": res[0]["staged"]})
+        del k, v
+        torch.cuda.empty_cache() if DEV == "cuda" else None
+    out = {"phase": "sp_decode", "gpu": gpu, "backend": "gloo",
+           "host_staged": "gloo takes host tensors: every collective copies "
+                          "its CUDA tensor to the host and back "
+                          "(collectives.all_reduce); the kernel and the "
+                          "merge's arithmetic run on the card",
+           "timing": "ranks: host clock around synchronised calls, median "
+                     "of reps, the 4 ranks' kernels running at once on one "
+                     "card; one_rank_kernel_ms (the kernel's partials over "
+                     "the whole cache), plain_ms (its plain version with "
+                     "the merge) and library_ms (SDPA, enable_gqa, a "
+                     "length mask): CUDA graph replay (time_ms)",
+           "tol": {"out": f"{SP_TOL} of the slot's largest |output|",
+                   "partials": f"acc, l {SP_PARTIAL_TOL} of the slot's "
+                               f"largest; m {SP_M_TOL} absolute"},
+           "v_ramp": SP_RAMP, "rows": rows, "launches": total,
+           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+DP_RANKS = 2
+# The gate's moments after one step, (1 - b1) * the reduced gradient, held
+# leaf by leaf within this share of the leaf's largest |mu| of the
+# one-process step's: a step on one rank's rows alone is O(1) off.
+DP_MU_TOL = 1e-3
+
+
+def _checksum(t: torch.Tensor) -> list[int]:
+    """Two integer sums of a tensor's bit pattern (plain and position
+    weighted): equal tensors give equal checksums."""
+    bits = t.detach().contiguous().view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()]).reshape(-1).long()
+    w = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+    return [int(bits.sum()), int((bits * w).sum())]
+
+
+def _dp_rank(rank: int, world: int, tmp: str, seed: int, device: str,
+             gate_cfg, measured_cfg, gate_shape, measured_shape,
+             steps: int) -> None:
+    """One rank of the train_dp phase (a spawned process).  gate: one
+    ZeRO-1 step at ``gate_cfg`` (fp32) over the two ranks; rank 0 then
+    takes the one-process step on the same global batch and compares
+    (loss, parameters, the gathered first moments); a checkpoint written
+    by the two ranks is restored by rank 0 alone (one rank's layout) and
+    compared bitwise.  measured: ``steps`` ZeRO-1 steps at
+    ``measured_cfg`` (bf16) through ``train_step`` (gradients all-reduced
+    in fp32), then the same steps with each gradient averaged by
+    ``collectives.compressed_all_reduce`` instead (:func:`_int8_steps`)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.remat import RematPolicy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step, state_shardings)
+    from repro_torch.utils import tree
+
+    torch.set_num_threads(4)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/dp.store",
+                            rank=rank, world_size=world)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mesh = make_local_mesh(world, 1)
+    adamw = opt.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    res = {}
+    try:
+        # --- the fp32 gate ---------------------------------------------
+        tcfg = TrainConfig(adamw=adamw, zero1=True,
+                           remat=RematPolicy.SAVE_DOTS)
+        step, model = make_train_step(gate_cfg, tcfg, device, mesh)
+        gen = torch.Generator(device=device).manual_seed(seed + 71)
+        state = init_train_state(model, gen, mesh, zero1=True)
+        shard = state_shardings(gate_cfg, mesh, state, zero1=True)
+        batch = SyntheticLM(gate_cfg, batch=gate_shape[0], seq=gate_shape[1],
+                            seed=seed)(0)
+        state, m = step(state, batch)
+        sync()
+        res["gate_loss"] = float(m["loss"])
+        res["gate_checksums"] = [_checksum(p) for p in
+                                 tree.leaves(state["params"])]
+        full_mu = sum(p.numel() * 4 for p in tree.leaves(state["params"]))
+        res["gate_moment_bytes"] = {
+            "rank": sum(t.numel() * 4 for t in tree.leaves(state["opt"]["mu"])),
+            "full": full_mu}
+        ck_dir = f"{tmp}/dp_ckpt"
+        t0 = time.perf_counter()
+        ckpt.save(state, ck_dir, step=1, shardings=shard)
+        res["ckpt_save_s"] = time.perf_counter() - t0
+        gathered = ckpt.gather_state(state, shard)
+        if rank == 0:
+            # One process, the same global batch and initial parameters.
+            one_step, one_model = make_train_step(
+                gate_cfg, dataclasses.replace(tcfg, zero1=False), device)
+            one = init_train_state(
+                one_model, torch.Generator(device=device).manual_seed(
+                    seed + 71))
+            one, m1 = one_step(one, batch)
+            res["one_process_loss"] = float(m1["loss"])
+            res["param_max_abs_diff"] = max(
+                (a.detach().float() - b.detach().float()).abs().max().item()
+                for a, b in zip(tree.leaves(state["params"]),
+                                tree.leaves(one["params"])))
+            res["param_close"] = all(
+                bool(torch.allclose(a.detach().float(), b.detach().float(),
+                                    rtol=5e-3, atol=5e-3))
+                for a, b in zip(tree.leaves(state["params"]),
+                                tree.leaves(one["params"])))
+            # mu = (1 - b1) * the reduced gradient: each leaf's error as a
+            # share of the leaf's largest |mu|.
+            res["mu_rel_err"] = max(
+                ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(tree.leaves(gathered["opt"]["mu"]),
+                                tree.leaves(one["opt"]["mu"])))
+            del one
+            # 2 -> 1: the two ranks' checkpoint in a one-rank layout.
+            template = init_train_state(
+                one_model, torch.Generator(device=device).manual_seed(0))
+            t0 = time.perf_counter()
+            restored, at = ckpt.restore(ck_dir, template=template,
+                                        in_place=True)
+            sync()
+            res["ckpt_restore_s"] = time.perf_counter() - t0
+            res["elastic_bitwise"] = at == 1 and all(
+                torch.equal(a.detach(), b.detach()) for a, b in zip(
+                    tree.leaves(restored), tree.leaves(gathered)))
+            res["ckpt_bytes"] = sum(
+                os.path.getsize(os.path.join(ck_dir, "step_00000001", f))
+                for f in os.listdir(os.path.join(ck_dir, "step_00000001")))
+            del restored, template
+        del state, gathered, step, model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        # --- the bf16 measured arms --------------------------------------
+        data = SyntheticLM(measured_cfg, batch=measured_shape[0],
+                           seq=measured_shape[1], seed=seed)
+        tcfg = TrainConfig(adamw=adamw, zero1=True,
+                           remat=RematPolicy.SAVE_DOTS)
+        for arm in ("fp32_reduce", "int8"):
+            step, model = make_train_step(measured_cfg, tcfg, device, mesh)
+            state = init_train_state(
+                model, torch.Generator(device=device).manual_seed(seed + 73),
+                mesh, zero1=True)
+            if arm == "int8":
+                rows = _int8_steps(model, state, data, steps, tcfg, mesh,
+                                   device)
+            else:
+                rows = []
+                for i in range(steps):
+                    dist.barrier()
+                    sync()
+                    t0 = time.perf_counter()
+                    state, m = step(state, data(i))
+                    loss = float(m["loss"])
+                    rows.append({"loss": loss,
+                                 "ms": (time.perf_counter() - t0) * 1e3,
+                                 "reduce_ms":
+                                     step.collective["seconds"] * 1e3,
+                                 "payload_bytes":
+                                     step.collective["payload_bytes"]})
+            res[arm] = {
+                "steps": rows,
+                "moment_bytes_rank": sum(
+                    t.numel() * 4 for k in ("mu", "nu")
+                    for t in tree.leaves(state["opt"][k])),
+                "moment_bytes_full": 2 * sum(
+                    p.numel() * 4 for p in tree.leaves(state["params"])),
+                "checksums_first_last": [
+                    _checksum(tree.leaves(state["params"])[j])
+                    for j in (0, -1)]}
+            del state, step, model
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(res, f"{tmp}/dp_rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _int8_steps(model, state, data, steps: int, tcfg, mesh, device
+                ) -> list[dict]:
+    """``steps`` data-parallel ZeRO-1 steps as ``train_step`` takes them,
+    but with each gradient averaged over the ranks by
+    ``collectives.compressed_all_reduce`` (int8 on the wire, a shared
+    scale, the residuals fed back into the next step's gradient and held
+    here for this run only).  Each step's loss (the ranks' mean), ms,
+    reduce ms and the int8 bytes this rank sent."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import batch_to_device, state_shardings
+    from repro_torch.utils import tree
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    group, n = mesh.get_group("data"), mesh.size(0)
+    rank = mesh.get_local_rank("data")
+    params = state["params"]
+    leaves = tree.leaves(params)
+    moments = state_shardings(model.config, mesh, state,
+                              zero1=True)["opt"]["mu"]
+    errors = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+    rows = []
+    for i in range(steps):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        batch = batch_to_device(data(i), device)
+        per = next(iter(batch.values())).shape[0] // n
+        batch = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        for p in leaves:
+            p.grad = None
+        loss, _ = model.loss(params, batch, remat=tcfg.remat)
+        loss.backward()
+        t1 = time.perf_counter()
+        grads = []
+        for j, p in enumerate(leaves):
+            red, errors[j] = collectives.compressed_all_reduce(
+                p.grad, errors[j], group)
+            grads.append(red.to(p.grad.dtype))
+        sync()
+        reduce_s = time.perf_counter() - t1
+        opt.apply_updates(params, grads, state["opt"], tcfg.adamw,
+                          shardings=moments)
+        loss = float(collectives.all_reduce(loss.detach().clone(),
+                                            group=group)) / n
+        rows.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                     "reduce_ms": reduce_s * 1e3,
+                     "payload_bytes": sum(p.numel() for p in leaves)})
+    return rows
+
+
+def phase_train_dp(gpu: str, seed: int, gate_cfg, measured_cfg, cut: str,
+                   gate_shape=(4, 512), measured_shape=(4, 1024),
+                   steps: int = 3) -> dict:
+    """Data-parallel ZeRO-1 training (``train.step`` over a ``(data, 1)``
+    mesh) at minicpm-2b's full width, 2 ranks sharing the card over gloo
+    (the gradients, parameter blocks and checkpoint gathers staged through
+    the host).  fp32 gate at ``gate_cfg``'s depth: one step equal to the
+    one-process step on the same global batch (loss rtol 1e-4, parameters
+    5e-3, the gathered first moments within ``DP_MU_TOL`` of each leaf's
+    largest), parameters bitwise across ranks (bit-pattern checksums), each
+    rank's moments half the full bytes, and the ranks' checkpoint
+    restored in a one-rank layout bitwise.  Measured at ``measured_cfg``'s
+    (cut) depth in bf16: ``steps`` steps with the fp32 all-reduce, then
+    with the int8 compressed one; step ms, all-reduce ms (host clock,
+    staging included) and payload bytes, moment bytes, the loss gap."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(_dp_rank, DP_RANKS, tmp, seed, DEV, gate_cfg, measured_cfg,
+               gate_shape, measured_shape, steps)
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/dp_rank{r}.pt", weights_only=False)
+               for r in range(DP_RANKS)]
+    r0 = res[0]
+    gap = abs(r0["gate_loss"] - r0["one_process_loss"])
+    if (gap > 1e-4 * abs(r0["one_process_loss"]) or not r0["param_close"]
+            or not r0["mu_rel_err"] <= DP_MU_TOL):
+        raise AssertionError(
+            f"train_dp: the data-parallel step is not the one-process step "
+            f"(loss {r0['gate_loss']} vs {r0['one_process_loss']}, params "
+            f"max diff {r0['param_max_abs_diff']}, first moments "
+            f"{r0['mu_rel_err']:.3e} of a leaf's largest, limit "
+            f"{DP_MU_TOL})")
+    if any(r["gate_checksums"] != r0["gate_checksums"] for r in res):
+        raise AssertionError("train_dp: parameters differ across ranks")
+    for arm in ("fp32_reduce", "int8"):
+        if any(r[arm]["checksums_first_last"]
+               != r0[arm]["checksums_first_last"] for r in res):
+            raise AssertionError(f"train_dp {arm}: parameters differ "
+                                 f"across ranks")
+        losses = [s["loss"] for s in r0[arm]["steps"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_dp {arm}: non-finite loss {losses}")
+    if not r0["elastic_bitwise"]:
+        raise AssertionError("train_dp: the 2-rank checkpoint did not "
+                             "restore bitwise at 1 rank")
+    mb = r0["gate_moment_bytes"]
+    if mb["rank"] * DP_RANKS != mb["full"]:
+        raise AssertionError(f"train_dp: a rank holds {mb['rank']} moment "
+                             f"bytes of {mb['full']}")
+
+    def arm_line(arm):
+        rows = r0[arm]["steps"]
+        return {"losses": [s["loss"] for s in rows],
+                "step_ms": statistics.median(s["ms"] for s in rows[1:]),
+                "reduce_ms": statistics.median(s["reduce_ms"]
+                                               for s in rows[1:]),
+                "payload_bytes": rows[-1]["payload_bytes"],
+                "moment_bytes_rank": r0[arm]["moment_bytes_rank"],
+                "moment_bytes_full": r0[arm]["moment_bytes_full"],
+                "steps": rows}
+
+    fp32, int8 = arm_line("fp32_reduce"), arm_line("int8")
+    out = {"phase": "train_dp", "gpu": gpu, "arch": gate_cfg.arch,
+           "ranks": DP_RANKS, "backend": "gloo", "zero1": True,
+           "gate": {"n_layers": gate_cfg.n_layers, "dtype": gate_cfg.dtype,
+                    "batch": list(gate_shape),
+                    "loss": r0["gate_loss"],
+                    "one_process_loss": r0["one_process_loss"],
+                    "param_max_abs_diff": r0["param_max_abs_diff"],
+                    "mu_rel_err": r0["mu_rel_err"],
+                    "tol": f"loss rtol 1e-4, params 5e-3, first moments "
+                           f"{DP_MU_TOL} of each leaf's largest",
+                    "params_bitwise_across_ranks": True,
+                    "moment_bytes": mb,
+                    "elastic_2_to_1_bitwise": True,
+                    "ckpt_bytes": r0["ckpt_bytes"],
+                    "ckpt_save_s": r0["ckpt_save_s"],
+                    "ckpt_restore_s": r0["ckpt_restore_s"]},
+           "measured": {"n_layers": measured_cfg.n_layers,
+                        "dtype": measured_cfg.dtype, "cut": cut,
+                        "batch": list(measured_shape),
+                        "fp32_reduce": fp32, "int8": int8,
+                        "int8_payload_share": int8["payload_bytes"]
+                        / fp32["payload_bytes"],
+                        "loss_gap_after": abs(int8["losses"][-1]
+                                              - fp32["losses"][-1])},
+           "timing": "host clock; each step starts after a barrier; "
+                     "reduce_ms is the gradient collective with its host "
+                     "staging",
+           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
                 "fused_norm", "moe_gmm")
 
@@ -3846,7 +4549,8 @@ COUNTED = ("decode chunks (plain and speculative): the capture's "
            "(check_replay_kernels); prefill, the policy matmul and the "
            "trainer's kernel-route forward: at each launch; "
            "decode_attention: the cross-attention steps of the "
-           "fixed-source arms and the pallas_gather twins")
+           "fixed-source arms, the pallas_gather twins and sp_decode's "
+           "ranks (one launch a rank a case, counted in each rank)")
 
 
 def main() -> int:
@@ -4041,6 +4745,21 @@ def main() -> int:
         gpu, args.seed, dataclasses.replace(minicpm, n_layers=2),
         cut="n_layers 40 -> 2: a checkpoint's bytes (its write and read) "
             "and three train states")
+    torch.cuda.empty_cache()
+    # The paper's 17 workloads; sequence-parallel decode over 4 ranks that
+    # share the card (yi-9b's attention at long_500k); data-parallel
+    # ZeRO-1 training of minicpm-2b over 2 ranks.
+    phase_suite(gpu, args.seed)
+    sp = phase_sp_decode(gpu, args.seed)
+    served["sp_decode"] = {"launches": {
+        **{k: 0 for k in counts()}, "decode_dense": sp["launches"]}}
+    torch.cuda.empty_cache()
+    phase_train_dp(
+        gpu, args.seed,
+        dataclasses.replace(minicpm, n_layers=2, dtype="float32"),
+        dataclasses.replace(minicpm, n_layers=8),
+        cut="n_layers 40 -> 8 (the measured arm): two ranks' bf16 states "
+            "and fp32 gradients on one card, and the run's 1200 s limit")
     torch.cuda.empty_cache()
 
     def launched(*keys, runs=("launches",)):

@@ -130,11 +130,7 @@ def _paged_geometry(n_table: int, splits: int) -> int:
     return max(1, min(int(splits), n_table))
 
 
-def decode_attention_plain(q, k, v, lengths=None, *, scale=None, bkv=512,
-                           splits=1):
-    """Plain version of :func:`decode_attention` (q (b, hq, d); k/v
-    (b, hkv, s, d), any strides)."""
-    decode_attention_plain.calls += 1
+def _dense_partials_plain(q, k, v, lengths, scale, bkv, splits):
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     scale = float(scale if scale is not None else d ** -0.5)
@@ -149,12 +145,27 @@ def decode_attention_plain(q, k, v, lengths=None, *, scale=None, bkv=512,
         return (k[slot, :, pos].permute(0, 3, 1, 2, 4),
                 v[slot, :, pos].permute(0, 3, 1, 2, 4))
 
-    acc, m, l = _split_kv_plain(q, load_rows, lengths, hkv, splits, bkv, s,
-                                scale)
+    return _split_kv_plain(q, load_rows, lengths, hkv, splits, bkv, s, scale)
+
+
+def decode_attention_plain(q, k, v, lengths=None, *, scale=None, bkv=512,
+                           splits=1):
+    """Plain version of :func:`decode_attention` (q (b, hq, d); k/v
+    (b, hkv, s, d), any strides)."""
+    decode_attention_plain.calls += 1
+    acc, m, l = _dense_partials_plain(q, k, v, lengths, scale, bkv, splits)
     return combine_partials(acc, m, l).to(q.dtype)
 
 
 decode_attention_plain.calls = 0
+
+
+def decode_attention_partials_plain(q, k, v, lengths=None, *, scale=None,
+                                    bkv=512, splits=1):
+    """Plain version of :func:`decode_attention_partials` (counted in
+    ``decode_attention_plain.calls``)."""
+    decode_attention_plain.calls += 1
+    return _dense_partials_plain(q, k, v, lengths, scale, bkv, splits)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, pages, lengths=None, *,
@@ -288,10 +299,7 @@ def _launch(q, k, v, kv_strides, pages, psz, n_table, n_pages, lengths,
     return acc, m, l
 
 
-def decode_attention_cuda(q, k, v, lengths=None, *, scale=None, bkv=512,
-                          splits=1):
-    """The CUDA kernel over a dense (b, hkv, s, d) view (any strides with a
-    contiguous head dim).  CUDA tensors only."""
+def _dense_partials_cuda(q, k, v, lengths, scale, bkv, splits):
     refuse_grad("decode_attention", q, k, v)
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
@@ -303,10 +311,26 @@ def decode_attention_cuda(q, k, v, lengths=None, *, scale=None, bkv=512,
         lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
     _check_inputs("decode_attention", q, k, v, None, lengths, hq // hkv, d)
     scale = float(scale if scale is not None else d ** -0.5)
-    acc, m, l = _launch(q, k, v, (k.stride(0), k.stride(1), k.stride(2)),
-                        None, 1, 0, 0, lengths, hkv, splits, bkv, s, scale)
+    return _launch(q, k, v, (k.stride(0), k.stride(1), k.stride(2)),
+                   None, 1, 0, 0, lengths, hkv, splits, bkv, s, scale)
+
+
+def decode_attention_cuda(q, k, v, lengths=None, *, scale=None, bkv=512,
+                          splits=1):
+    """The CUDA kernel over a dense (b, hkv, s, d) view (any strides with a
+    contiguous head dim).  CUDA tensors only."""
+    acc, m, l = _dense_partials_cuda(q, k, v, lengths, scale, bkv, splits)
     decode_attention.launches += 1
     return combine_partials(acc, m, l).to(q.dtype)
+
+
+def decode_attention_partials_cuda(q, k, v, lengths=None, *, scale=None,
+                                   bkv=512, splits=1):
+    """The CUDA kernel's partials before ``combine_partials`` (counted in
+    ``decode_attention.launches``).  CUDA tensors only."""
+    out = _dense_partials_cuda(q, k, v, lengths, scale, bkv, splits)
+    decode_attention.launches += 1
+    return out
 
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, pages, lengths=None, *,
@@ -350,6 +374,19 @@ def decode_attention(q, k, v, lengths=None, *, scale=None, bkv=512,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_partials(q, k, v, lengths=None, *, scale=None, bkv=512,
+                              splits=1):
+    """The split partials of :func:`decode_attention`, unmerged: acc
+    (b, hq, splits, d) unnormalised, m and l (b, hq, splits), all fp32.  A
+    split with no live position has m = -1e30, l = 0 and acc = 0.  A launch
+    counts in ``decode_attention.launches``."""
+    if _all_cpu(q, k, v, lengths):
+        return decode_attention_partials_plain(q, k, v, lengths, scale=scale,
+                                               bkv=bkv, splits=splits)
+    return decode_attention_partials_cuda(q, k, v, lengths, scale=scale,
+                                          bkv=bkv, splits=splits)
 
 
 def paged_decode_attention(q, k_pool, v_pool, pages, lengths=None, *,

@@ -561,15 +561,24 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # MoE (top-k routing, GShard-style dispatch)
 # ---------------------------------------------------------------------------
 
-def _route(p: Params, xf: torch.Tensor, cfg: ModelConfig):
+def _route(p: Params, xf: torch.Tensor, cfg: ModelConfig,
+           density_mean=None):
     """fp32 router -> (renormalised top-k gates (t, k), expert ids (t, k),
-    one-hot (t, k, e), load-balancing aux loss)."""
+    one-hot (t, k, e), load-balancing aux loss).
+
+    The aux loss is e * sum(density * mean probs), not linear in the batch.
+    When the batch is split evenly over data-parallel ranks,
+    ``density_mean`` maps this rank's per-expert fractions (e,), which
+    carry no gradient, to the whole batch's (a mean over the ranks); the
+    ranks' mean aux loss, and its gradient, is then the whole batch's."""
     e, k = cfg.n_experts, cfg.top_k
     probs = torch.softmax(xf.float() @ p["router"], dim=-1)     # (t, e)
     gate_vals, idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     onehot = torch.nn.functional.one_hot(idx, e).float()        # (t, k, e)
     density = onehot.sum(dim=1).mean(dim=0)
+    if density_mean is not None:
+        density = density_mean(density.detach())
     aux = cfg.router_aux_weight * e * torch.sum(density * probs.mean(dim=0))
     return gate_vals, idx, onehot, aux
 
@@ -620,9 +629,10 @@ def _swiglu_experts(p: Params, xe: torch.Tensor, gmm, counts=None):
     return gmm(h, p["wd"], counts)
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """(y (b, s, d), aux loss).  Two dispatch schedules
-    (``cfg.moe_dispatch``), as in the reference:
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              density_mean=None):
+    """(y (b, s, d), aux loss; ``density_mean``: see :func:`_route`).  Two
+    dispatch schedules (``cfg.moe_dispatch``), as in the reference:
 
     * ``dense``: every expert multiplies every token, masked to 0/1 before
       and combined with the gates after (``xe = mask.T[..., None] * x`` is
@@ -639,7 +649,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     xf = x.reshape(t, d)
-    gate_vals, idx, onehot, aux = _route(p, xf, cfg)
+    gate_vals, idx, onehot, aux = _route(p, xf, cfg, density_mean)
     gmm = _expert_products(cfg)
 
     if cfg.moe_dispatch == "sorted":
@@ -779,7 +789,8 @@ class ModelApply:
     ``forward(params, tokens, **source, remat=...)`` -> ``(logits, aux)``
     and ``loss(params, batch, remat=...)`` -> ``(loss, {"ce", "aux"})``
     train or score a whole block with no cache (``source``: ``vis=`` for
-    the VLM, ``frames=`` for whisper).  They honour ``cfg.decode_kernel``
+    the VLM, ``frames=`` for whisper; the MoE families' ``forward`` and
+    ``loss`` also take ``density_mean=``, see :func:`_route`).  They honour ``cfg.decode_kernel``
     as every entry point does, so a kernel route under ``torch.no_grad()``
     runs the CUDA kernels; those record no autograd graph and refuse to be
     differentiated, which is why ``train.step.make_train_step`` builds its

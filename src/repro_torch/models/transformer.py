@@ -71,14 +71,14 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def _self_block_aux(p, x, cfg: ModelConfig, positions, cache=None,
-                    seg_lens=None):
+                    seg_lens=None, density_mean=None):
     """One self-attention layer -> (x, the MoE layer's aux loss, None for
     a dense layer)."""
     x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
                           positions, cache, seg_lens=seg_lens)
     h = cm.apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        m, aux = cm.apply_moe(p["moe"], h, cfg)
+        m, aux = cm.apply_moe(p["moe"], h, cfg, density_mean)
     else:
         m, aux = cm.apply_mlp(p["mlp"], h, cfg), None
     return x + m, aux
@@ -96,9 +96,10 @@ def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache):
 
 
 def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
-                   remat: RematPolicy):
+                   remat: RematPolicy, density_mean=None):
     """The training stack: every layer over the whole block, no cache;
-    -> (x, the MoE layers' summed aux loss)."""
+    -> (x, the MoE layers' summed aux loss).  A remat recompute calls
+    ``density_mean`` again (on every rank alike)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.cross_attn_every:
         def group_body(h, self_layers, cross_layer, vis):
@@ -113,7 +114,8 @@ def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
         return x, aux
 
     def layer_body(h, lp):
-        return _self_block_aux(lp, h, cfg, positions)
+        return _self_block_aux(lp, h, cfg, positions,
+                               density_mean=density_mean)
 
     body = apply_remat(layer_body, remat)
     for lp in params["layers"]:
@@ -236,8 +238,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
 
 
 def forward(params, tokens, cfg: ModelConfig, vis=None,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS):
-    """tokens (b, s) -> (logits (b, s, padded vocab), aux loss)."""
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None):
+    """tokens (b, s) -> (logits (b, s, padded vocab), aux loss);
+    ``density_mean``: see ``common._route``."""
     s = tokens.shape[1]
     x = cm.embed(params["embed"], tokens)
     if cfg.cross_attn_every:
@@ -245,15 +248,16 @@ def forward(params, tokens, cfg: ModelConfig, vis=None,
             raise ValueError("a VLM forward needs the vision tokens (vis=)")
         vis = vis.to(device=x.device, dtype=x.dtype) @ params["vis_proj"]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x, aux = _stack_nocache(params, x, cfg, positions, vis, remat)
+    x, aux = _stack_nocache(params, x, cfg, positions, vis, remat,
+                            density_mean)
     x = cm.apply_norm(params["ln_f"], x, cfg)
     return cm.unembed(params["embed"], x, cfg), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS):
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None):
     logits, aux = forward(params, batch["tokens"], cfg, vis=batch.get("vis"),
-                          remat=remat)
+                          remat=remat, density_mean=density_mean)
     ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
     return ce + aux, {"ce": ce, "aux": aux}
 

@@ -24,6 +24,14 @@ Layout (one directory per step), the reference's with a JSON manifest:
 * **Restore** reads into a template tree: in place (``in_place=True``,
   every leaf ``copy_``'d, nothing reallocated) or as new tensors on each
   template leaf's device.
+* **Sharded state, elastic restore.**  Leaves are stored whole.  Given
+  ``shardings`` (a tree of ``distributed.sharding.Sharding`` describing
+  the blocks each rank holds, e.g. ZeRO-1's moments), a save gathers every
+  leaf on the caller's thread (a collective: every rank calls it), rank 0
+  alone writes, and the others wait at a barrier until the checkpoint is
+  published; ``restore(..., shardings=)`` cuts each stored leaf to this
+  rank's block of the new layout, so a checkpoint written at one number
+  of ranks restores at another.
 * **Retention**: ``keep`` most-recent checkpoints are preserved.
 """
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import dtype_name, torch_dtype
+from repro_torch.distributed.sharding import shard, unshard
 from repro_torch.utils import tree
 
 _DTYPES = {"int32": torch.int32, "int64": torch.int64}
@@ -59,8 +68,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def save(state: Any, directory: str, step: int, keep: int = 3) -> str:
-    """Synchronous checkpoint write. Returns the published path."""
+def save(state: Any, directory: str, step: int, keep: int = 3,
+         shardings: Any = None) -> str:
+    """Synchronous checkpoint write. Returns the published path.  With
+    ``shardings`` every rank calls it; rank 0 writes the gathered leaves
+    and the others wait at a barrier until it has published."""
+    if shardings is not None:
+        state = gather_state(state, shardings)
+    if _is_writer(shardings):
+        final = _write(state, directory, step, keep)
+    else:
+        final = os.path.join(directory, f"step_{step:08d}")
+    _barrier(shardings)
+    return final
+
+
+def _write(state: Any, directory: str, step: int, keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -91,17 +114,50 @@ def host_copy(state: Any) -> Any:
         lambda t: t.detach().to("cpu", copy=True), state)
 
 
-class AsyncCheckpointer:
-    """Snapshot on the caller thread, write on a background thread."""
+def _by_path(shardings: Any) -> dict:
+    return {tree.path_str(p): s for p, s in tree.leaves_with_paths(shardings)}
 
-    def __init__(self, directory: str, keep: int = 3):
+
+def gather_state(state: Any, shardings: Any) -> Any:
+    """Every leaf whole, gathered from the ranks' blocks (a collective)."""
+    sh = _by_path(shardings)
+    return tree.tree_map_with_path(
+        lambda p, t: unshard(t.detach(), sh[tree.path_str(p)]), state)
+
+
+def _is_writer(shardings: Any) -> bool:
+    import torch.distributed as dist
+
+    return shardings is None or not dist.is_initialized() or (
+        dist.get_rank() == 0)
+
+
+def _barrier(shardings: Any) -> None:
+    import torch.distributed as dist
+
+    if shardings is not None and dist.is_initialized():
+        dist.barrier()
+
+
+class AsyncCheckpointer:
+    """Snapshot on the caller thread, write on a background thread.  With
+    ``shardings`` every rank calls ``save`` and ``wait``: the leaves are
+    gathered on the caller's thread, rank 0 writes, and ``wait`` holds
+    every rank at a barrier until rank 0's write is published."""
+
+    def __init__(self, directory: str, keep: int = 3, shardings: Any = None):
         self.directory = directory
         self.keep = keep
+        self.shardings = shardings
         self._thread: threading.Thread | None = None
         self.last_error: Exception | None = None
 
     def save(self, state: Any, step: int) -> None:
         self.wait()
+        if self.shardings is not None:
+            state = gather_state(state, self.shardings)
+        if not _is_writer(self.shardings):
+            return
         host_state = host_copy(state)
 
         def _write():
@@ -117,6 +173,7 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.shardings)
         if self.last_error is not None:
             raise self.last_error
 
@@ -145,11 +202,13 @@ def _load(path: str, rec: dict) -> torch.Tensor:
 
 
 def restore(directory: str, step: int | None = None, template: Any = None,
-            in_place: bool = False) -> tuple[Any, int]:
+            in_place: bool = False, shardings: Any = None
+            ) -> tuple[Any, int]:
     """Load a checkpoint into ``template``'s structure -> (state, step).
 
     Every template leaf must find a stored leaf of its path, shape and
-    dtype.  ``in_place`` copies each into the template's tensor (returning
+    dtype (with ``shardings``, the shape of this rank's block of it).
+    ``in_place`` copies each into the template's tensor (returning
     ``template``); otherwise each becomes a new tensor on the template
     leaf's device, with its ``requires_grad``."""
     step = latest_step(directory) if step is None else step
@@ -161,10 +220,13 @@ def restore(directory: str, step: int | None = None, template: Any = None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     recs = {rec["path"]: rec for rec in manifest["leaves"]}
+    placed = _by_path(shardings) if shardings is not None else {}
 
     def one(p, tmpl):
         key = tree.path_str(p)
         t = _load(path, recs[key])
+        if key in placed:
+            t = shard(t, placed[key]).contiguous()
         if t.shape != tmpl.shape or t.dtype != tmpl.dtype:
             raise ValueError(f"checkpoint leaf {key}: stored {t.dtype} "
                              f"{tuple(t.shape)}, template {tmpl.dtype} "

@@ -14,9 +14,12 @@ Production behaviours, all testable on one host:
 * **Async checkpointing** every ``ckpt_every`` steps (write overlaps train).
 * **NaN fuse**: a non-finite loss halts before it can poison the stream of
   checkpoints.
-
-Restoring onto other shardings (the reference's ``shardings``) waits for
-the port's ``distributed/``.
+* **Sharded state**: ``shardings`` (a tree of ``distributed.sharding.
+  Sharding`` beside the state, as ``train.step.state_shardings`` makes)
+  goes to ``checkpoint.restore``, which cuts each stored leaf to this
+  rank's block (the elastic path: resume at another number of ranks), and
+  to the checkpointer: every rank gathers, rank 0 alone writes.  Every
+  rank runs the loop; the loop itself prints nothing.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ def run(
     state: Any,
     data_source: Callable[[int], dict],
     config: LoopConfig,
+    shardings: Any = None,
     on_straggler: Callable[[int, float], None] | None = None,
     on_step: Callable[[int, dict], None] | None = None,
 ) -> tuple[Any, LoopReport]:
@@ -73,9 +77,10 @@ def run(
     start_step = 0
     if ckpt.latest_step(config.ckpt_dir) is not None:
         state, start_step = ckpt.restore(config.ckpt_dir, template=state,
-                                         in_place=True)
+                                         in_place=True, shardings=shardings)
         report.resumed_from = start_step
-    saver = ckpt.AsyncCheckpointer(config.ckpt_dir, keep=config.keep)
+    saver = ckpt.AsyncCheckpointer(config.ckpt_dir, keep=config.keep,
+                                   shardings=shardings)
 
     ewma = None
     step = start_step

@@ -7,7 +7,19 @@ bf16: each update is computed in fp32 and cast back to the parameter's
 dtype.  Unlike the reference's functional update, :func:`apply_updates`
 writes the parameters, the moments and the count in place (under
 ``torch.no_grad()``), so a step holds no second copy of the state.
-ZeRO-1 (``opt_shardings``) waits for the port's ``distributed/``.
+
+**ZeRO-1.**  :func:`opt_shardings` is the reference's rule: each moment
+takes its parameter's spec with its first free dimension that ``|data|``
+divides sharded over ``data``.  Where the reference expresses the sharded
+update through shardings alone (GSPMD partitions the elementwise math),
+the port does it by hand: given the moments' shardings,
+:func:`init_state` holds only this rank's block of ``mu`` and ``nu``, and
+:func:`apply_updates` updates that block of the moments and of the
+parameter from the (all-reduced) gradient, then all-gathers the
+parameter's blocks, so every rank ends with the same parameters, bitwise.
+On the reference's stacked leaves the first free dimension is usually the
+layer axis; on the port's per-layer leaves it is another one, with the
+same 1/|data| of the bytes.
 """
 from __future__ import annotations
 
@@ -17,6 +29,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.sharding import (Sharding, local_shape, shard,
+                                              spec_axes, unshard)
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.utils import tree
 
 
@@ -63,14 +78,50 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def init_state(params: Any) -> dict[str, Any]:
-    """fp32 zero moments beside ``params`` and a zero int32 count."""
+def init_state(params: Any, shardings: Any = None) -> dict[str, Any]:
+    """fp32 zero moments beside ``params`` and a zero int32 count; with
+    ``shardings`` (a tree of the moments' :class:`Sharding`, as
+    ``opt_shardings(...)["mu"]``) each moment is only this rank's block."""
     dev = tree.leaves(params)[0].device
-    return {
-        "mu": tree.tree_zeros_like(params, torch.float32),
-        "nu": tree.tree_zeros_like(params, torch.float32),
-        "count": torch.zeros((), dtype=torch.int32, device=dev),
-    }
+    if shardings is None:
+        mu = tree.tree_zeros_like(params, torch.float32)
+        nu = tree.tree_zeros_like(params, torch.float32)
+    else:
+        def zeros(p, sh):
+            return torch.zeros(local_shape(p.shape, sh), dtype=torch.float32,
+                               device=p.device)
+        mu = tree.tree_map(zeros, params, shardings)
+        nu = tree.tree_map(zeros, params, shardings)
+    return {"mu": mu, "nu": nu,
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_shardings(param_shardings: Any, params_shape: Any, mesh,
+                  zero1: bool = False) -> dict[str, Any]:
+    """Shardings for the optimizer state (trees of :class:`Sharding`).
+
+    ``zero1=True`` additionally shards each moment's first replicated,
+    data-divisible dim over the data axis (ZeRO-1): memory/rank for mu/nu
+    drops by |data|."""
+    data_size = axis_sizes(mesh)["data"]
+
+    def moment(s: Sharding, x) -> Sharding:
+        if not zero1:
+            return s
+        shape = tuple(x.shape)
+        spec = tuple(s.spec) + (None,) * (len(shape) - len(s.spec))
+        if "data" in {a for part in spec for a in spec_axes(part)}:
+            return s
+        for i, part in enumerate(spec):
+            if (part is None and shape[i] % data_size == 0
+                    and shape[i] >= data_size):
+                new = list(spec)
+                new[i] = "data"
+                return Sharding(s.mesh, tuple(new))
+        return s
+
+    mu = tree.tree_map(moment, param_shardings, params_shape)
+    return {"mu": mu, "nu": mu, "count": Sharding(mesh, ())}
 
 
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
@@ -96,11 +147,16 @@ def decay_mask(params: Any) -> list[bool]:
 @torch.no_grad()
 def apply_updates(
     params: Any, grads: list[torch.Tensor], state: dict[str, Any],
-    cfg: AdamWConfig,
+    cfg: AdamWConfig, shardings: Any = None,
 ) -> dict[str, torch.Tensor]:
     """One AdamW step, in place: ``grads`` is the list of gradients in
     ``tree.leaves(params)`` order (any float dtype; each is read through a
-    transient fp32 copy).  Returns ``{"lr", "grad_norm"}``."""
+    transient fp32 copy).  Returns ``{"lr", "grad_norm"}``.
+
+    ``shardings`` (the moments' tree, as for :func:`init_state`) makes it
+    the ZeRO-1 update: every rank passes the same full gradients, updates
+    its block of the moments and the parameter, and the parameter's blocks
+    are all-gathered back into each rank's full parameter."""
     state["count"].add_(1)
     count = state["count"]
     lr = schedule_lr(cfg, count)
@@ -114,16 +170,25 @@ def apply_updates(
     if len(grads) != len(flat_p):
         raise ValueError(f"apply_updates: {len(grads)} grads for "
                          f"{len(flat_p)} parameters")
-    for p, g, mu, nu, decay in zip(flat_p, grads, tree.leaves(state["mu"]),
-                                   tree.leaves(state["nu"]),
-                                   decay_mask(params)):
+    flat_sh = (tree.leaves(shardings) if shardings is not None
+               else [None] * len(flat_p))
+    for p, g, mu, nu, decay, sh in zip(flat_p, grads,
+                                       tree.leaves(state["mu"]),
+                                       tree.leaves(state["nu"]),
+                                       decay_mask(params), flat_sh):
+        blocked = sh is not None and tuple(mu.shape) != tuple(p.shape)
+        if blocked:
+            g, p_own = shard(g, sh), shard(p, sh)
+        else:
+            p_own = p
         g = g.float() * clip
         mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         del g
         step = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-        p32 = p.float()
+        p32 = p_own.float()
         if decay:   # decoupled weight decay on (reference-layout) matrices
             step = step + cfg.weight_decay * p32
-        p.copy_(p32 - lr * step)
+        new = (p32 - lr * step).to(p.dtype)
+        p.copy_(unshard(new, sh) if blocked else new)
     return {"lr": lr, "grad_norm": gnorm}

@@ -35,6 +35,7 @@ from repro_torch.core.engine import make_engine as t_make  # noqa: E402
 from repro_torch.core.planner import PlanCache as TPlanCache  # noqa: E402
 from repro_torch.core.predictor import PolicyPredictor as TPredictor  # noqa: E402
 from repro_torch.device import dtype_name  # noqa: E402
+from repro_torch.workloads.suite import SUITE as TSUITE  # noqa: E402
 
 CHIPS = {"tpu-v5e": (rhw.V5E, thw.V5E), "gem5-apu": (rhw.PAPER_GPU,
                                                      thw.PAPER_GPU)}
@@ -163,13 +164,14 @@ def test_op_specs_characterize_alike(chip):
 
 @pytest.mark.parametrize("name", sorted(SUITE))
 def test_suite_workloads_cost_classify_and_adapt_alike(name):
-    """The paper's 17 workloads (``repro.workloads.suite``), converted op by
-    op: equal ``workload_cost`` under every mode on both chip models, equal
-    classes, and the adaptive stack within 5 % of the best static policy,
-    the check ``examples/policy_explorer.py`` prints (17/17 over the
+    """The paper's 17 workloads, the reference's (``repro.workloads.suite``)
+    beside the port's own (``repro_torch.workloads.suite``): equal
+    ``workload_cost`` under every mode on both chip models, equal classes,
+    and the adaptive stack within 5 % of the best static policy, the check
+    ``examples/policy_explorer.py`` prints (17/17 over the
     parametrisation)."""
     rops = SUITE[name].ops
-    tops = [_to_port(op) for op in rops]
+    tops = TSUITE[name].ops
     for chip in sorted(CHIPS):
         rchip, tchip = CHIPS[chip]
         t = {}
