@@ -241,10 +241,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the same global batch (loss rtol 1e-4, params 5e-3, the gathered first
    moments 1e-3 of each leaf's largest), parameters bitwise across ranks
    (checksums of their bits), each rank's moments half the bytes, the
-   ranks' checkpoint restored in a one-rank layout bitwise; bf16 cut to 8
+   ranks' checkpoint restored in a one-rank layout bitwise; bf16 cut to 4
    layers, 3 steps with the step's fp32 gradient all-reduce and 3 with
    each gradient averaged by ``compressed_all_reduce`` (step and
    all-reduce ms, payload bytes, moment bytes, the loss gap);
+28. ``tp_forward``: tensor and expert parallel execution over ``model``
+   (``build_model(cfg, device, mesh)``, a (1, 4) mesh) at
+   phi3.5-moe-42b-a6.6b's full width on the kernel route, dense dispatch,
+   4 x 512 tokens: 4 spawned ranks share the card over gloo, each holding
+   its blocks (8 query and 2 KV heads, 4 of the 16 experts, a quarter of
+   the vocabulary) drawn from the one-process seed, and running flash
+   (GQA group 4), the fused norm (d 4096) and the grouped GEMM (4 experts
+   x 2048 rows) at those local shapes, each first held to its plain
+   version there (bf16 and fp32); fp32 at 2 layers, rank 0's gathered
+   logits within 2e-3 of the largest |logit| of the one-process
+   kernel-route forward (computed first in this process, its weights
+   freed before the ranks start); bf16 at 8 layers the gap measured;
+   per rank the forward ms, the collectives' ms (clocked), staged
+   collectives and bytes, peak memory and launches, held to flash L,
+   norms 2 L + 1, grouped GEMM 3 L (``cuda_cores`` in fp32, ``wgmma`` in
+   bf16), no plain call;
+29. ``train_tp``: the ZeRO-1 train step over a (1, 4) mesh at yi-9b's
+   full width (8 query heads and 1 KV head, a quarter of d_ff and of the
+   vocabulary a rank, the vocab-parallel loss), fp32 at 2 layers, 4 x 512
+   tokens, 2 steps on the plain route: losses within 1e-5 relative of
+   rank 0's one-process steps and equal across ranks, the gathered first
+   moments within 1e-3 of each leaf's largest, the gathered checkpoint
+   restored at one rank bitwise; step and collective ms, staged bytes,
+   peak memory;
 and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
 cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
 and the bound.  Every phase line carries ``at_s``, the seconds since the
@@ -4476,6 +4500,476 @@ def phase_train_dp(gpu: str, seed: int, gate_cfg, measured_cfg, cut: str,
     return out
 
 
+TP_RANKS = 4
+# tp_forward's gate: rank 0's gathered fp32 logits within this share of the
+# one-process kernel-route forward's largest |logit|.
+TP_LOGIT_TOL = 2e-3
+# train_tp's gates: the loss (relative) and the gathered first moments
+# (each leaf's error over its largest |mu|) against the one-process steps.
+TP_LOSS_RTOL = 1e-5
+TP_MU_TOL = 1e-3
+
+
+def _tp_tokens(seed: int, vocab: int, shape, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed + 89)
+    return torch.from_numpy(rng.integers(0, vocab, size=shape).astype(
+        np.int32)).to(device)
+
+
+def _tp_want(cfg) -> dict:
+    """The launches a rank's kernel-route forward of ``cfg`` must make:
+    flash once a layer, the norm twice a layer plus the final one, three
+    grouped GEMMs an MoE layer (``wgmma`` in bf16, ``cuda_cores`` in
+    fp32), no plain call."""
+    L = cfg.n_layers
+    body = "cuda_cores" if cfg.dtype == "float32" else "wgmma"
+    return {"flash_dense": L, "fused_norm": 2 * L + 1,
+            "grouped_matmul": 3 * L, "plain": 0,
+            "gmm_bodies": {body: 3 * L}}
+
+
+def _tp_launches() -> dict:
+    from repro_torch.kernels.moe_gmm import moe_gmm as gk
+
+    got = counts()
+    return {"flash_dense": got["flash_dense"], "fused_norm": got["fused_norm"],
+            "grouped_matmul": got["grouped_matmul"], "plain": got["plain"],
+            "others": sum(v for k, v in got.items() if k not in (
+                "flash_dense", "fused_norm", "grouped_matmul", "plain")),
+            "gmm_bodies": {k: v for k, v in
+                           gk.grouped_matmul.body_launches.items() if v}}
+
+
+def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
+                 arms, shape) -> None:
+    """One rank of tp_forward (a spawned process): for each arm, the
+    model built over a (1, ``world``) mesh draws this rank's blocks,
+    runs one warm forward, then a counted and timed one (every kernel
+    counter and ``collectives.STAGED`` zeroed just before it, read just
+    after), then one with the collectives clocked.  Rank 0 keeps the
+    gathered logits for the parent."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives, tensor_parallel
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/tpf.store",
+                            rank=rank, world_size=world)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mesh = make_local_mesh(1, world)
+    res = {}
+    try:
+        for name, cfg in arms:
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            model = build_model(cfg, device, mesh)
+            params = model.init(torch.Generator(device=device).manual_seed(
+                seed + 91))
+            toks = _tp_tokens(seed, cfg.vocab, shape, device)
+            with torch.no_grad():
+                model.forward(params, toks)
+                sync()
+                dist.barrier()
+                reset_counts()
+                collectives.STAGED.update(collectives=0, bytes=0)
+                t0 = time.perf_counter()
+                logits, _ = model.forward(params, toks)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = _tp_launches()
+                staged = dict(collectives.STAGED)
+                dist.barrier()
+                tensor_parallel.CLOCK.update(on=True, seconds=0.0)
+                model.forward(params, toks)
+                tensor_parallel.CLOCK.update(on=False)
+            row = {"forward_ms": ms, "launches": launches,
+                   "collective_ms": tensor_parallel.CLOCK["seconds"] * 1e3,
+                   "staged_collectives": staged["collectives"],
+                   "staged_bytes": staged["bytes"],
+                   "param_bytes": sum(p.numel() * p.element_size()
+                                      for p in _leaves(params)),
+                   "max_memory_allocated": (
+                       torch.cuda.max_memory_allocated()
+                       if device == "cuda" else 0),
+                   "logits_checksum": _checksum(logits)}
+            if rank == 0:
+                torch.save(logits.cpu(), f"{tmp}/tpf_{name}.pt")
+            res[name] = row
+            del params, model, logits
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.save(res, f"{tmp}/tpf_rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaves(params) -> list:
+    from repro_torch.utils import tree
+
+    return tree.leaves(params)
+
+
+def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
+    """The three kernels of tp_forward at one rank's shapes, against their
+    plain versions (TOL), in bf16 and fp32: flash over the rank's query
+    and KV heads (causal, no cache), the fused norm at d_model, the
+    grouped GEMM over the rank's experts and every token (dense
+    dispatch: x (e/ranks, b s, d) @ wg (e/ranks, d, d_ff))."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.fused_norm import fused_norm as nk
+    from repro_torch.kernels.moe_gmm import moe_gmm as gk
+
+    b, s = shape
+    hq, dh = cfg.n_heads // world, cfg.head_dim_
+    # KV heads a rank: its block, or (replicated K/V) those its heads read.
+    hkv = (cfg.n_kv_heads // world if cfg.n_kv_heads % world == 0
+           else max(1, hq * cfg.n_kv_heads // cfg.n_heads))
+    e, d, f = cfg.n_experts // world, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=DEV).manual_seed(seed + 93)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        def randn(*size, scale=1.0):
+            return (torch.randn(size, generator=gen, device=DEV) * scale
+                    ).to(dt)
+
+        q, k, v = (randn(b, h, s, dh) for h in (hq, hkv, hkv))
+        x = randn(b, s, d)
+        w = torch.ones(d, device=DEV) + randn(d, scale=0.1).float()
+        xe, we = randn(e, b * s, d), randn(e, d, f, scale=d ** -0.5)
+        for name, kern, plain, args, kw in (
+                ("flash_attention", fk.flash_attention,
+                 fk.flash_attention_plain, (q, k, v), {"causal": True}),
+                ("fused_norm", nk.fused_norm, nk.fused_norm_plain, (x, w),
+                 {"eps": cfg.norm_eps, "kind": cfg.norm_kind}),
+                ("grouped_matmul", gk.grouped_matmul,
+                 gk.grouped_matmul_plain, (xe, we), {})):
+            got, want = kern(*args, **kw), plain(*args, **kw)
+            rows.append({"kernel": name, "dtype": str(dt).split(".")[-1],
+                         "shape": [list(a.shape) for a in args],
+                         "max_abs_err": check_close(
+                             f"tp_forward local {name}", got, want, dt)})
+        del q, k, v, x, xe, we
+    return rows
+
+
+def phase_tp_forward(gpu: str, seed: int, gate_cfg, measured_cfg,
+                     cut: dict, shape=(4, 512)) -> dict:
+    """Tensor and expert parallel forward (``build_model(cfg, device,
+    mesh)`` over a (1, 4) mesh) at phi3.5-moe's full width on the kernel
+    route: 4 ranks share the card over gloo, each holding its block of
+    every leaf (8 query and 2 KV heads, 4 of the 16 experts, a quarter of
+    the vocabulary) and running flash, the fused norm and the grouped GEMM
+    at its local shapes, the activations' partial sums all-reduced through
+    the host.  First the three kernels at those shapes against their plain
+    versions; then for each arm the one-process forward in this process
+    (its weights freed before the ranks start, only its logits kept) and
+    the ranks'.  fp32 (``gate_cfg``): rank 0's gathered logits within
+    ``TP_LOGIT_TOL`` of the largest |logit| of the one-process forward.
+    bf16 (``measured_cfg``): the gap beside it, ungated.  Each rank's
+    launches are held to :func:`_tp_want`; every rank's logits are equal
+    (checksums of their bits)."""
+    import tempfile
+
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    local = _tp_local_kernels(gate_cfg, shape, TP_RANKS, seed)
+    arms = (("gate", gate_cfg), ("measured", measured_cfg))
+    one = {}
+    for name, cfg in arms:
+        model = build_model(cfg, DEV)
+        params = model.init(torch.Generator(device=DEV).manual_seed(
+            seed + 91))
+        toks = _tp_tokens(seed, cfg.vocab, shape, DEV)
+        with torch.no_grad():
+            model.forward(params, toks)
+            _sync()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(params, toks)
+            _sync()
+        one[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "logits": logits.float().cpu()}
+        del model, params, logits
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(_tp_fwd_rank, TP_RANKS, tmp, seed, DEV, arms, shape)
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/tpf_rank{r}.pt", weights_only=False)
+               for r in range(TP_RANKS)]
+        got = {name: torch.load(f"{tmp}/tpf_{name}.pt", weights_only=False)
+               for name, _ in arms}
+    out = {"phase": "tp_forward", "gpu": gpu, "arch": gate_cfg.arch,
+           "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "backend": "gloo",
+           "route": gate_cfg.decode_kernel,
+           "moe_dispatch": gate_cfg.moe_dispatch, "batch": list(shape),
+           "local_kernels": local, "ranks_s": ranks_s}
+    launches = {}
+    for name, cfg in arms:
+        want = _tp_want(cfg)
+        rows = [r[name] for r in res]
+        for r, row in enumerate(rows):
+            got_l = {k: row["launches"][k] for k in want}
+            if DEV == "cuda" and (got_l != want
+                                  or row["launches"]["others"]):
+                raise AssertionError(f"tp_forward {name}: rank {r} "
+                                     f"launches {row['launches']}, "
+                                     f"expected {want}")
+        if any(row["logits_checksum"] != rows[0]["logits_checksum"]
+               for row in rows):
+            raise AssertionError(f"tp_forward {name}: ranks' logits differ")
+        split, ref = got[name].float(), one[name]["logits"]
+        if not bool(torch.isfinite(split).all()):
+            raise AssertionError(f"tp_forward {name}: non-finite logits")
+        gap = (split - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if name == "gate" and not gap <= TP_LOGIT_TOL * scale:
+            raise AssertionError(
+                f"tp_forward gate: the split forward is {gap:.3e} from the "
+                f"one-process forward, beyond {TP_LOGIT_TOL} of its largest "
+                f"|logit| {scale:.3e}")
+        for k in ("flash_dense", "fused_norm", "grouped_matmul"):
+            launches[k] = launches.get(k, 0) + sum(
+                row["launches"][k] for row in rows)
+        out[name] = {
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "gated": name == "gate",
+            "tol": (f"{TP_LOGIT_TOL} of the largest |logit|"
+                    if name == "gate" else None),
+            "max_abs_err": gap, "max_abs_logit": scale,
+            "rel_err": gap / scale,
+            # Positions whose top logit is the one-process forward's: bf16
+            # partial sums can flip a near-tied MoE routing choice.
+            "argmax_agreement": (split.argmax(-1) == ref.argmax(-1)
+                                 ).float().mean().item(),
+            "forward_ms": [row["forward_ms"] for row in rows],
+            "one_process_ms": one[name]["ms"],
+            "collective_ms": [row["collective_ms"] for row in rows],
+            "staged_collectives": [row["staged_collectives"]
+                                   for row in rows],
+            "staged_bytes": [row["staged_bytes"] for row in rows],
+            "param_bytes": [row["param_bytes"] for row in rows],
+            "max_memory_allocated": [row["max_memory_allocated"]
+                                     for row in rows],
+            "launches": [row["launches"] for row in rows],
+            "expected": want,
+            "cut": (f"n_layers 32 -> {cfg.n_layers}: " + cut[name])}
+    out["timing"] = ("host clock around a synchronised forward; the ranks' "
+                     "forwards run at once on one card; collective_ms: a "
+                     "second forward with tensor_parallel.CLOCK on (a device "
+                     "sync before and after each collective, the host "
+                     "staging included); one_process_ms: the same forward "
+                     "in one process")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["total_launches"] = launches
+    emit(out)
+    return out
+
+
+def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
+                   cfg, shape, steps: int) -> None:
+    """One rank of train_tp (a spawned process): ``steps`` ZeRO-1 steps
+    over a (1, ``world``) mesh with the collectives clocked, the state
+    gathered (a collective) and written by rank 0 as a checkpoint; rank 0
+    then takes the one-process steps on the same batches and compares
+    (loss, the gathered first moments), and restores the checkpoint in a
+    one-rank layout (bitwise the gathered state)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.remat import RematPolicy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import collectives, tensor_parallel
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step, state_shardings)
+    from repro_torch.utils import tree
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/tpt.store",
+                            rank=rank, world_size=world)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mesh = make_local_mesh(1, world)
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                             total_steps=10),
+                       zero1=True, remat=RematPolicy.SAVE_DOTS)
+    data = SyntheticLM(cfg, batch=shape[0], seq=shape[1], seed=seed)
+    res = {}
+    try:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        step, model = make_train_step(cfg, tcfg, device, mesh)
+        state = init_train_state(
+            model, torch.Generator(device=device).manual_seed(seed + 97),
+            mesh, zero1=True)
+        rows = []
+        for i in range(steps):
+            dist.barrier()
+            sync()
+            collectives.STAGED.update(collectives=0, bytes=0)
+            tensor_parallel.CLOCK.update(on=True, seconds=0.0)
+            t0 = time.perf_counter()
+            state, m = step(state, data(i))
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            tensor_parallel.CLOCK.update(on=False)
+            rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                         "ms": ms, "collective_ms":
+                             tensor_parallel.CLOCK["seconds"] * 1e3,
+                         "staged_collectives":
+                             collectives.STAGED["collectives"],
+                         "staged_bytes": collectives.STAGED["bytes"]})
+        res["steps"] = rows
+        res["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree.leaves(state))
+        res["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                       if device == "cuda" else 0)
+        shard = state_shardings(cfg, mesh, zero1=True)
+        t0 = time.perf_counter()
+        full = ckpt.gather_state(state, shard)
+        sync()
+        res["gather_s"] = time.perf_counter() - t0
+        del state, step, model
+        if rank:
+            del full
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ck_dir = f"{tmp}/tp_ckpt"
+        if rank == 0:
+            t0 = time.perf_counter()
+            ckpt.save(full, ck_dir, step=steps)
+            res["ckpt_save_s"] = time.perf_counter() - t0
+            res["ckpt_bytes"] = sum(
+                os.path.getsize(os.path.join(ck_dir, f"step_{steps:08d}", f))
+                for f in os.listdir(os.path.join(ck_dir,
+                                                 f"step_{steps:08d}")))
+            # One process, the same batches and initial parameters.
+            one_step, one_model = make_train_step(
+                cfg, dataclasses.replace(tcfg, zero1=False), device)
+            one = init_train_state(
+                one_model, torch.Generator(device=device).manual_seed(
+                    seed + 97))
+            one_rows = []
+            for i in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                one, m1 = one_step(one, data(i))
+                one_rows.append({"loss": float(m1["loss"]),
+                                 "grad_norm": float(m1["grad_norm"]),
+                                 "ms": (time.perf_counter() - t0) * 1e3})
+            res["one_process"] = one_rows
+            errs = {tree.path_str(path): (
+                (a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for (path, a), b in zip(
+                    tree.leaves_with_paths(full["opt"]["mu"]),
+                    tree.leaves(one["opt"]["mu"]))}
+            res["mu_worst_leaf"] = max(errs, key=errs.get)
+            res["mu_rel_err"] = errs[res["mu_worst_leaf"]]
+            res["param_max_abs_diff"] = max(
+                (a.float() - b.detach().float()).abs().max().item()
+                for a, b in zip(tree.leaves(full["params"]),
+                                tree.leaves(one["params"])))
+            del one, one_step
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            template = init_train_state(
+                one_model, torch.Generator(device=device).manual_seed(0))
+            t0 = time.perf_counter()
+            restored, at = ckpt.restore(ck_dir, template=template,
+                                        in_place=True)
+            sync()
+            res["ckpt_restore_s"] = time.perf_counter() - t0
+            res["restore_bitwise"] = at == steps and all(
+                torch.equal(a.detach(), b) for a, b in zip(
+                    tree.leaves(restored), tree.leaves(full)))
+            del restored, template
+        torch.save(res, f"{tmp}/tpt_rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp(gpu: str, seed: int, cfg, cut: str, shape=(4, 512),
+                   steps: int = 2) -> dict:
+    """Tensor-parallel ZeRO-1 training (``train.step`` over a (1, 4) mesh,
+    the plain route as the trainer always is) at yi-9b's full width: 4
+    ranks share the card over gloo, each holding 8 query heads, 1 KV head,
+    a quarter of ``d_ff`` and of the vocabulary (the vocab-parallel
+    loss), its block of every moment.  Gates: each step's loss within
+    ``TP_LOSS_RTOL`` of the one-process step's and equal on every rank;
+    the gathered first moments within ``TP_MU_TOL`` of each leaf's
+    largest; the gathered checkpoint restored at one rank bitwise."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _spawn(_tp_train_rank, TP_RANKS, tmp, seed, DEV, cfg, shape, steps)
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(f"{tmp}/tpt_rank{r}.pt", weights_only=False)
+               for r in range(TP_RANKS)]
+    r0 = res[0]
+    losses = [[row["loss"] for row in r["steps"]] for r in res]
+    if any(lo != losses[0] for lo in losses):
+        raise AssertionError(f"train_tp: the ranks' losses differ: {losses}")
+    one = [row["loss"] for row in r0["one_process"]]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[0], one)]
+    if not max(gaps) <= TP_LOSS_RTOL or not r0["mu_rel_err"] <= TP_MU_TOL:
+        raise AssertionError(
+            f"train_tp: the split steps are not the one-process steps "
+            f"(losses {losses[0]} vs {one}, relative gaps {gaps}, limit "
+            f"{TP_LOSS_RTOL}; first moments {r0['mu_rel_err']:.3e} of a "
+            f"leaf's largest, limit {TP_MU_TOL})")
+    if not r0["restore_bitwise"]:
+        raise AssertionError("train_tp: the gathered checkpoint did not "
+                             "restore bitwise at one rank")
+    if not all(math.isfinite(x) for x in losses[0]):
+        raise AssertionError(f"train_tp: non-finite loss {losses[0]}")
+    out = {"phase": "train_tp", "gpu": gpu, "arch": cfg.arch,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "cut": cut,
+           "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "backend": "gloo",
+           "route": "xla", "zero1": True, "batch": list(shape),
+           "steps": steps, "losses": losses[0], "one_process_losses": one,
+           "loss_rel_gap": gaps, "mu_rel_err": r0["mu_rel_err"],
+           "mu_worst_leaf": r0["mu_worst_leaf"],
+           "param_max_abs_diff": r0["param_max_abs_diff"],
+           "grad_norm": [row["grad_norm"] for row in r0["steps"]],
+           "one_process_grad_norm": [row["grad_norm"]
+                                     for row in r0["one_process"]],
+           "tol": f"loss rtol {TP_LOSS_RTOL}, equal across ranks; first "
+                  f"moments {TP_MU_TOL} of each leaf's largest",
+           "restore_1_rank_bitwise": True,
+           "step_ms": [[row["ms"] for row in r["steps"]] for r in res],
+           "one_process_step_ms": [row["ms"] for row in r0["one_process"]],
+           "collective_ms": [[row["collective_ms"] for row in r["steps"]]
+                             for r in res],
+           "staged_collectives": [r["steps"][-1]["staged_collectives"]
+                                  for r in res],
+           "staged_bytes": [r["steps"][-1]["staged_bytes"] for r in res],
+           "state_bytes": [r["state_bytes"] for r in res],
+           "max_memory_allocated": [r["max_memory_allocated"] for r in res],
+           "gather_s": [r["gather_s"] for r in res],
+           "ckpt_bytes": r0["ckpt_bytes"], "ckpt_save_s": r0["ckpt_save_s"],
+           "ckpt_restore_s": r0["ckpt_restore_s"],
+           "timing": "host clock; each step starts after a barrier with the "
+                     "collectives clocked (tensor_parallel.CLOCK: a device "
+                     "sync before and after each, the host staging "
+                     "included); the ranks run at once on one card",
+           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
                 "fused_norm", "moe_gmm")
 
@@ -4550,7 +5044,9 @@ COUNTED = ("decode chunks (plain and speculative): the capture's "
            "trainer's kernel-route forward: at each launch; "
            "decode_attention: the cross-attention steps of the "
            "fixed-source arms, the pallas_gather twins and sp_decode's "
-           "ranks (one launch a rank a case, counted in each rank)")
+           "ranks (one launch a rank a case, counted in each rank); "
+           "tp_forward: each rank's counted forward, summed over the "
+           "ranks")
 
 
 def main() -> int:
@@ -4567,6 +5063,7 @@ def main() -> int:
         mamba2_13b,
         minicpm_2b,
         olmoe_1b_7b,
+        phi35_moe,
         whisper_small,
         yi_9b,
         zamba2_27b,
@@ -4757,9 +5254,34 @@ def main() -> int:
     phase_train_dp(
         gpu, args.seed,
         dataclasses.replace(minicpm, n_layers=2, dtype="float32"),
-        dataclasses.replace(minicpm, n_layers=8),
-        cut="n_layers 40 -> 8 (the measured arm): two ranks' bf16 states "
-            "and fp32 gradients on one card, and the run's 1200 s limit")
+        dataclasses.replace(minicpm, n_layers=4),
+        cut="n_layers 40 -> 4 (the measured arm): two ranks' bf16 states "
+            "and fp32 gradients on one card, and the run's 1200 s limit "
+            "(8 -> 4 once tp_forward and train_tp took the run past 1120 "
+            "s)")
+    torch.cuda.empty_cache()
+    # Tensor and expert parallel execution over 4 ranks that share the
+    # card: phi3.5-moe's forward on the kernel route (its local experts
+    # through the grouped GEMM), yi-9b's ZeRO-1 train step.
+    phi = dataclasses.replace(phi35_moe.CONFIG, decode_kernel="pallas_paged")
+    tpf = phase_tp_forward(
+        gpu, args.seed, dataclasses.replace(phi, n_layers=2, dtype="float32"),
+        dataclasses.replace(phi, n_layers=8),
+        cut={"gate": "the fp32 weights once in this process and once over "
+                     "the ranks (~11.4 GB each)",
+             "measured": "the bf16 weights once in this process and once "
+                         "over the ranks (~21.4 GB each), and the run's "
+                         "1200 s limit"})
+    served["phi3.5-moe tp_forward"] = {"launches": {
+        **{k: 0 for k in counts()}, **tpf["total_launches"]}}
+    torch.cuda.empty_cache()
+    phase_train_tp(
+        gpu, args.seed,
+        dataclasses.replace(yi_9b.CONFIG, n_layers=2, dtype="float32"),
+        cut="n_layers 48 -> 2: the fp32 state (~14 GB) once over the ranks "
+            "and once in rank 0's one-process steps, its gathered "
+            "checkpoint (~10.5 GB) written and read, and the run's 1200 s "
+            "limit")
     torch.cuda.empty_cache()
 
     def launched(*keys, runs=("launches",)):

@@ -372,3 +372,29 @@ def unshard(local: torch.Tensor, sh: Sharding) -> torch.Tensor:
             parts = all_gather(out, sh.mesh.get_group(a))
             out = torch.cat(parts, dim=dim)
     return out
+
+
+def shard_params(params: Any, cfg: ModelConfig, mesh) -> Any:
+    """This rank's block of every leaf of a whole parameter tree (e.g.
+    ``convert.from_jax``'s or a one-process ``init``'s), leaf by leaf:
+    each cut by its :func:`params_shardings` spec and copied out, so the
+    whole leaf can be freed (a block along the first dimension is a
+    contiguous view of the whole storage, which ``.contiguous()`` would
+    keep)."""
+    shs = params_shardings(params, cfg, mesh)
+
+    def cut(p, s):
+        out = shard(p, s)
+        return out if out is p else out.clone()
+    return tree.tree_map(cut, params, shs)
+
+
+def without_axis(shardings: Any, axis: str) -> Any:
+    """The shardings with ``axis`` taken out of every spec: the blocks, on
+    the remaining axes, of tensors that are already this rank's block
+    along ``axis`` (ZeRO-1's data-axis block of a model-axis block)."""
+    def drop(s: Sharding) -> Sharding:
+        return Sharding(s.mesh, spec(*(
+            tuple(a for a in spec_axes(part) if a != axis)
+            for part in s.spec)))
+    return tree.tree_map(drop, shardings)

@@ -74,6 +74,14 @@ def embed_init(gen, shape, dtype, device) -> torch.Tensor:
     return (_normal(gen, shape, device) * 0.02).to(dtype)
 
 
+def _keep(key: str, leaf: torch.Tensor) -> torch.Tensor:
+    return leaf
+
+
+# Each init helper hands every leaf, as it is drawn, to ``place(key, leaf)``
+# (a tensor-parallel rank keeps its block there; the default keeps it
+# whole), so no rank holds a whole split leaf longer than its draw.
+
 def norm_init(cfg: ModelConfig, device) -> Params:
     p = {"w": torch.ones(cfg.d_model, device=device)}
     if cfg.norm_kind == "layer":
@@ -81,55 +89,56 @@ def norm_init(cfg: ModelConfig, device) -> Params:
     return p
 
 
-def attn_init(gen, cfg: ModelConfig, device) -> Params:
+def attn_init(gen, cfg: ModelConfig, device, place=_keep) -> Params:
     d = cfg.d_model
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dt = torch_dtype(cfg.dtype)
     p = {
-        "wq": dense_init(gen, (d, hq, dh), d, dt, device),
-        "wk": dense_init(gen, (d, hkv, dh), d, dt, device),
-        "wv": dense_init(gen, (d, hkv, dh), d, dt, device),
-        "wo": dense_init(gen, (hq, dh, d), hq * dh, dt, device),
+        "wq": place("wq", dense_init(gen, (d, hq, dh), d, dt, device)),
+        "wk": place("wk", dense_init(gen, (d, hkv, dh), d, dt, device)),
+        "wv": place("wv", dense_init(gen, (d, hkv, dh), d, dt, device)),
+        "wo": place("wo", dense_init(gen, (hq, dh, d), hq * dh, dt, device)),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((hq, dh), dtype=dt, device=device)
-        p["bk"] = torch.zeros((hkv, dh), dtype=dt, device=device)
-        p["bv"] = torch.zeros((hkv, dh), dtype=dt, device=device)
+        p["bq"] = place("bq", torch.zeros((hq, dh), dtype=dt, device=device))
+        p["bk"] = place("bk", torch.zeros((hkv, dh), dtype=dt, device=device))
+        p["bv"] = place("bv", torch.zeros((hkv, dh), dtype=dt, device=device))
     return p
 
 
-def mlp_init(gen, cfg: ModelConfig, device) -> Params:
+def mlp_init(gen, cfg: ModelConfig, device, place=_keep) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     if cfg.act == "swiglu":
         return {
-            "wg": dense_init(gen, (d, f), d, dt, device),
-            "wu": dense_init(gen, (d, f), d, dt, device),
-            "wd": dense_init(gen, (f, d), f, dt, device),
+            "wg": place("wg", dense_init(gen, (d, f), d, dt, device)),
+            "wu": place("wu", dense_init(gen, (d, f), d, dt, device)),
+            "wd": place("wd", dense_init(gen, (f, d), f, dt, device)),
         }
     return {
-        "wu": dense_init(gen, (d, f), d, dt, device),
-        "wd": dense_init(gen, (f, d), f, dt, device),
+        "wu": place("wu", dense_init(gen, (d, f), d, dt, device)),
+        "wd": place("wd", dense_init(gen, (f, d), f, dt, device)),
     }
 
 
-def moe_init(gen, cfg: ModelConfig, device) -> Params:
+def moe_init(gen, cfg: ModelConfig, device, place=_keep) -> Params:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = torch_dtype(cfg.dtype)
     return {
-        "router": dense_init(gen, (d, e), d, torch.float32, device),
-        "wg": dense_init(gen, (e, d, f), d, dt, device),
-        "wu": dense_init(gen, (e, d, f), d, dt, device),
-        "wd": dense_init(gen, (e, f, d), f, dt, device),
+        "router": place("router", dense_init(gen, (d, e), d, torch.float32,
+                                             device)),
+        "wg": place("wg", dense_init(gen, (e, d, f), d, dt, device)),
+        "wu": place("wu", dense_init(gen, (e, d, f), d, dt, device)),
+        "wd": place("wd", dense_init(gen, (e, f, d), f, dt, device)),
     }
 
 
-def embed_init_params(gen, cfg: ModelConfig, device) -> Params:
+def embed_init_params(gen, cfg: ModelConfig, device, place=_keep) -> Params:
     v, d = cfg.padded_vocab, cfg.d_model
     dt = torch_dtype(cfg.dtype)
-    p = {"tok": embed_init(gen, (v, d), dt, device)}
+    p = {"tok": place("tok", embed_init(gen, (v, d), dt, device))}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init(gen, (d, v), d, dt, device)
+        p["unembed"] = place("unembed", dense_init(gen, (d, v), d, dt, device))
     return p
 
 
@@ -481,6 +490,7 @@ def apply_attn(
     kv_src: torch.Tensor | None = None,    # cross-attention source (b, t, d)
     causal: bool = True,
     use_rope: bool = True,
+    tp=None,                               # distributed.tensor_parallel
 ) -> torch.Tensor:
     """GQA attention, returning the (b, s, d) output.
 
@@ -493,7 +503,14 @@ def apply_attn(
       ``causal`` is False (the encoder).
 
     RoPE applies to self-attention only (``use_rope`` and no ``kv_src``);
-    cross-attention is never causal."""
+    cross-attention is never causal.  ``tp`` (a ``ModelParallel``, causal
+    self-attention with no cache): this rank's block of the weights, see
+    :func:`_attn_split`."""
+    if tp is not None:
+        if cache is not None or kv_src is not None or not causal:
+            raise NotImplementedError("tensor-parallel attention: causal "
+                                      "self-attention with no cache only")
+        return _attn_split(p, x, cfg, positions, seg_lens, tp)
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     cross_cached = cache is not None and "lengths" not in cache
@@ -544,17 +561,81 @@ def apply_attn(
     return out.reshape(b, s, hq * dh) @ p["wo"].reshape(hq * dh, d)
 
 
+def _attn_split(p: Params, x, cfg: ModelConfig, positions, seg_lens, tp):
+    """Causal self-attention on this rank's block of the weights (their
+    shapes say which split the rule chose, ``sharding._attn_dims``):
+
+    * heads: q, k, v and ``wo`` on this rank's heads.  Where K/V are
+      replicated (``n_kv_heads`` does not divide over ``model``), this
+      rank projects only the KV heads its query heads read (global query
+      head j reads KV head ``j // (hq // hkv)``, ``ModelParallel.kv_heads``)
+      from the replicated ``wk``/``wv``, entered through a *copy* so each
+      weight's gradient is the sum of the ranks' parts;
+    * ``dh``: each projection gives this rank's slice of every head's
+      ``dh``.  RoPE pairs ``i`` with ``i + dh/2`` and the scores contract
+      over the whole ``dh``, so q, k and v are gathered over ``dh`` before
+      RoPE, every rank attends over all heads, and this rank's ``dh``
+      slice of the output goes into its rows of ``wo``;
+    * replicated: the one-process attention, no collective.
+
+    The split cases end in a *reduce* of ``wo``'s partial sums."""
+    b, s, d = x.shape
+    hq, dh = cfg.n_heads, cfg.head_dim_
+    wq = p["wq"]
+    if tuple(wq.shape[1:]) == (hq, dh):                 # replicated
+        return apply_attn(p, x, cfg, positions, seg_lens=seg_lens)
+    x = tp.copy(x)
+
+    def proj(w, bias):
+        h, dl = w.shape[1:]
+        y = (x @ w.reshape(d, h * dl)).reshape(b, s, h, dl)
+        return y if bias is None else y + bias
+
+    bias = {k: p.get("b" + k) for k in ("q", "k", "v")}
+    q = proj(wq, bias["q"])
+    if wq.shape[1] != hq:                               # heads
+        wk, wv = p["wk"], p["wv"]
+        if wk.shape[1] == cfg.n_kv_heads:               # replicated K/V
+            heads = tp.kv_heads(wq.shape[1])
+            wk, wv = tp.copy(wk)[:, heads], tp.copy(wv)[:, heads]
+            for key in ("k", "v"):
+                if bias[key] is not None:
+                    bias[key] = tp.copy(bias[key])[heads]
+        k, v = proj(wk, bias["k"]), proj(wv, bias["v"])
+    else:                                               # dh
+        k, v = proj(p["wk"], bias["k"]), proj(p["wv"], bias["v"])
+        q, k, v = (tp.gather(t, -1) for t in (q, k, v))
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = _source_attention(q, k, v, cfg, True, seg_lens)
+    wo = p["wo"]
+    if wq.shape[1] == hq:                               # dh: this rank's slice
+        dl = wo.shape[1]
+        out = tp.copy(out).narrow(-1, tp.rank * dl, dl)
+    hl, dl = wo.shape[:2]
+    return tp.reduce(out.reshape(b, s, hl * dl) @ wo.reshape(hl * dl, d))
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
+    """The MLP; with ``tp`` and ``d_ff`` split over ``model`` (``wd``'s
+    rows), ``wg``/``wu`` are this rank's columns and ``wd`` its rows:
+    ``x`` enters through a *copy* and the partial sums leave through a
+    *reduce*."""
+    split = tp is not None and p["wd"].shape[0] != cfg.d_ff
+    if split:
+        x = tp.copy(x)
     if cfg.act == "swiglu":
         h = torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])
     else:
         # jax.nn.gelu defaults to the tanh form (approximate=True).
         h = torch.nn.functional.gelu(x @ p["wu"], approximate="tanh")
-    return h @ p["wd"]
+    y = h @ p["wd"]
+    return tp.reduce(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +643,7 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _route(p: Params, xf: torch.Tensor, cfg: ModelConfig,
-           density_mean=None):
+           density_mean=None, tp=None):
     """fp32 router -> (renormalised top-k gates (t, k), expert ids (t, k),
     one-hot (t, k, e), load-balancing aux loss).
 
@@ -570,9 +651,15 @@ def _route(p: Params, xf: torch.Tensor, cfg: ModelConfig,
     When the batch is split evenly over data-parallel ranks,
     ``density_mean`` maps this rank's per-expert fractions (e,), which
     carry no gradient, to the whole batch's (a mean over the ranks); the
-    ranks' mean aux loss, and its gradient, is then the whole batch's."""
+    ranks' mean aux loss, and its gradient, is then the whole batch's.
+    With ``tp`` the router holds this rank's experts' columns: the fp32
+    logits are gathered over ``model`` before the softmax and top-k, so
+    gates, ids and the aux loss are the one-process ones on every rank."""
     e, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(xf.float() @ p["router"], dim=-1)     # (t, e)
+    logits = xf.float() @ p["router"]                           # (t, e)
+    if tp is not None:
+        logits = tp.gather(logits, -1)
+    probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     onehot = torch.nn.functional.one_hot(idx, e).float()        # (t, k, e)
@@ -630,7 +717,7 @@ def _swiglu_experts(p: Params, xe: torch.Tensor, gmm, counts=None):
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              density_mean=None):
+              density_mean=None, tp=None):
     """(y (b, s, d), aux loss; ``density_mean``: see :func:`_route`).  Two
     dispatch schedules (``cfg.moe_dispatch``), as in the reference:
 
@@ -644,56 +731,103 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
       grouped products run with ``counts = min(received, cap)`` and the
       results scatter back.  The scatter-add (``index_add_``) is not
       bitwise reproducible run to run on CUDA (atomics), so the serve
-      path's bitwise gates run only under dense dispatch."""
+      path's bitwise gates run only under dense dispatch.
+
+    Expert parallel (``tp`` with the experts split over ``model``): this
+    rank holds experts ``[e0, e0 + e_l)`` (``e_l`` from its leaves) and
+    routes as one process does (:func:`_route`).  Dense dispatch takes its
+    experts' columns of the mask and the combine weights; sorted dispatch
+    places the pairs with the global capacity and the global stable order
+    and keeps those of its experts, so the drops are the one-process ones.
+    ``x`` and the gates enter through a *copy*, and the partial outputs
+    leave through a *reduce*."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
+    e_l = p["wg"].shape[0]
+    split = tp is not None and e_l != e
+    e0 = tp.rank * e_l if split else 0
     xf = x.reshape(t, d)
-    gate_vals, idx, onehot, aux = _route(p, xf, cfg, density_mean)
+    if split:
+        xf = tp.copy(xf)
+    gate_vals, idx, onehot, aux = _route(p, xf, cfg, density_mean,
+                                         tp if split else None)
+    if split:
+        gate_vals = tp.copy(gate_vals)
     gmm = _expert_products(cfg)
 
     if cfg.moe_dispatch == "sorted":
         cap = moe_capacity(t, cfg)
         order, pos, keep, counts = sorted_slots(idx, e, cap)
-        eidx_s = idx.reshape(-1)[order]
+        eidx_s = idx.reshape(-1)[order] - e0
+        if split:
+            keep = keep & (eidx_s >= 0) & (eidx_s < e_l)
         tok_s = torch.arange(t, device=x.device).repeat_interleave(k)[order]
         gate_s = gate_vals.reshape(-1).float()[order]
         pos_c = torch.where(keep, pos, 0)
         eidx_c = torch.where(keep, eidx_s, 0)
         # Dropped pairs add zeros at (0, 0): accumulate, never overwrite.
-        xe = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+        xe = torch.zeros((e_l, cap, d), dtype=x.dtype, device=x.device)
         xe.index_put_((eidx_c, pos_c),
                       xf[tok_s] * keep[:, None].to(x.dtype), accumulate=True)
-        live = counts.clamp(max=cap).to(torch.int32)
-        ye = _swiglu_experts(p, xe, gmm, live)                  # (e, cap, d)
+        live = counts[e0:e0 + e_l].clamp(max=cap).to(torch.int32)
+        ye = _swiglu_experts(p, xe, gmm, live)                  # (e_l, cap, d)
         del xe
         contrib = ye[eidx_c, pos_c] * (
             gate_s * keep.float())[:, None].to(x.dtype)
         y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
         y.index_add_(0, tok_s, contrib)
-        return y.reshape(b, s, d), aux
-
-    mask = onehot.amax(dim=1)                                   # (t, e) 0/1
-    combine = torch.einsum("tk,tke->te", gate_vals, onehot)     # (t, e)
-    xe = mask.T.to(x.dtype)[:, :, None] * xf                    # (e, t, d)
-    ye = _swiglu_experts(p, xe, gmm)                            # (e, t, d)
-    del xe
-    y = torch.einsum("etd,te->td", ye, combine.to(x.dtype))
-    return y.reshape(b, s, d).to(x.dtype), aux
+    else:
+        mask = onehot.amax(dim=1)[:, e0:e0 + e_l]               # (t, e_l) 0/1
+        combine = torch.einsum("tk,tke->te", gate_vals,
+                               onehot[..., e0:e0 + e_l])        # (t, e_l)
+        xe = mask.T.to(x.dtype)[:, :, None] * xf                # (e_l, t, d)
+        ye = _swiglu_experts(p, xe, gmm)                        # (e_l, t, d)
+        del xe
+        y = torch.einsum("etd,te->td", ye, combine.to(x.dtype)).to(x.dtype)
+    if split:
+        y = tp.reduce(y)
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+def _vocab_split(tp, leaf_vocab: int) -> bool:
+    return tp is not None and leaf_vocab != tp.cfg.padded_vocab
 
 
-def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return h @ p["tok"].T
-    return h @ p["unembed"]
+def embed(p: Params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The token embeddings.  Vocab-parallel (``tp`` and ``tok`` this
+    rank's rows): the ids in this rank's range are looked up, the rest
+    give zeros, and the ranks' rows are summed by a *reduce* (exact: one
+    of the addends is nonzero)."""
+    tok = p["tok"]
+    if not _vocab_split(tp, tok.shape[0]):
+        return tok[tokens.long()]
+    vl = tok.shape[0]
+    ids = tokens.long() - tp.rank * vl
+    mine = (ids >= 0) & (ids < vl)
+    x = tok[ids.clamp(0, vl - 1)] * mine[..., None].to(tok.dtype)
+    return tp.reduce(x)
+
+
+def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig,
+            tp=None) -> torch.Tensor:
+    """The logits; vocab-parallel, this rank's columns (of the tied
+    ``tok``'s rows or of ``unembed``), ``h`` entering through a *copy*."""
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    if _vocab_split(tp, w.shape[1]):
+        h = tp.copy(h)
+    return h @ w
+
+
+def gather_vocab(logits: torch.Tensor, tp=None) -> torch.Tensor:
+    """Whole logits from this rank's vocab columns (a no-op unsplit)."""
+    if not _vocab_split(tp, logits.shape[-1]):
+        return logits
+    return tp.gather(logits, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -721,6 +855,32 @@ def _masked_chunk(logits, lo, hi, vocab_valid):
     return x
 
 
+def _online_lse(logits, bounds, vocab_valid: int):
+    """The running (max, sum of exponentials) in fp32 over the column
+    chunks ``bounds``, columns at or past ``vocab_valid`` masked."""
+    lead = logits.shape[:-1]
+    m = torch.full(lead, -1e30, dtype=torch.float32, device=logits.device)
+    l = torch.zeros(lead, dtype=torch.float32, device=logits.device)
+    for lo, hi in bounds:
+        x = _masked_chunk(logits, lo, hi, vocab_valid)
+        m_cur = torch.maximum(m, x.amax(dim=-1))
+        l = l * torch.exp(m - m_cur) + torch.exp(
+            x - m_cur[..., None]).sum(dim=-1)
+        m = m_cur
+    return m, l
+
+
+def _softmax_chunks(logits, bounds, vocab_valid: int, logz, grad):
+    """``softmax(x) * grad`` chunk by chunk from ``logz``, in the logits'
+    dtype (masked columns exactly 0)."""
+    dx = torch.empty_like(logits)
+    for lo, hi in bounds:
+        x = _masked_chunk(logits, lo, hi, vocab_valid)
+        dx[..., lo:hi] = (torch.exp(x - logz[..., None])
+                          * grad[..., None]).to(dx.dtype)
+    return dx
+
+
 class _ChunkedLogSumExp(torch.autograd.Function):
     """The reference's online logsumexp over ``_CE_CHUNK_VOCAB``-wide vocab
     chunks (the padded tail of the last chunk is simply not read: it would
@@ -730,16 +890,8 @@ class _ChunkedLogSumExp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, vocab_valid: int):
-        lead = logits.shape[:-1]
-        m = torch.full(lead, -1e30, dtype=torch.float32,
-                       device=logits.device)
-        l = torch.zeros(lead, dtype=torch.float32, device=logits.device)
-        for lo, hi in _chunk_bounds(logits.shape[-1]):
-            x = _masked_chunk(logits, lo, hi, vocab_valid)
-            m_cur = torch.maximum(m, x.amax(dim=-1))
-            l = l * torch.exp(m - m_cur) + torch.exp(
-                x - m_cur[..., None]).sum(dim=-1)
-            m = m_cur
+        m, l = _online_lse(logits, _chunk_bounds(logits.shape[-1]),
+                           vocab_valid)
         out = m + torch.log(l.clamp_min(1e-30))
         ctx.save_for_backward(logits, out)
         ctx.vocab_valid = vocab_valid
@@ -748,12 +900,8 @@ class _ChunkedLogSumExp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         logits, out = ctx.saved_tensors
-        dx = torch.empty_like(logits)
-        for lo, hi in _chunk_bounds(logits.shape[-1]):
-            x = _masked_chunk(logits, lo, hi, ctx.vocab_valid)
-            dx[..., lo:hi] = (torch.exp(x - out[..., None])
-                              * grad[..., None]).to(dx.dtype)
-        return dx, None
+        return _softmax_chunks(logits, _chunk_bounds(logits.shape[-1]),
+                               ctx.vocab_valid, out, grad), None
 
 
 def _chunked_logsumexp(logits: torch.Tensor, vocab_valid: int
@@ -763,9 +911,56 @@ def _chunked_logsumexp(logits: torch.Tensor, vocab_valid: int
     return _ChunkedLogSumExp.apply(logits, vocab_valid)
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token ``logsumexp(x) - x[label]`` over logits split by vocab
+    columns across the ``model`` ranks (``logits`` this rank's columns
+    ``[v0, v0 + vl)``).  Each rank runs the chunked online logsumexp over
+    its columns (the padded tail past ``vocab_valid``, on the last rank's
+    block, masked); the ranks' (max, sum of exponentials) and the target
+    logit (nonzero on the rank that holds the label) are all-reduced.  The
+    whole vocabulary is never materialised, and the live fp32 buffer is a
+    ``_CE_CHUNK_VOCAB``-wide chunk of this rank's columns where the
+    one-process loss would chunk.  The backward is ``softmax - onehot`` on
+    this rank's columns, chunk by chunk, in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, vocab_valid: int, tp):
+        vl = logits.shape[-1]
+        v0 = tp.rank * vl
+        valid = vocab_valid - v0
+        chunked = (logits.numel() * tp.size > _CE_CHUNK_MIN_ELEMENTS
+                   and vl * tp.size > _CE_CHUNK_VOCAB)
+        bounds = _chunk_bounds(vl) if chunked else [(0, vl)]
+        m, l = _online_lse(logits, bounds, valid)
+        m_all = tp.all_reduce_(m.clone(), torch.distributed.ReduceOp.MAX)
+        l = tp.all_reduce_(l * torch.exp(m - m_all))
+        logz = m_all + torch.log(l.clamp_min(1e-30))
+        lab = labels.long() - v0
+        mine = (lab >= 0) & (lab < vl)
+        lab = lab.clamp(0, vl - 1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0].float()
+        gold = tp.all_reduce_(torch.where(mine, gold, 0.0))
+        ctx.save_for_backward(logits, logz, lab, mine)
+        ctx.bounds, ctx.valid = bounds, valid
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, logz, lab, mine = ctx.saved_tensors
+        dx = _softmax_chunks(logits, ctx.bounds, ctx.valid, logz, grad)
+        hit = torch.gather(dx, -1, lab[..., None])[..., 0].float()
+        dx.scatter_(-1, lab[..., None], torch.where(
+            mine, hit - grad, hit)[..., None].to(dx.dtype))
+        return dx, None, None, None
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab_valid: int) -> torch.Tensor:
-    """Mean next-token loss; padded vocab entries masked out."""
+                  vocab_valid: int, tp=None) -> torch.Tensor:
+    """Mean next-token loss; padded vocab entries masked out.  With
+    ``tp`` and ``logits`` this rank's vocab columns, the vocab-parallel
+    loss (:class:`_VocabParallelCE`), equal on every rank."""
+    if _vocab_split(tp, logits.shape[-1]):
+        return _VocabParallelCE.apply(logits, labels, vocab_valid, tp).mean()
     v = logits.shape[-1]
     labels = labels.long()[..., None]
     if logits.numel() > _CE_CHUNK_MIN_ELEMENTS and v > _CE_CHUNK_VOCAB:

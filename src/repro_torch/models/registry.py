@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import importlib
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
@@ -37,10 +39,40 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-def build_model(cfg: ModelConfig, device=None) -> cm.ModelApply:
+# The families whose forward and loss run split over a mesh's ``model``
+# axis (``distributed.tensor_parallel``).
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+
+
+def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
     """The model for ``cfg`` on ``device`` (default: the CUDA card; raises
-    without one unless ``device="cpu"`` is given)."""
+    without one unless ``device="cpu"`` is given).
+
+    ``mesh`` (a ``(data, model)`` DeviceMesh) with ``model`` larger than 1
+    makes ``init``, ``forward`` and ``loss`` tensor and expert parallel
+    over ``model``: each rank holds its ``sharding.param_spec`` block of
+    every leaf, and the collectives run inside the model code.  The dense
+    and MoE families only; the others raise."""
     if cfg.family not in _MODULES:
         raise ValueError(f"unknown family: {cfg.family}")
+    from repro_torch.distributed.tensor_parallel import model_parallel
+    from repro_torch.launch.mesh import axis_sizes
+
     module = importlib.import_module(_MODULES[cfg.family])
-    return module.build(cfg, resolve_device(device))
+    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+        return module.build(cfg, resolve_device(device))
+    if cfg.family not in TENSOR_PARALLEL_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch}: the {cfg.family} family has no tensor-parallel "
+            f"execution over 'model' yet (ROADMAP.md, queue 1); use a mesh "
+            f"with model = 1")
+    return module.build(cfg, resolve_device(device),
+                        model_parallel(cfg, mesh))
+
+
+def param_shapes(cfg: ModelConfig):
+    """The whole model's parameter tree as meta tensors (the one-process
+    shapes, nothing allocated): what the sharding rules read, whatever
+    block of each leaf a rank holds."""
+    module = importlib.import_module(_MODULES[cfg.family])
+    return module.build(cfg, torch.device("meta")).init(None)

@@ -31,22 +31,43 @@ from repro_torch.device import torch_dtype
 from repro_torch.models import common as cm
 
 
-def _layer_init(gen, cfg: ModelConfig, device, cross: bool = False):
+def _layer_init(gen, cfg: ModelConfig, device, cross: bool = False,
+                place=None):
+    """One layer's parameters; ``place(sub)`` gives the init helpers'
+    ``place`` for the layer's subtree ``sub`` (None: keep every leaf
+    whole)."""
+    def kw(sub):
+        return {} if place is None else {"place": place(sub)}
+
     p = {
         "ln1": cm.norm_init(cfg, device),
-        "attn": cm.attn_init(gen, cfg, device),
+        "attn": cm.attn_init(gen, cfg, device, **kw("attn")),
         "ln2": cm.norm_init(cfg, device),
     }
     if cfg.family == "moe" and not cross:
-        p["moe"] = cm.moe_init(gen, cfg, device)
+        p["moe"] = cm.moe_init(gen, cfg, device, **kw("moe"))
     else:
-        p["mlp"] = cm.mlp_init(gen, cfg, device)
+        p["mlp"] = cm.mlp_init(gen, cfg, device, **kw("mlp"))
     return p
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device):
+def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None):
     """Random parameters from the reference's distributions (not its
-    numbers: torch and JAX generators differ)."""
+    numbers: torch and JAX generators differ).  With ``tp`` (a
+    ``ModelParallel``) every leaf is drawn whole, in the one-process
+    order, and only this rank's block of it is kept: the parameters are
+    the blocks of the one-process ``init``'s from the same generator
+    state, and no rank holds more than one whole leaf at a time."""
+    if tp is not None:
+        layers = cfg.n_layers
+        params = {"embed": cm.embed_init_params(
+                      gen, cfg, device, place=tp.place(("embed",))),
+                  "ln_f": cm.norm_init(cfg, device),
+                  "layers": [_layer_init(
+                      gen, cfg, device, place=lambda sub, i=i: tp.place(
+                          ("layers", i, sub), (layers,)))
+                      for i in range(layers)]}
+        return params
     params = {"embed": cm.embed_init_params(gen, cfg, device),
               "ln_f": cm.norm_init(cfg, device)}
     if cfg.cross_attn_every:
@@ -71,16 +92,16 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def _self_block_aux(p, x, cfg: ModelConfig, positions, cache=None,
-                    seg_lens=None, density_mean=None):
+                    seg_lens=None, density_mean=None, tp=None):
     """One self-attention layer -> (x, the MoE layer's aux loss, None for
     a dense layer)."""
     x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
-                          positions, cache, seg_lens=seg_lens)
+                          positions, cache, seg_lens=seg_lens, tp=tp)
     h = cm.apply_norm(p["ln2"], x, cfg)
     if "moe" in p:
-        m, aux = cm.apply_moe(p["moe"], h, cfg, density_mean)
+        m, aux = cm.apply_moe(p["moe"], h, cfg, density_mean, tp=tp)
     else:
-        m, aux = cm.apply_mlp(p["mlp"], h, cfg), None
+        m, aux = cm.apply_mlp(p["mlp"], h, cfg, tp=tp), None
     return x + m, aux
 
 
@@ -96,7 +117,7 @@ def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache):
 
 
 def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
-                   remat: RematPolicy, density_mean=None):
+                   remat: RematPolicy, density_mean=None, tp=None):
     """The training stack: every layer over the whole block, no cache;
     -> (x, the MoE layers' summed aux loss).  A remat recompute calls
     ``density_mean`` again (on every rank alike)."""
@@ -115,7 +136,7 @@ def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
 
     def layer_body(h, lp):
         return _self_block_aux(lp, h, cfg, positions,
-                               density_mean=density_mean)
+                               density_mean=density_mean, tp=tp)
 
     body = apply_remat(layer_body, remat)
     for lp in params["layers"]:
@@ -237,33 +258,65 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
-def forward(params, tokens, cfg: ModelConfig, vis=None,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None):
-    """tokens (b, s) -> (logits (b, s, padded vocab), aux loss);
-    ``density_mean``: see ``common._route``."""
+def _hidden(params, tokens, cfg: ModelConfig, vis, remat: RematPolicy,
+            density_mean, tp):
+    """The final normed hidden states (b, s, d) and the aux loss."""
     s = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens)
+    x = cm.embed(params["embed"], tokens, tp)
     if cfg.cross_attn_every:
         if vis is None:
             raise ValueError("a VLM forward needs the vision tokens (vis=)")
         vis = vis.to(device=x.device, dtype=x.dtype) @ params["vis_proj"]
     positions = torch.arange(s, device=tokens.device)[None, :]
     x, aux = _stack_nocache(params, x, cfg, positions, vis, remat,
-                            density_mean)
-    x = cm.apply_norm(params["ln_f"], x, cfg)
-    return cm.unembed(params["embed"], x, cfg), aux
+                            density_mean, tp)
+    return cm.apply_norm(params["ln_f"], x, cfg), aux
+
+
+def forward(params, tokens, cfg: ModelConfig, vis=None,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None,
+            tp=None):
+    """tokens (b, s) -> (logits (b, s, padded vocab), aux loss);
+    ``density_mean``: see ``common._route``.  Under ``tp`` the logits are
+    gathered whole on every rank, as the reference's forward returns
+    them."""
+    x, aux = _hidden(params, tokens, cfg, vis, remat, density_mean, tp)
+    logits = cm.unembed(params["embed"], x, cfg, tp)
+    return cm.gather_vocab(logits, tp), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None):
-    logits, aux = forward(params, batch["tokens"], cfg, vis=batch.get("vis"),
-                          remat=remat, density_mean=density_mean)
-    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None,
+            tp=None):
+    """Mean CE + aux; under ``tp`` the vocab-parallel loss over this
+    rank's logit columns (never gathered)."""
+    x, aux = _hidden(params, batch["tokens"], cfg, batch.get("vis"), remat,
+                     density_mean, tp)
+    logits = cm.unembed(params["embed"], x, cfg, tp)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab, tp)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
+def _single_rank(*args, **kwargs):
+    raise NotImplementedError(
+        "serving runs on one rank (ServeEngine takes no mesh): build the "
+        "model without a mesh whose 'model' axis is larger than 1")
+
+
+def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
+    """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
+    tensor and expert parallel execution into ``init``, ``forward`` and
+    ``loss`` (dense and MoE families); the cache entry points then
+    refuse."""
     vlm = bool(cfg.cross_attn_every)
+    if tp is not None:
+        return cm.ModelApply(
+            config=cfg,
+            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+            forward=functools.partial(forward, cfg=cfg, tp=tp),
+            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
+            init_cache=_single_rank, prefill=_single_rank,
+            decode_step=_single_rank)
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),

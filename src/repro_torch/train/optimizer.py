@@ -124,11 +124,28 @@ def opt_shardings(param_shardings: Any, params_shape: Any, mesh,
     return {"mu": mu, "nu": mu, "count": Sharding(mesh, ())}
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: list[torch.Tensor], split=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in fp32.  Each leaf is
     squared from a transient fp32 copy, so a bf16 gradient tree is never
-    held in fp32 whole."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    held in fp32 whole.
+
+    ``split`` ``(flags, group)``: the flagged leaves are this rank's
+    blocks of leaves split over ``group`` (tensor parallel), the others
+    whole on every rank.  The norm is then the whole model's: the split
+    leaves' squares are summed over the group and the replicated leaves
+    counted once, so every rank clips alike."""
+    def sq(gs):
+        return sum((torch.sum(torch.square(g.float())) for g in gs),
+                   torch.zeros((), device=grads[0].device))
+
+    if split is None:
+        return torch.sqrt(sq(grads))
+    flags, group = split
+    from repro_torch.distributed.collectives import all_reduce
+
+    parts = all_reduce(sq(g for g, f in zip(grads, flags) if f),
+                       group=group)
+    return torch.sqrt(parts + sq(g for g, f in zip(grads, flags) if not f))
 
 
 def decay_mask(params: Any) -> list[bool]:
@@ -147,7 +164,7 @@ def decay_mask(params: Any) -> list[bool]:
 @torch.no_grad()
 def apply_updates(
     params: Any, grads: list[torch.Tensor], state: dict[str, Any],
-    cfg: AdamWConfig, shardings: Any = None,
+    cfg: AdamWConfig, shardings: Any = None, split=None,
 ) -> dict[str, torch.Tensor]:
     """One AdamW step, in place: ``grads`` is the list of gradients in
     ``tree.leaves(params)`` order (any float dtype; each is read through a
@@ -156,11 +173,14 @@ def apply_updates(
     ``shardings`` (the moments' tree, as for :func:`init_state`) makes it
     the ZeRO-1 update: every rank passes the same full gradients, updates
     its block of the moments and the parameter, and the parameter's blocks
-    are all-gathered back into each rank's full parameter."""
+    are all-gathered back into each rank's full parameter.  ``split``:
+    see :func:`global_norm` (under tensor parallelism a rank's
+    "parameters" are its blocks, and the clip reads the whole model's
+    norm)."""
     state["count"].add_(1)
     count = state["count"]
     lr = schedule_lr(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     countf = count.float()

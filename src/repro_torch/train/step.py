@@ -28,9 +28,21 @@ batch's; the MoE load-balancing loss, which is not linear in the batch,
 is given the ranks' mean of the per-expert fractions (the loss's
 ``density_mean``, see ``models.common._route``).  With
 ``zero1`` the optimizer state is this rank's block
-(:func:`state_shardings`, ``optimizer.apply_updates``).  Tensor and expert
-parallel execution over ``model`` is not ported: a mesh with ``model``
-larger than 1 is refused.
+(:func:`state_shardings`, ``optimizer.apply_updates``).
+
+**Tensor and expert parallel.**  A mesh whose ``model`` axis has more
+than one rank builds the model with it (``models.build_model(cfg, device,
+mesh)``, the dense and MoE families; the others are refused): each rank
+holds its ``sharding.param_spec`` block of every leaf and the model code
+runs the ``model``-axis collectives (``distributed.tensor_parallel``).
+Batch rows split over ``data`` only and are the same on every ``model``
+rank; gradients are reduced over ``data`` only, since a split leaf's
+gradient is already this rank's block of the whole and a replicated
+leaf's the same on every ``model`` rank.  The gradient norm that clips
+the update is the whole model's (``optimizer.global_norm``: the squares
+of split leaves summed over ``model``, replicated leaves counted once),
+and ZeRO-1's moments are the ``data``-axis block of the rank's
+``model``-axis block.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import build_model
+from repro_torch.models.registry import param_shapes
 from repro_torch.train import optimizer as opt
 from repro_torch.utils import tree
 
@@ -60,7 +73,8 @@ class TrainConfig:
     grad_reduce_dtype: str = "float32"  # "bfloat16" halves collective bytes
     zero1: bool = False
     # Mesh axes the batch dim shards over: the reference's field; the port
-    # runs ("data",) only and refuses any other value.
+    # runs ("data",) only (the rows are the same on every `model` rank)
+    # and refuses any other value.
     batch_axes: tuple = ("data",)
 
 
@@ -88,10 +102,6 @@ class _DataParallel:
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh):
         sizes = axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                "make_train_step: tensor/expert parallel execution over "
-                "'model' is not ported; use a mesh with model = 1")
         if tuple(tcfg.batch_axes) != ("data",):
             raise NotImplementedError(f"make_train_step: batch axes "
                                       f"{tcfg.batch_axes}; only ('data',)")
@@ -128,11 +138,9 @@ class _DataParallel:
                      "seconds": time.perf_counter() - t0}
         return out
 
-    def moment_shardings(self, params):
+    def moment_shardings(self):
         if self.tcfg.zero1 and self.moments is None:
-            self.moments = state_shardings(
-                self.cfg, self.mesh, {"params": params},
-                zero1=True)["opt"]["mu"]
+            self.moments = moment_shardings(self.cfg, self.mesh)
         return self.moments
 
 
@@ -141,16 +149,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
     """Returns ``(train_step, model)``; ``train_step(state, batch) ->
     (state, metrics)`` with ``metrics`` {"loss", "ce", "aux", "lr",
     "grad_norm"} as 0-d tensors on the device.  ``mesh`` (a ``(data,
-    model)`` DeviceMesh, ``model`` = 1) makes it data parallel over
-    ``data``: every rank passes the same global batch and a state from
-    :func:`init_train_state` with the same ``mesh`` and ``zero1``."""
+    model)`` DeviceMesh) makes it data parallel over ``data`` and tensor
+    and expert parallel over ``model``: every rank passes the same global
+    batch and a state from :func:`init_train_state` with the same
+    ``mesh`` and ``zero1``."""
     # The plain route: see the module docstring.
     model = build_model(dataclasses.replace(cfg, decode_kernel="xla"),
-                        device)
+                        device, mesh)
     device = resolve_device(device)
     reduce_dtype = getattr(torch, tcfg.grad_reduce_dtype)
     dp = (_DataParallel(cfg, tcfg, mesh)
           if mesh is not None and axis_sizes(mesh)["data"] > 1 else None)
+    split = _model_split(cfg, mesh)
     # The MoE aux loss reads the whole batch's per-expert fractions.
     moe = ({"density_mean": dp.mean}
            if dp is not None and cfg.n_experts else {})
@@ -170,7 +180,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
             loss, grads, metrics = local_grads(params, leaves, batch)
         stats = opt.apply_updates(
             params, grads, state["opt"], tcfg.adamw,
-            shardings=dp.moment_shardings(params) if dp else None)
+            shardings=dp.moment_shardings() if dp else None, split=split)
         return state, {"loss": loss, **metrics, **stats}
 
     def local_grads(params, leaves, batch):
@@ -212,21 +222,53 @@ def init_train_state(model, generator: torch.Generator, mesh=None,
                      zero1: bool = False) -> dict[str, Any]:
     """Random parameters (requiring grad) and a fresh optimizer state; with
     ``mesh`` and ``zero1`` the moments are this rank's blocks.  Every rank
-    draws the same parameters from the same generator seed."""
+    draws the same parameters from the same generator seed (a model built
+    with a ``model > 1`` mesh keeps this rank's block of each)."""
     params = model.init(generator)
     for p in tree.leaves(params):
         p.requires_grad_(True)
-    moments = (state_shardings(model.config, mesh, {"params": params},
-                               zero1=True)["opt"]["mu"]
+    moments = (moment_shardings(model.config, mesh)
                if mesh is not None and zero1 else None)
     return {"params": params, "opt": opt.init_state(params, moments)}
 
 
-def state_shardings(cfg: ModelConfig, mesh, params_shape,
+def _model_split(cfg: ModelConfig, mesh):
+    """``(flags, group)`` for ``optimizer.global_norm`` under a ``model``
+    axis of more than one rank: which leaves (``tree.leaves`` order) are
+    split over it; None otherwise."""
+    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+        return None
+    flags = [any("model" in sh.spec_axes(part) for part in s.spec)
+             for s in tree.leaves(state_shardings(cfg, mesh)["params"])]
+    return flags, mesh.get_group("model")
+
+
+def moment_shardings(cfg: ModelConfig, mesh):
+    """ZeRO-1's moments as the optimizer holds them: the ``data``-axis
+    block (:func:`state_shardings`) of a parameter that is already this
+    rank's ``model``-axis block."""
+    return sh.without_axis(
+        state_shardings(cfg, mesh, zero1=True)["opt"]["mu"], "model")
+
+
+def state_shardings(cfg: ModelConfig, mesh, params_shape=None,
                     zero1: bool = False) -> dict[str, Any]:
     """``{"params": ..., "opt": ...}`` trees of ``Sharding`` for a train
-    state (``params_shape["params"]``: the parameter tree, or anything with
-    its leaves' shapes)."""
+    state: each leaf's block of the whole model's (what a checkpoint
+    gathers and restores).  ``params_shape["params"]`` is the parameter
+    tree, or anything with its leaves' whole shapes; by default the
+    config's (``models.registry.param_shapes``).  Under a ``model`` axis
+    of more than one rank a rank's own state holds blocks, so it is not
+    accepted here."""
+    if params_shape is None:
+        params_shape = {"params": param_shapes(cfg)}
+    elif axis_sizes(mesh).get("model", 1) > 1 and any(
+            tuple(a.shape) != tuple(b.shape) for a, b in zip(
+                tree.leaves(params_shape["params"]),
+                tree.leaves(param_shapes(cfg)))):
+        raise ValueError("state_shardings: the parameter tree holds blocks "
+                         "of a model-parallel rank; pass the whole shapes "
+                         "(or none)")
     pshard = sh.params_shardings(params_shape["params"], cfg, mesh)
     oshard = opt.opt_shardings(pshard, params_shape["params"], mesh,
                                zero1=zero1)

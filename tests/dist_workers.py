@@ -1,5 +1,5 @@
-"""Rank programs for ``tests/test_torch_distributed.py``: each runs in a
-spawned process over gloo (a ``file://`` store under the test's tmp dir),
+"""Rank programs for ``tests/test_torch_distributed.py`` and
+``tests/test_torch_tp.py``: each runs in a spawned process over gloo (a ``file://`` store under the test's tmp dir),
 reads its inputs from ``inputs.pt`` there and writes what it computed to
 ``<job>_rank<r>.pt``.  This module imports only torch and the port, so the
 spawned ranks never load JAX."""
@@ -131,4 +131,146 @@ def _dp2(rank, world, inputs, tmp) -> dict:
     return out
 
 
-JOBS = {"collectives": _collectives, "dp2": _dp2}
+def _tp_forward(cfg, params_np, mesh, toks, kernel="xla"):
+    """This rank's rows of ``toks`` (split over ``data``) through the
+    split model built from the whole bridged parameters; the logits."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(cfg, decode_kernel=kernel)
+    params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
+                             mesh)
+    n, i = mesh.size(0), mesh.get_local_rank("data")
+    rows = toks.shape[0] // n
+    with torch.no_grad():
+        logits, _ = build_model(cfg, "cpu", mesh).forward(
+            params, _t(toks[i * rows:(i + 1) * rows]))
+    return logits
+
+
+def _tp_train(cfg, params_np, mesh, case, tmp, name) -> dict:
+    """``case["steps"]`` ZeRO-1 steps through ``loop.run`` over ``mesh``
+    (a checkpoint at the end); the losses, grad norms and the gathered
+    state."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.step import make_train_step
+
+    train_step, _ = make_train_step(cfg, case["tcfg"], "cpu", mesh)
+    state, shard = _tp_state(cfg, params_np, mesh)
+    norms = []
+    ck = os.path.join(tmp, f"{name}_ckpt")
+    state, report = train_loop.run(
+        train_step, state, SyntheticLM(cfg, batch=case["batch"],
+                                       seq=case["seq"], seed=0),
+        train_loop.LoopConfig(total_steps=case["steps"],
+                              ckpt_every=case["steps"], ckpt_dir=ck,
+                              handle_signals=False),
+        shardings=shard,
+        on_step=lambda step, m: norms.append(float(m["grad_norm"])))
+    return {f"{name}_losses": report.losses, f"{name}_norms": norms,
+            f"{name}_full": ckpt.gather_state(state, shard),
+            f"{name}_ckpt": ck}
+
+
+def _tp_state(cfg, params_np, mesh):
+    """A ZeRO-1 train state holding this rank's blocks of the bridged
+    parameters, and the state's shardings."""
+    from repro_torch import convert
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import moment_shardings, state_shardings
+    from repro_torch.utils import tree
+
+    params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
+                             mesh)
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    state = {"params": params,
+             "opt": opt.init_state(params, moment_shardings(cfg, mesh))}
+    return state, state_shardings(cfg, mesh, zero1=True)
+
+
+def _tp(rank, world, inputs, tmp) -> dict:
+    """The tensor/expert parallel cases of ``tests/test_torch_tp.py`` on
+    a (1, 4) and a (2, 2) mesh of the same four ranks."""
+    import dataclasses
+
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        state_shardings)
+    from repro_torch.utils import tree
+
+    meshes = {(1, 4): make_local_mesh(1, 4), (2, 2): make_local_mesh(2, 2)}
+    out = {"coords": {k: tuple(m.get_coordinate())
+                      for k, m in meshes.items()}}
+    params = {a: pickle.loads(b) for a, b in inputs["params"].items()}
+    # Each rank's init: its blocks of the one-process init's leaves.
+    for arch in ("yi-9b", "phi3.5-moe-42b-a6.6b", "minicpm-2b"):
+        for shape, mesh in meshes.items():
+            cfg = get_config(arch, smoke=True)
+            out[f"init_{arch}_{shape}"] = build_model(cfg, "cpu", mesh).init(
+                torch.Generator().manual_seed(7))
+    # (a) phi3.5-moe SMOKE, dense and sorted dispatch, and sorted with
+    # capacity drops; the kernel route (the kernels' plain versions on
+    # the CPU) at (1, 4).
+    phi = get_config("phi3.5-moe-42b-a6.6b", smoke=True)
+    for shape, mesh in meshes.items():
+        for case, over in inputs["phi_cases"].items():
+            cfg = dataclasses.replace(phi, **over["cfg"])
+            out[f"phi_{case}_{shape}"] = _tp_forward(
+                cfg, params["phi3.5-moe-42b-a6.6b"], mesh,
+                inputs[over["toks"]])
+    out["phi_kernel_route"] = _tp_forward(
+        phi, params["phi3.5-moe-42b-a6.6b"], meshes[(1, 4)],
+        inputs["phi_toks"], kernel="pallas_paged")
+    # (c) minicpm SMOKE at (1, 4): head-dim split, tied vocab.
+    mini = get_config("minicpm-2b", smoke=True)
+    out["minicpm_logits"] = _tp_forward(mini, params["minicpm-2b"],
+                                        meshes[(1, 4)], inputs["mini_toks"])
+    out.update(_tp_train(mini, params["minicpm-2b"], meshes[(1, 4)],
+                         inputs["train"], tmp, "minicpm"))
+    # (b) yi-9b SMOKE on (2, 2) with ZeRO-1, and (e) its checkpoint
+    # restored onto (1, 4).
+    yi = get_config("yi-9b", smoke=True)
+    out.update(_tp_train(yi, params["yi-9b"], meshes[(2, 2)],
+                         inputs["train"], tmp, "yi"))
+    mesh14 = meshes[(1, 4)]
+    _, model14 = make_train_step(yi, inputs["train"]["tcfg"], "cpu", mesh14)
+    template = init_train_state(model14, torch.Generator().manual_seed(1),
+                                mesh14, zero1=True)
+    restored, step = ckpt.restore(out["yi_ckpt"], template=template,
+                                  shardings=state_shardings(yi, mesh14,
+                                                            zero1=True))
+    out["yi_restored_14"] = (step, restored)
+    try:
+        model14.prefill(None, None, None)
+    except NotImplementedError:
+        out["serve_refused"] = True
+    # (d) the split gradient norm: this rank's blocks of whole tensors
+    # shaped like yi's leaves.
+    from repro_torch.distributed import sharding as sh
+
+    whole = [_t(g) for g in inputs["norm_leaves"]]
+    blocks = [sh.shard(g, s) for g, s in zip(whole, tree.leaves(
+        state_shardings(yi, mesh14)["params"]))]
+    split = ([tuple(b.shape) != tuple(g.shape)
+              for b, g in zip(blocks, whole)], mesh14.get_group("model"))
+    out["norm"] = float(opt.global_norm(blocks, split))
+    tensor_parallel.CLOCK.update(on=True, seconds=0.0)
+    _tp_forward(phi, params["phi3.5-moe-42b-a6.6b"], mesh14,
+                inputs["phi_toks"])
+    out["clock_s"] = tensor_parallel.CLOCK["seconds"]
+    tensor_parallel.CLOCK.update(on=False)
+    return out
+
+
+JOBS = {"collectives": _collectives, "dp2": _dp2, "tp": _tp}

@@ -1,0 +1,388 @@
+"""Tensor and expert parallel execution over ``model`` (the port's
+``distributed.tensor_parallel`` and the split model code) held against the
+JAX package's one-device results, the side the reference's two sharded
+tests compare with (``tests/test_distributed.py``; they cannot run on this
+tree, whose ``jax.make_mesh`` rejects a one-device mesh).
+
+* (a) phi3.5-moe SMOKE on (1, 4) and (2, 2): logits under dense dispatch,
+  sorted dispatch, and sorted with capacity drops, against the JAX
+  one-device ``model.forward`` at ``test_moe_ep_sharded_forward_matches``'s
+  ``rtol=atol=3e-3`` and against the port's one-process forward within
+  1e-5 of the largest |logit|.  At (1, 4) a rank holds one query head,
+  the replicated K/V head it reads, one expert; at (2, 2) two heads, one
+  KV head, two experts.  The kernel route (the kernels' plain versions on
+  the CPU) at (1, 4).
+* (b) yi-9b SMOKE on (2, 2) with ZeRO-1, ``lr=1e-3``, batch 8 x 16 from
+  ``SyntheticLM``, two steps through ``loop.run``: losses against
+  ``repro.train.step``'s one-device steps at ``rtol=1e-4``, parameters at
+  ``rtol=atol=5e-3`` (``test_sharded_train_step_matches_single_device``'s
+  tolerances), first moments and grad norms against the port's
+  one-process steps.
+* (c) minicpm SMOKE (6 heads of 12, tied vocabulary) on (1, 4): the
+  head-dim split with RoPE and the vocab-split tied embedding, forward
+  and two steps.
+* (d) ``optimizer.global_norm`` over a split against the whole norm.
+* (e) the (2, 2) checkpoint restored at one process, bitwise, and onto
+  (1, 4), each rank its blocks bitwise.
+* (f) mamba2, zamba2, whisper and the VLM refused under ``model > 1``.
+* Each rank's ``init`` keeps exactly its ``param_spec`` block of the
+  one-process ``init``'s leaves, bitwise.
+
+Every multi-rank case runs in one spawn of four ranks for the whole file
+(``tests/dist_workers.py``: JAX-free ranks, a ``file://`` store under tmp,
+no fixed port)."""
+import dataclasses
+import functools
+import pickle
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import dist_workers  # noqa: E402
+from repro.models import build_model as rbuild  # noqa: E402
+from repro.models import get_config as rconfig  # noqa: E402
+from repro.train import optimizer as ropt  # noqa: E402
+from repro.train import step as rstep  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
+from repro_torch.models import build_model as tbuild  # noqa: E402
+from repro_torch.models import get_config as tconfig  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
+from repro_torch.utils import tree  # noqa: E402
+
+torch.set_num_threads(1)
+PHI, YI, MINI = "phi3.5-moe-42b-a6.6b", "yi-9b", "minicpm-2b"
+SHAPES = [(1, 4), (2, 2)]
+ADAMW = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+STEPS = 2
+# The reference's own tolerances (tests/test_distributed.py).
+EP_TOL = dict(rtol=3e-3, atol=3e-3)
+LOSS_RTOL, PARAM_TOL = 1e-4, dict(rtol=5e-3, atol=5e-3)
+# Split against one process, both torch: a share of the largest |logit|.
+ONE_PROCESS_TOL = 1e-5
+# The moments, linear in the gradients, leaf by leaf within this share of
+# the leaf's largest |moment| of the one-process steps.
+MOMENT_TOL = 1e-3
+PHI_CASES = {
+    "dense": {"cfg": {}, "toks": "phi_toks"},
+    "sorted": {"cfg": {"moe_dispatch": "sorted"}, "toks": "phi_toks"},
+    # 512 (token, choice) pairs into 4 experts of capacity 128: drops.
+    "drops": {"cfg": {"moe_dispatch": "sorted", "capacity_factor": 0.5},
+              "toks": "phi_drop_toks"},
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params(arch):
+    """The reference's init (PRNGKey(0)) as a numpy tree."""
+    params = rbuild(rconfig(arch, smoke=True)).init(jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(lambda x: np.array(x), params)
+
+
+def _tcfg(zero1=True):
+    return tstep.TrainConfig(adamw=topt.AdamWConfig(**ADAMW), zero1=zero1)
+
+
+def _inputs():
+    rng = np.random.default_rng(0)
+    vocab = tconfig(PHI, smoke=True).vocab
+    return {
+        "params": {a: pickle.dumps(_ref_params(a)) for a in (PHI, YI, MINI)},
+        # The reference test's tokens (PRNGKey(1), 4 x 16).
+        "phi_toks": np.asarray(jax.random.randint(
+            jax.random.PRNGKey(1), (4, 16), 0, vocab), np.int32),
+        "phi_drop_toks": rng.integers(0, vocab, (4, 64)).astype(np.int32),
+        "mini_toks": rng.integers(0, vocab, (4, 16)).astype(np.int32),
+        "phi_cases": PHI_CASES,
+        "train": {"tcfg": _tcfg(), "batch": 8, "seq": 16, "steps": STEPS},
+        "norm_leaves": [rng.standard_normal(tuple(p.shape)).astype(
+            np.float32) for p in tree.leaves(_one_process_params(YI))],
+    }
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_ranks")
+    inputs = _inputs()
+    torch.save(inputs, tmp / "inputs.pt")
+    return inputs, dist_workers.spawn("tp", 4, str(tmp))
+
+
+class _At:
+    """A mesh seen from one coordinate: what ``sharding.shard`` reads."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, coord):
+        self.shape, self.coord = shape, coord
+
+    def get_coordinate(self):
+        return list(self.coord)
+
+
+def _blocks(params, cfg, shape, coord):
+    """Rank ``coord``'s block of every leaf of a whole tree."""
+    shs = tsh.params_shardings(params, cfg, MeshShape(("data", "model"),
+                                                      shape))
+    return [tsh.shard(p, tsh.Sharding(_At(shape, coord), s.spec))
+            for p, s in zip(tree.leaves(params), tree.leaves(shs))]
+
+
+def _one_process_params(arch):
+    return convert.from_jax(_ref_params(arch), tconfig(arch, smoke=True),
+                            "cpu")
+
+
+def _check_logits(outs, key, shape, arch, toks_key, over=(),
+                  kernel="xla"):
+    """Each rank's logits (its ``data`` rows of the tokens: a batch of its
+    own, so sorted dispatch's capacity counts its tokens, as in the
+    data-parallel trainer) against the JAX one-device forward and the
+    port's one process on those rows."""
+    for out in outs:
+        i = out["coords"][shape][0]
+        want_jax, want_port = _forwards(arch, toks_key, over, kernel,
+                                        (i, shape[0]))
+        got = out[key].numpy()
+        np.testing.assert_allclose(got, want_jax, **EP_TOL)
+        err = float(np.abs(got - want_port).max())
+        scale = float(np.abs(want_port).max())
+        assert err <= ONE_PROCESS_TOL * scale, (key, err, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _forwards(arch, toks_key, over=(), kernel="xla", part=(0, 1)):
+    """(JAX one-device logits, the port's one-process logits) on part
+    ``i`` of ``n`` of the tokens' rows."""
+    toks = _inputs()[toks_key]
+    i, n = part
+    toks = toks[i * len(toks) // n:(i + 1) * len(toks) // n]
+    rcfg = dataclasses.replace(rconfig(arch, smoke=True), **dict(over))
+    want, _ = rbuild(rcfg).forward(
+        jax.tree_util.tree_map(jnp.asarray, _ref_params(arch)),
+        jnp.asarray(toks))
+    cfg = dataclasses.replace(tconfig(arch, smoke=True), decode_kernel=kernel,
+                              **dict(over))
+    with torch.no_grad():
+        port, _ = tbuild(cfg, "cpu").forward(_one_process_params(arch),
+                                             torch.from_numpy(toks.copy()))
+    return np.asarray(want, np.float32), port.numpy()
+
+
+@pytest.mark.parametrize("arch", [YI, PHI, MINI])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_init_keeps_the_param_spec_blocks(ranks, arch, shape):
+    """Each rank's ``init`` from the one-process seed keeps exactly its
+    ``param_spec`` block of every leaf, bitwise."""
+    cfg = tconfig(arch, smoke=True)
+    whole = tbuild(cfg, "cpu").init(torch.Generator().manual_seed(7))
+    for out in ranks[1]:
+        got = tree.leaves(out[f"init_{arch}_{shape}"])
+        want = _blocks(whole, cfg, shape, out["coords"][shape])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+    split = sum(a.numel() < b.numel() for a, b in zip(
+        tree.leaves(ranks[1][0][f"init_{arch}_{shape}"]),
+        tree.leaves(whole)))
+    assert split > 0
+
+
+@pytest.mark.parametrize("case", list(PHI_CASES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_moe_ep_forward_matches_the_reference(ranks, case, shape):
+    """(a) ``test_moe_ep_sharded_forward_matches`` answered by the port:
+    the split forward's logits (each rank its ``data`` rows) against the
+    JAX one-device forward and the port's one process."""
+    over = tuple(sorted(PHI_CASES[case]["cfg"].items()))
+    _check_logits(ranks[1], f"phi_{case}_{shape}", shape, PHI,
+                  PHI_CASES[case]["toks"], over)
+
+
+def test_moe_ep_forward_on_the_kernel_route(ranks):
+    """phi3.5-moe on (1, 4) through the kernel route's wrappers (flash,
+    fused norm and the grouped GEMM at each rank's local shapes; their
+    plain versions on the CPU)."""
+    _check_logits(ranks[1], "phi_kernel_route", (1, 4), PHI, "phi_toks",
+                  kernel="pallas_paged")
+
+
+def test_head_dim_split_forward_matches_the_reference(ranks):
+    """(c) minicpm on (1, 4): 6 heads do not divide over 4 ranks, so q, k,
+    v and ``wo`` split ``dh`` (12 -> 3), gathered before RoPE; the tied
+    ``tok`` is split by vocab rows for the embedding and the logits."""
+    assert tsh._attn_dims(tconfig(MINI, smoke=True), 6, 4) == (None, "model")
+    _check_logits(ranks[1], "minicpm_logits", (1, 4), MINI, "mini_toks")
+
+
+def _port_state(arch):
+    params = _one_process_params(arch)
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    return {"params": params, "opt": topt.init_state(params)}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process(arch):
+    """The port's one-process steps: (losses, grad norms, final state)."""
+    cfg = tconfig(arch, smoke=True)
+    step, _ = tstep.make_train_step(cfg, _tcfg(zero1=False), "cpu")
+    state = _port_state(arch)
+    data = SyntheticLM(cfg, batch=8, seq=16, seed=0)
+    losses, norms = [], []
+    for i in range(STEPS):
+        state, m = step(state, data(i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, state
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch):
+    """The reference's jitted one-device steps: (losses, param leaves in
+    the port's order)."""
+    cfg = rconfig(arch, smoke=True)
+    train_step, _ = rstep.make_train_step(
+        cfg, rstep.TrainConfig(adamw=ropt.AdamWConfig(**ADAMW)))
+    params = jax.tree_util.tree_map(jnp.asarray, _ref_params(arch))
+    state = {"params": params, "opt": ropt.init_state(params)}
+    data = SyntheticLM(tconfig(arch, smoke=True), batch=8, seq=16, seed=0)
+    step = jax.jit(train_step)
+    losses = []
+    for i in range(STEPS):
+        state, m = step(state, {k: jnp.asarray(v)
+                                for k, v in data(i).items()})
+        losses.append(float(m["loss"]))
+    as_np = jax.tree_util.tree_map(np.asarray, state["params"])
+    return losses, tree.leaves(convert.from_jax(
+        as_np, tconfig(arch, smoke=True), "cpu"))
+
+
+def _check_train(outs, name, arch):
+    losses, norms, one = _one_process(arch)
+    rlosses, rparams = _reference(arch)
+    for out in outs:
+        got = out[f"{name}_losses"]
+        assert got == outs[0][f"{name}_losses"]       # equal across ranks
+        np.testing.assert_allclose(got, rlosses, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got, losses, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(out[f"{name}_norms"], norms, rtol=1e-5)
+    full = outs[0][f"{name}_full"]
+    for a, b, c in zip(tree.leaves(full["params"]),
+                       tree.leaves(one["params"]), rparams):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), **PARAM_TOL)
+        np.testing.assert_allclose(a.numpy(), b.detach().numpy(),
+                                   **PARAM_TOL)
+    for k in ("mu", "nu"):
+        for (path, a), b in zip(tree.leaves_with_paths(full["opt"][k]),
+                                tree.leaves(one["opt"][k])):
+            err = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            assert err <= MOMENT_TOL, (k, tree.path_str(path), err)
+    for out in outs[1:]:
+        for a, b in zip(tree.leaves(out[f"{name}_full"]), tree.leaves(full)):
+            assert torch.equal(a, b)
+
+
+def test_sharded_train_step_matches_the_reference(ranks):
+    """(b) ``test_sharded_train_step_matches_single_device`` answered by
+    the port: yi-9b on (2, 2) with ZeRO-1 (2 query heads, 1 KV head,
+    ``d_ff`` 88 and 128 vocab rows a rank)."""
+    _check_train(ranks[1], "yi", YI)
+
+
+def test_head_dim_split_train_step(ranks):
+    """(c) minicpm on (1, 4): the head-dim split and the vocab-parallel
+    loss over the tied embedding, two steps."""
+    _check_train(ranks[1], "minicpm", MINI)
+
+
+def test_split_global_norm(ranks):
+    """(d) the norm of this rank's blocks with the split leaves' squares
+    summed over ``model`` is the whole tree's norm on every rank."""
+    inputs, outs = ranks
+    want = float(topt.global_norm([torch.from_numpy(g)
+                                   for g in inputs["norm_leaves"]]))
+    for out in outs:
+        assert abs(out["norm"] - want) <= 1e-6 * want, (out["norm"], want)
+
+
+def test_checkpoint_restores_at_one_process(ranks):
+    """(e) the checkpoint the (2, 2) ranks wrote (gathered, rank 0)
+    restores at one process, bitwise the gathered state."""
+    outs = ranks[1]
+    restored, step = ckpt.restore(outs[0]["yi_ckpt"],
+                                  template=_port_state(YI))
+    assert step == STEPS
+    for (p, a), b in zip(tree.leaves_with_paths(restored),
+                         tree.leaves(outs[0]["yi_full"])):
+        assert torch.equal(a.detach(), b), tree.path_str(p)
+
+
+def test_checkpoint_reshards_onto_another_mesh(ranks):
+    """(e) the (2, 2) checkpoint restored onto (1, 4): each rank holds its
+    blocks of the gathered state, bitwise (moments: the ``model`` blocks,
+    ``data`` being 1)."""
+    outs = ranks[1]
+    full = outs[0]["yi_full"]
+    shs = tstep.state_shardings(tconfig(YI, smoke=True),
+                                MeshShape(("data", "model"), (1, 4)),
+                                zero1=True)
+    for out in outs:
+        step, restored = out["yi_restored_14"]
+        assert step == STEPS
+        at = _At((1, 4), out["coords"][(1, 4)])
+        for (p, got), want, s in zip(tree.leaves_with_paths(restored),
+                                     tree.leaves(full), tree.leaves(shs)):
+            want = tsh.shard(want, tsh.Sharding(at, s.spec))
+            assert torch.equal(got.detach(), want), tree.path_str(p)
+
+
+def test_split_model_refuses_serving(ranks):
+    """The split model's cache entry points refuse: serving is
+    single-rank, as the reference's ``ServeEngine`` takes no mesh."""
+    assert all(out.get("serve_refused") for out in ranks[1])
+
+
+def test_collectives_are_clocked(ranks):
+    """``tensor_parallel.CLOCK`` on: the forward's collectives add host
+    time."""
+    for out in ranks[1]:
+        assert out["clock_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "whisper-small", "llama-3.2-vision-90b"])
+def test_other_families_refused_under_model_parallel(arch):
+    """(f) the families without a split yet name the roadmap."""
+    cfg = tconfig(arch, smoke=True)
+    mesh = MeshShape(("data", "model"), (1, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tbuild(cfg, "cpu", mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tstep.make_train_step(cfg, _tcfg(), "cpu", mesh)
+    tbuild(cfg, "cpu", MeshShape(("data", "model"), (4, 1)))
+
+
+def test_state_shardings_refuse_a_ranks_blocks():
+    """Under ``model > 1`` the rules need the whole shapes: a tree of a
+    rank's blocks is refused; by default they read the config's."""
+    cfg = tconfig(YI, smoke=True)
+    mesh = MeshShape(("data", "model"), (1, 4))
+    params = _one_process_params(YI)
+    cut = dict(zip((tree.path_str(p) for p, _ in
+                    tree.leaves_with_paths(params)),
+                   _blocks(params, cfg, (1, 4), (0, 0))))
+    blocks = tree.tree_map_with_path(lambda p, _: cut[tree.path_str(p)],
+                                     params)
+    with pytest.raises(ValueError, match="blocks"):
+        tstep.state_shardings(cfg, mesh, {"params": blocks})
+    assert [s.spec for s in tree.leaves(tstep.state_shardings(
+        cfg, mesh)["params"])] == [s.spec for s in tree.leaves(
+            tstep.state_shardings(cfg, mesh, {"params": params})["params"])]
