@@ -161,7 +161,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (replay), 16 requests each, with the n-gram proposer and with an oracle
    proposer that drafts the plain streams (so drafts are accepted);
 18. ``serve_sampling``: the serve arm's 48 requests at yi-9b's width,
-   greedy and then under seeded top-p (0.9 at temperature 0.8, request i
+   cut to 12 layers, greedy and then under seeded top-p (0.9 at temperature 0.8, request i
    seed 1000 + i), back to back: launch counts and one replay's kernels
    checked, tok/s and ms a chunk of each, the first 16 sampled ones with
    the graph off bitwise equal; a traced greedy and sampled chunk from
@@ -169,7 +169,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    Gumbel noise and top-p sort), timed, 8 steps of it over the sampled
    chunk's device time; its keys, bits and uniforms bitwise equal to the
    CPU's at the chunk's shape;
-19. ``serve_snapshot``: the serve arm with kv_integrity off and then on,
+19. ``serve_snapshot``: the serve arm, cut to 12 layers, with
+   kv_integrity off and then on,
    back to back (the on-device fingerprint sweep timed, streams bitwise
    equal, no mismatch), a crash leg (journal, snapshot after wave 2, kill
    at wave 4, restore on a fresh graphed engine; snapshot and restore
@@ -245,30 +246,43 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    layers, 3 steps with the step's fp32 gradient all-reduce and 3 with
    each gradient averaged by ``compressed_all_reduce`` (step and
    all-reduce ms, payload bytes, moment bytes, the loss gap);
-28. ``tp_forward``: tensor and expert parallel execution over ``model``
-   (``build_model(cfg, device, mesh)``, a (1, 4) mesh) at
-   phi3.5-moe-42b-a6.6b's full width on the kernel route, dense dispatch,
-   4 x 512 tokens: 4 spawned ranks share the card over gloo, each holding
-   its blocks (8 query and 2 KV heads, 4 of the 16 experts, a quarter of
-   the vocabulary) drawn from the one-process seed, and running flash
-   (GQA group 4), the fused norm (d 4096) and the grouped GEMM (4 experts
-   x 2048 rows) at those local shapes, each first held to its plain
-   version there (bf16 and fp32); fp32 at 2 layers, rank 0's gathered
-   logits within 2e-3 of the largest |logit| of the one-process
-   kernel-route forward (computed first in this process, its weights
-   freed before the ranks start); bf16 at 8 layers the gap measured;
-   per rank the forward ms, the collectives' ms (clocked), staged
-   collectives and bytes, peak memory and launches, held to flash L,
-   norms 2 L + 1, grouped GEMM 3 L (``cuda_cores`` in fp32, ``wgmma`` in
+28. ``tp_forward``, ``tp_forward_whisper``, ``tp_forward_vlm``: tensor and
+   expert parallel execution over ``model`` (``build_model(cfg, device,
+   mesh)``, a (1, 4) mesh) on the kernel route, one spawn of 4 ranks that
+   share the card over gloo for three models, each rank holding its
+   blocks drawn from the one-process seed: phi3.5-moe-42b-a6.6b at full
+   width, dense dispatch, 4 x 512 tokens (8 query and 2 KV heads, 4 of
+   the 16 experts, a quarter of the vocabulary a rank; flash, the fused
+   norm at d 4096 and the grouped GEMM over 4 experts x 2048 rows; fp32
+   at 2 layers, bf16 at 8); whisper-small at full depth (12 + 12 layers),
+   4 x 448 tokens, frames 4 x 1500 x 768 from the seed (3 heads of 64 a
+   rank; flash causal, bidirectional over the encoder's 1500 rows and
+   over the 1500 frames in the cross layers, the LayerNorm with bias at
+   d 768; fp32 and bf16); llama-3.2-vision-90b at full width cut by depth
+   (fp32 at 1 group of 4 self layers and 1 cross layer, bf16 at 2), 2 x
+   256 tokens, vision tokens 2 x 1600 x 8192 from the seed (16/2 heads of
+   128 a rank, ``vis_proj`` split by columns and gathered; flash causal
+   and over the 1600 vision keys, RMS at d 8192); each kernel first held
+   to its plain version at a rank's shapes (bf16 and fp32); each fp32
+   arm's gathered logits (rank 0) within 2e-3 of the largest |logit| of
+   the one-process kernel-route forward (computed first in this process,
+   its weights freed before the ranks start), each bf16 arm's gap
+   measured; per rank the forward ms with the collectives' ms clocked
+   inside it, staged collectives and bytes, peak memory and launches,
+   held to flash once an attention and the norm once a norm (whisper:
+   flash 12 + 2 x 12, norms 2 x 12 + 3 x 12 + 2; else flash L, norms
+   2 L + 1), grouped GEMM 3 L (``cuda_cores`` in fp32, ``wgmma`` in
    bf16), no plain call;
-29. ``train_tp``: the ZeRO-1 train step over a (1, 4) mesh at yi-9b's
-   full width (8 query heads and 1 KV head, a quarter of d_ff and of the
-   vocabulary a rank, the vocab-parallel loss), fp32 at 2 layers, 4 x 512
-   tokens, 2 steps on the plain route: losses within 1e-5 relative of
+29. ``train_tp``, ``train_tp_whisper``: the ZeRO-1 train step over a
+   (1, 4) mesh on the plain route, fp32, 2 steps, one spawn: yi-9b at
+   full width cut to 2 layers, 4 x 512 tokens (8 query heads and 1 KV
+   head, a quarter of d_ff and of the vocabulary a rank, the
+   vocab-parallel loss), its first moments gathered; whisper-small at
+   full depth, 2 x 448 tokens and frames; losses within 1e-5 relative of
    rank 0's one-process steps and equal across ranks, the gathered first
-   moments within 1e-3 of each leaf's largest, the gathered checkpoint
-   restored at one rank bitwise; step and collective ms, staged bytes,
-   peak memory;
+   moments within 1e-3 of each leaf's largest, whisper's gathered
+   checkpoint restored at one rank bitwise; step and collective ms,
+   staged bytes, peak memory;
 and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
 cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
 and the bound.  Every phase line carries ``at_s``, the seconds since the
@@ -2814,7 +2828,8 @@ def _trace_sampling_chunk(cfg, params, seed: int) -> dict:
             "sampler_share": 8 * step_ms / busy if busy else None}
 
 
-def phase_serve_sampling(gpu: str, seed: int, cfg, params) -> dict:
+def phase_serve_sampling(gpu: str, seed: int, cfg, params,
+                         cut: str | None = None) -> dict:
     """The serve arm's 48 requests at ``cfg``'s full width with the graph
     on, greedy and then under seeded top-p (0.9 at temperature 0.8, each
     request its own seed) back to back: launch counts checked, one
@@ -2842,7 +2857,8 @@ def phase_serve_sampling(gpu: str, seed: int, cfg, params) -> dict:
                              "differ from the graph's")
     trace = _trace_sampling_chunk(scfg, params, seed)
     line = {"phase": "serve_sampling", "gpu": gpu, "arch": cfg.arch,
-            "n_layers": cfg.n_layers, "dtype": cfg.dtype, **SAMPLING,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype, "cut": cut,
+            **SAMPLING,
             **_run_line(reqs, run),
             "admission_waves": stats["admission_waves"],
             "greedy": _run_line(greqs, grun),
@@ -3017,7 +3033,8 @@ def _corrupt_leg(name: str, cfg, params, reqs) -> dict:
             "wall_s": run["wall"]}
 
 
-def phase_serve_snapshot(gpu: str, seed: int, cfg, params) -> dict:
+def phase_serve_snapshot(gpu: str, seed: int, cfg, params,
+                         cut: str | None = None) -> dict:
     """Crash safety and KV page integrity at ``cfg``'s full width: the
     serve arm's 48 requests with kv_integrity off and then on, back to
     back (the on-device sweep timed, streams bitwise equal, no mismatch
@@ -3060,7 +3077,7 @@ def phase_serve_snapshot(gpu: str, seed: int, cfg, params) -> dict:
                              f"{len(reqs) - equal} streams, found "
                              f"{stats['corrupted_pages']} corrupt pages")
     line = {"phase": "serve_snapshot", "gpu": gpu, "arch": cfg.arch,
-            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype, "cut": cut,
             "integrity": {**_run_line(reqs, run),
                           "integrity_sweeps": stats["integrity_sweeps"],
                           "sweep_ms": statistics.mean(sweep_ms),
@@ -4516,16 +4533,42 @@ def _tp_tokens(seed: int, vocab: int, shape, device) -> torch.Tensor:
         np.int32)).to(device)
 
 
+def _tp_source_shape(cfg, batch: int) -> dict:
+    """The forward's source argument and its shape: whisper's frames
+    (batch, enc_seq, d), the VLM's vision tokens (batch, n_vis_tokens,
+    d); none for the other families."""
+    if cfg.family == "encdec":
+        return {"frames": (batch, cfg.enc_seq, cfg.d_model)}
+    if cfg.cross_attn_every:
+        return {"vis": (batch, cfg.n_vis_tokens, cfg.d_model)}
+    return {}
+
+
+def _tp_source(cfg, seed: int, batch: int, device) -> dict:
+    """The forward's source (:func:`_tp_source_shape`), fp32 from the
+    seed."""
+    gen = torch.Generator(device=device).manual_seed(seed + 95)
+    return {k: torch.randn(shape, generator=gen, device=device)
+            for k, shape in _tp_source_shape(cfg, batch).items()}
+
+
 def _tp_want(cfg) -> dict:
-    """The launches a rank's kernel-route forward of ``cfg`` must make:
-    flash once a layer, the norm twice a layer plus the final one, three
+    """The launches a rank's kernel-route forward of ``cfg`` must make,
+    no plain call: flash once an attention (whisper: each encoder layer,
+    each decoder layer's self and cross attention; else once a layer),
+    the norm once a norm (whisper: 2 an encoder layer, 3 a decoder layer
+    and the two final ones; else 2 a layer and the final one), three
     grouped GEMMs an MoE layer (``wgmma`` in bf16, ``cuda_cores`` in
-    fp32), no plain call."""
+    fp32)."""
     L = cfg.n_layers
+    if cfg.family == "encdec":
+        flash, norm = cfg.enc_layers + 2 * L, 2 * cfg.enc_layers + 3 * L + 2
+    else:
+        flash, norm = L, 2 * L + 1
+    gmm = 3 * L if cfg.n_experts else 0
     body = "cuda_cores" if cfg.dtype == "float32" else "wgmma"
-    return {"flash_dense": L, "fused_norm": 2 * L + 1,
-            "grouped_matmul": 3 * L, "plain": 0,
-            "gmm_bodies": {body: 3 * L}}
+    return {"flash_dense": flash, "fused_norm": norm, "grouped_matmul": gmm,
+            "plain": 0, "gmm_bodies": {body: gmm} if gmm else {}}
 
 
 def _tp_launches() -> dict:
@@ -4541,13 +4584,13 @@ def _tp_launches() -> dict:
 
 
 def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
-                 arms, shape) -> None:
-    """One rank of tp_forward (a spawned process): for each arm, the
-    model built over a (1, ``world``) mesh draws this rank's blocks,
-    runs one warm forward, then a counted and timed one (every kernel
-    counter and ``collectives.STAGED`` zeroed just before it, read just
-    after), then one with the collectives clocked.  Rank 0 keeps the
-    gathered logits for the parent."""
+                 arms) -> None:
+    """One rank of tp_forward (a spawned process): for each arm ``(name,
+    cfg, shape)``, the model built over a (1, ``world``) mesh draws this
+    rank's blocks, runs one warm forward, then a counted and timed one
+    with the collectives clocked (every kernel counter,
+    ``collectives.STAGED`` and the clock zeroed just before it, read just
+    after).  Rank 0 keeps the gathered logits for the parent."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives, tensor_parallel
@@ -4561,29 +4604,28 @@ def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
     mesh = make_local_mesh(1, world)
     res = {}
     try:
-        for name, cfg in arms:
+        for name, cfg, shape in arms:
             if device == "cuda":
                 torch.cuda.reset_peak_memory_stats()
             model = build_model(cfg, device, mesh)
             params = model.init(torch.Generator(device=device).manual_seed(
                 seed + 91))
             toks = _tp_tokens(seed, cfg.vocab, shape, device)
+            src = _tp_source(cfg, seed, shape[0], device)
             with torch.no_grad():
-                model.forward(params, toks)
+                model.forward(params, toks, **src)
                 sync()
                 dist.barrier()
                 reset_counts()
                 collectives.STAGED.update(collectives=0, bytes=0)
+                tensor_parallel.CLOCK.update(on=True, seconds=0.0)
                 t0 = time.perf_counter()
-                logits, _ = model.forward(params, toks)
+                logits, _ = model.forward(params, toks, **src)
                 sync()
                 ms = (time.perf_counter() - t0) * 1e3
+                tensor_parallel.CLOCK.update(on=False)
                 launches = _tp_launches()
                 staged = dict(collectives.STAGED)
-                dist.barrier()
-                tensor_parallel.CLOCK.update(on=True, seconds=0.0)
-                model.forward(params, toks)
-                tensor_parallel.CLOCK.update(on=False)
             row = {"forward_ms": ms, "launches": launches,
                    "collective_ms": tensor_parallel.CLOCK["seconds"] * 1e3,
                    "staged_collectives": staged["collectives"],
@@ -4597,7 +4639,7 @@ def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
             if rank == 0:
                 torch.save(logits.cpu(), f"{tmp}/tpf_{name}.pt")
             res[name] = row
-            del params, model, logits
+            del params, model, logits, src
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
@@ -4614,22 +4656,40 @@ def _leaves(params) -> list:
     return tree.leaves(params)
 
 
+def _tp_heads(cfg, world: int) -> tuple[int, int]:
+    """(query heads, KV heads) one rank's attention runs over: its block
+    where the rule splits heads, every head where it splits ``dh`` (q, k,
+    v are gathered over ``dh``), and under replicated K/V the KV heads its
+    query heads read."""
+    from repro_torch.distributed import sharding as sh
+
+    qh, _ = sh._attn_dims(cfg, cfg.n_heads, world)
+    kh, _ = sh._kv_dims(cfg, world)
+    hq = cfg.n_heads // world if qh else cfg.n_heads
+    if kh:
+        return hq, cfg.n_kv_heads // world
+    if qh:
+        return hq, max(1, hq * cfg.n_kv_heads // cfg.n_heads)
+    return hq, cfg.n_kv_heads
+
+
 def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
-    """The three kernels of tp_forward at one rank's shapes, against their
-    plain versions (TOL), in bf16 and fp32: flash over the rank's query
-    and KV heads (causal, no cache), the fused norm at d_model, the
-    grouped GEMM over the rank's experts and every token (dense
-    dispatch: x (e/ranks, b s, d) @ wg (e/ranks, d, d_ff))."""
+    """The kernels of ``cfg``'s split forward at one rank's shapes, against
+    their plain versions (TOL), in bf16 and fp32: flash over the rank's
+    query and KV heads (causal over the block; whisper's encoder without
+    the mask; the cross layers without the mask over the source), the
+    fused norm at d_model (LayerNorm with its bias for whisper, over the
+    encoder's rows), the grouped GEMM over an MoE rank's experts and every
+    token (dense dispatch: x (e/ranks, b s, d) @ wg (e/ranks, d, d_ff))."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.fused_norm import fused_norm as nk
     from repro_torch.kernels.moe_gmm import moe_gmm as gk
 
     b, s = shape
-    hq, dh = cfg.n_heads // world, cfg.head_dim_
-    # KV heads a rank: its block, or (replicated K/V) those its heads read.
-    hkv = (cfg.n_kv_heads // world if cfg.n_kv_heads % world == 0
-           else max(1, hq * cfg.n_kv_heads // cfg.n_heads))
-    e, d, f = cfg.n_experts // world, cfg.d_model, cfg.d_ff
+    hq, hkv = _tp_heads(cfg, world)
+    dh, d = cfg.head_dim_, cfg.d_model
+    src = (cfg.enc_seq if cfg.family == "encdec" else
+           cfg.n_vis_tokens if cfg.cross_attn_every else None)
     gen = torch.Generator(device=DEV).manual_seed(seed + 93)
     rows = []
     for dt in (torch.bfloat16, torch.float32):
@@ -4637,150 +4697,188 @@ def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
             return (torch.randn(size, generator=gen, device=DEV) * scale
                     ).to(dt)
 
-        q, k, v = (randn(b, h, s, dh) for h in (hq, hkv, hkv))
-        x = randn(b, s, d)
+        def attn(sq, skv):
+            return (randn(b, hq, sq, dh), randn(b, hkv, skv, dh),
+                    randn(b, hkv, skv, dh))
+
+        cases = [("flash_attention", "causal", fk.flash_attention,
+                  fk.flash_attention_plain, attn(s, s), {"causal": True})]
+        if cfg.family == "encdec":
+            cases.append(("flash_attention", "encoder", fk.flash_attention,
+                          fk.flash_attention_plain, attn(src, src),
+                          {"causal": False}))
+        if src is not None:
+            cases.append(("flash_attention", "source", fk.flash_attention,
+                          fk.flash_attention_plain, attn(s, src),
+                          {"causal": False}))
+        rows_n = src if cfg.family == "encdec" else s
+        x = randn(b, rows_n, d)
         w = torch.ones(d, device=DEV) + randn(d, scale=0.1).float()
-        xe, we = randn(e, b * s, d), randn(e, d, f, scale=d ** -0.5)
-        for name, kern, plain, args, kw in (
-                ("flash_attention", fk.flash_attention,
-                 fk.flash_attention_plain, (q, k, v), {"causal": True}),
-                ("fused_norm", nk.fused_norm, nk.fused_norm_plain, (x, w),
-                 {"eps": cfg.norm_eps, "kind": cfg.norm_kind}),
-                ("grouped_matmul", gk.grouped_matmul,
-                 gk.grouped_matmul_plain, (xe, we), {})):
+        norm_args = (x, w) + ((randn(d, scale=0.1).float(),)
+                              if cfg.norm_kind == "layer" else ())
+        cases.append(("fused_norm", cfg.norm_kind, nk.fused_norm,
+                      nk.fused_norm_plain, norm_args,
+                      {"eps": cfg.norm_eps, "kind": cfg.norm_kind}))
+        if cfg.n_experts:
+            e, f = cfg.n_experts // world, cfg.d_ff
+            cases.append(("grouped_matmul", "dense dispatch",
+                          gk.grouped_matmul, gk.grouped_matmul_plain,
+                          (randn(e, b * s, d), randn(e, d, f, scale=d ** -0.5)),
+                          {}))
+        for name, case, kern, plain, args, kw in cases:
             got, want = kern(*args, **kw), plain(*args, **kw)
-            rows.append({"kernel": name, "dtype": str(dt).split(".")[-1],
+            rows.append({"kernel": name, "case": case,
+                         "dtype": str(dt).split(".")[-1],
                          "shape": [list(a.shape) for a in args],
                          "max_abs_err": check_close(
-                             f"tp_forward local {name}", got, want, dt)})
-        del q, k, v, x, xe, we
+                             f"tp_forward local {name} ({case})", got, want,
+                             dt)})
+            del got, want
+        del cases, x, norm_args
     return rows
 
 
-def phase_tp_forward(gpu: str, seed: int, gate_cfg, measured_cfg,
-                     cut: dict, shape=(4, 512)) -> dict:
-    """Tensor and expert parallel forward (``build_model(cfg, device,
-    mesh)`` over a (1, 4) mesh) at phi3.5-moe's full width on the kernel
-    route: 4 ranks share the card over gloo, each holding its block of
-    every leaf (8 query and 2 KV heads, 4 of the 16 experts, a quarter of
-    the vocabulary) and running flash, the fused norm and the grouped GEMM
-    at its local shapes, the activations' partial sums all-reduced through
-    the host.  First the three kernels at those shapes against their plain
-    versions; then for each arm the one-process forward in this process
-    (its weights freed before the ranks start, only its logits kept) and
-    the ranks'.  fp32 (``gate_cfg``): rank 0's gathered logits within
+def phase_tp_forward(gpu: str, seed: int, models) -> dict:
+    """Tensor and expert parallel forwards (``build_model(cfg, device,
+    mesh)`` over a (1, 4) mesh) on the kernel route, every model's arms in
+    one spawn of 4 ranks that share the card over gloo, each rank holding
+    its block of every leaf and running flash, the fused norm and (MoE)
+    the grouped GEMM at its local shapes, the activations' partial sums
+    all-reduced and the split outputs gathered through the host.
+
+    ``models``: dicts with ``phase`` (the line's name), ``gate`` and
+    ``measured`` (configs), ``shape`` (tokens), ``cut`` (a string an arm,
+    or None).  First each model's kernels at a rank's shapes against their
+    plain versions; then each arm's one-process forward in this process
+    (its weights freed before the ranks start, only its logits kept); then
+    the ranks.  fp32 (``gate``): rank 0's gathered logits within
     ``TP_LOGIT_TOL`` of the largest |logit| of the one-process forward.
-    bf16 (``measured_cfg``): the gap beside it, ungated.  Each rank's
-    launches are held to :func:`_tp_want`; every rank's logits are equal
-    (checksums of their bits)."""
+    bf16 (``measured``): the gap beside it, ungated.  Each rank's launches
+    are held to :func:`_tp_want`; every rank's logits are equal (checksums
+    of their bits).  One line a model."""
     import tempfile
 
     from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
-    local = _tp_local_kernels(gate_cfg, shape, TP_RANKS, seed)
-    arms = (("gate", gate_cfg), ("measured", measured_cfg))
+    local = {m["phase"]: _tp_local_kernels(m["gate"], m["shape"], TP_RANKS,
+                                           seed) for m in models}
+    arms = [(f"{m['phase']}.{arm}", m[arm], m["shape"]) for m in models
+            for arm in ("gate", "measured")]
     one = {}
-    for name, cfg in arms:
+    for name, cfg, shape in arms:
         model = build_model(cfg, DEV)
         params = model.init(torch.Generator(device=DEV).manual_seed(
             seed + 91))
         toks = _tp_tokens(seed, cfg.vocab, shape, DEV)
+        src = _tp_source(cfg, seed, shape[0], DEV)
         with torch.no_grad():
-            model.forward(params, toks)
+            model.forward(params, toks, **src)
             _sync()
             t0 = time.perf_counter()
-            logits, _ = model.forward(params, toks)
+            logits, _ = model.forward(params, toks, **src)
             _sync()
         one[name] = {"ms": (time.perf_counter() - t0) * 1e3,
                      "logits": logits.float().cpu()}
-        del model, params, logits
+        del model, params, logits, src
         gc.collect()
         if DEV == "cuda":
             torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _spawn(_tp_fwd_rank, TP_RANKS, tmp, seed, DEV, arms, shape)
+        _spawn(_tp_fwd_rank, TP_RANKS, tmp, seed, DEV, arms)
         ranks_s = time.perf_counter() - t0
         res = [torch.load(f"{tmp}/tpf_rank{r}.pt", weights_only=False)
                for r in range(TP_RANKS)]
         got = {name: torch.load(f"{tmp}/tpf_{name}.pt", weights_only=False)
-               for name, _ in arms}
-    out = {"phase": "tp_forward", "gpu": gpu, "arch": gate_cfg.arch,
-           "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "backend": "gloo",
-           "route": gate_cfg.decode_kernel,
-           "moe_dispatch": gate_cfg.moe_dispatch, "batch": list(shape),
-           "local_kernels": local, "ranks_s": ranks_s}
+               for name, _, _ in arms}
     launches = {}
-    for name, cfg in arms:
-        want = _tp_want(cfg)
-        rows = [r[name] for r in res]
-        for r, row in enumerate(rows):
-            got_l = {k: row["launches"][k] for k in want}
-            if DEV == "cuda" and (got_l != want
-                                  or row["launches"]["others"]):
-                raise AssertionError(f"tp_forward {name}: rank {r} "
-                                     f"launches {row['launches']}, "
-                                     f"expected {want}")
-        if any(row["logits_checksum"] != rows[0]["logits_checksum"]
-               for row in rows):
-            raise AssertionError(f"tp_forward {name}: ranks' logits differ")
-        split, ref = got[name].float(), one[name]["logits"]
-        if not bool(torch.isfinite(split).all()):
-            raise AssertionError(f"tp_forward {name}: non-finite logits")
-        gap = (split - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        if name == "gate" and not gap <= TP_LOGIT_TOL * scale:
-            raise AssertionError(
-                f"tp_forward gate: the split forward is {gap:.3e} from the "
-                f"one-process forward, beyond {TP_LOGIT_TOL} of its largest "
-                f"|logit| {scale:.3e}")
-        for k in ("flash_dense", "fused_norm", "grouped_matmul"):
-            launches[k] = launches.get(k, 0) + sum(
-                row["launches"][k] for row in rows)
-        out[name] = {
-            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-            "gated": name == "gate",
-            "tol": (f"{TP_LOGIT_TOL} of the largest |logit|"
-                    if name == "gate" else None),
-            "max_abs_err": gap, "max_abs_logit": scale,
-            "rel_err": gap / scale,
-            # Positions whose top logit is the one-process forward's: bf16
-            # partial sums can flip a near-tied MoE routing choice.
-            "argmax_agreement": (split.argmax(-1) == ref.argmax(-1)
-                                 ).float().mean().item(),
-            "forward_ms": [row["forward_ms"] for row in rows],
-            "one_process_ms": one[name]["ms"],
-            "collective_ms": [row["collective_ms"] for row in rows],
-            "staged_collectives": [row["staged_collectives"]
-                                   for row in rows],
-            "staged_bytes": [row["staged_bytes"] for row in rows],
-            "param_bytes": [row["param_bytes"] for row in rows],
-            "max_memory_allocated": [row["max_memory_allocated"]
-                                     for row in rows],
-            "launches": [row["launches"] for row in rows],
-            "expected": want,
-            "cut": (f"n_layers 32 -> {cfg.n_layers}: " + cut[name])}
-    out["timing"] = ("host clock around a synchronised forward; the ranks' "
-                     "forwards run at once on one card; collective_ms: a "
-                     "second forward with tensor_parallel.CLOCK on (a device "
-                     "sync before and after each collective, the host "
-                     "staging included); one_process_ms: the same forward "
-                     "in one process")
-    out["phase_s"] = time.perf_counter() - t_phase
-    out["total_launches"] = launches
-    emit(out)
-    return out
+    lines = []
+    for m in models:
+        gate = m["gate"]
+        out = {"phase": m["phase"], "gpu": gpu, "arch": gate.arch,
+               "family": gate.family, "ranks": TP_RANKS,
+               "mesh": [1, TP_RANKS], "backend": "gloo",
+               "route": gate.decode_kernel, "batch": list(m["shape"]),
+               "source": _tp_source_shape(gate, m["shape"][0]) or None,
+               "heads_a_rank": list(_tp_heads(gate, TP_RANKS)),
+               "local_kernels": local[m["phase"]], "ranks_s": ranks_s}
+        if gate.n_experts:
+            out["moe_dispatch"] = gate.moe_dispatch
+        for arm in ("gate", "measured"):
+            cfg, name = m[arm], f"{m['phase']}.{arm}"
+            want = _tp_want(cfg)
+            rows = [r[name] for r in res]
+            for r, row in enumerate(rows):
+                got_l = {k: row["launches"][k] for k in want}
+                if DEV == "cuda" and (got_l != want
+                                      or row["launches"]["others"]):
+                    raise AssertionError(
+                        f"{name}: rank {r} launches {row['launches']}, "
+                        f"expected {want}")
+            if any(row["logits_checksum"] != rows[0]["logits_checksum"]
+                   for row in rows):
+                raise AssertionError(f"{name}: ranks' logits differ")
+            split, ref = got[name].float(), one[name]["logits"]
+            if not bool(torch.isfinite(split).all()):
+                raise AssertionError(f"{name}: non-finite logits")
+            gap = (split - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if arm == "gate" and not gap <= TP_LOGIT_TOL * scale:
+                raise AssertionError(
+                    f"{name}: the split forward is {gap:.3e} from the "
+                    f"one-process forward, beyond {TP_LOGIT_TOL} of its "
+                    f"largest |logit| {scale:.3e}")
+            for k in ("flash_dense", "fused_norm", "grouped_matmul"):
+                launches[k] = launches.get(k, 0) + sum(
+                    row["launches"][k] for row in rows)
+            out[arm] = {
+                "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                "gated": arm == "gate",
+                "tol": (f"{TP_LOGIT_TOL} of the largest |logit|"
+                        if arm == "gate" else None),
+                "max_abs_err": gap, "max_abs_logit": scale,
+                "rel_err": gap / scale,
+                # Positions whose top logit is the one-process forward's:
+                # bf16 partial sums can flip a near-tied MoE routing choice.
+                "argmax_agreement": (split.argmax(-1) == ref.argmax(-1)
+                                     ).float().mean().item(),
+                "forward_ms": [row["forward_ms"] for row in rows],
+                "one_process_ms": one[name]["ms"],
+                "collective_ms": [row["collective_ms"] for row in rows],
+                "staged_collectives": [row["staged_collectives"]
+                                       for row in rows],
+                "staged_bytes": [row["staged_bytes"] for row in rows],
+                "param_bytes": [row["param_bytes"] for row in rows],
+                "max_memory_allocated": [row["max_memory_allocated"]
+                                         for row in rows],
+                "launches": [row["launches"] for row in rows],
+                "expected": want, "cut": m["cut"][arm]}
+        out["timing"] = (
+            "host clock around a synchronised forward with the collectives "
+            "clocked (tensor_parallel.CLOCK: a device sync before and after "
+            "each, the host staging included), after a warm forward; the "
+            "ranks' forwards run at once on one card; one_process_ms: the "
+            "same forward in one process; ranks_s and phase_s: the one "
+            "spawn and the whole phase, shared by the tp_forward lines")
+        lines.append(out)
+    phase_s = time.perf_counter() - t_phase
+    for out in lines:
+        out["phase_s"] = phase_s
+        emit(out)
+    return {"lines": lines, "total_launches": launches}
 
 
 def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
-                   cfg, shape, steps: int) -> None:
-    """One rank of train_tp (a spawned process): ``steps`` ZeRO-1 steps
-    over a (1, ``world``) mesh with the collectives clocked, the state
-    gathered (a collective) and written by rank 0 as a checkpoint; rank 0
-    then takes the one-process steps on the same batches and compares
-    (loss, the gathered first moments), and restores the checkpoint in a
-    one-rank layout (bitwise the gathered state)."""
+                   arms, steps: int) -> None:
+    """One rank of train_tp (a spawned process), for each arm (a dict:
+    ``phase``, ``cfg``, ``shape``, ``ckpt``): ``steps`` ZeRO-1 steps over
+    a (1, ``world``) mesh with the collectives clocked, then the first
+    moments gathered (a collective), or with ``ckpt`` the whole state,
+    written by rank 0 as a checkpoint; rank 0 then takes the one-process
+    steps on the same batches and compares (loss, the gathered first
+    moments, with ``ckpt`` the parameters) and, with ``ckpt``, restores
+    the checkpoint in a one-rank layout (bitwise the gathered state)."""
     import torch.distributed as dist
 
     from repro_torch.core.remat import RematPolicy
@@ -4801,173 +4899,214 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
     tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=1e-3, warmup_steps=0,
                                              total_steps=10),
                        zero1=True, remat=RematPolicy.SAVE_DOTS)
-    data = SyntheticLM(cfg, batch=shape[0], seq=shape[1], seed=seed)
-    res = {}
+    out = {}
     try:
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        step, model = make_train_step(cfg, tcfg, device, mesh)
-        state = init_train_state(
-            model, torch.Generator(device=device).manual_seed(seed + 97),
-            mesh, zero1=True)
-        rows = []
-        for i in range(steps):
-            dist.barrier()
-            sync()
-            collectives.STAGED.update(collectives=0, bytes=0)
-            tensor_parallel.CLOCK.update(on=True, seconds=0.0)
-            t0 = time.perf_counter()
-            state, m = step(state, data(i))
-            loss = float(m["loss"])
-            ms = (time.perf_counter() - t0) * 1e3
-            tensor_parallel.CLOCK.update(on=False)
-            rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
-                         "ms": ms, "collective_ms":
-                             tensor_parallel.CLOCK["seconds"] * 1e3,
-                         "staged_collectives":
-                             collectives.STAGED["collectives"],
-                         "staged_bytes": collectives.STAGED["bytes"]})
-        res["steps"] = rows
-        res["state_bytes"] = sum(t.numel() * t.element_size()
-                                 for t in tree.leaves(state))
-        res["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
-                                       if device == "cuda" else 0)
-        shard = state_shardings(cfg, mesh, zero1=True)
-        t0 = time.perf_counter()
-        full = ckpt.gather_state(state, shard)
-        sync()
-        res["gather_s"] = time.perf_counter() - t0
-        del state, step, model
-        if rank:
-            del full
-        gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
-        ck_dir = f"{tmp}/tp_ckpt"
-        if rank == 0:
-            t0 = time.perf_counter()
-            ckpt.save(full, ck_dir, step=steps)
-            res["ckpt_save_s"] = time.perf_counter() - t0
-            res["ckpt_bytes"] = sum(
-                os.path.getsize(os.path.join(ck_dir, f"step_{steps:08d}", f))
-                for f in os.listdir(os.path.join(ck_dir,
-                                                 f"step_{steps:08d}")))
-            # One process, the same batches and initial parameters.
-            one_step, one_model = make_train_step(
-                cfg, dataclasses.replace(tcfg, zero1=False), device)
-            one = init_train_state(
-                one_model, torch.Generator(device=device).manual_seed(
-                    seed + 97))
-            one_rows = []
+        for arm in arms:
+            cfg, name = arm["cfg"], arm["phase"]
+            data = SyntheticLM(cfg, batch=arm["shape"][0],
+                               seq=arm["shape"][1], seed=seed)
+            res = out[name] = {}
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            step, model = make_train_step(cfg, tcfg, device, mesh)
+            state = init_train_state(
+                model, torch.Generator(device=device).manual_seed(seed + 97),
+                mesh, zero1=True)
+            rows = []
             for i in range(steps):
+                dist.barrier()
                 sync()
+                collectives.STAGED.update(collectives=0, bytes=0)
+                tensor_parallel.CLOCK.update(on=True, seconds=0.0)
                 t0 = time.perf_counter()
-                one, m1 = one_step(one, data(i))
-                one_rows.append({"loss": float(m1["loss"]),
-                                 "grad_norm": float(m1["grad_norm"]),
-                                 "ms": (time.perf_counter() - t0) * 1e3})
-            res["one_process"] = one_rows
-            errs = {tree.path_str(path): (
-                (a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                for (path, a), b in zip(
-                    tree.leaves_with_paths(full["opt"]["mu"]),
-                    tree.leaves(one["opt"]["mu"]))}
-            res["mu_worst_leaf"] = max(errs, key=errs.get)
-            res["mu_rel_err"] = errs[res["mu_worst_leaf"]]
-            res["param_max_abs_diff"] = max(
-                (a.float() - b.detach().float()).abs().max().item()
-                for a, b in zip(tree.leaves(full["params"]),
-                                tree.leaves(one["params"])))
-            del one, one_step
+                state, m = step(state, data(i))
+                loss = float(m["loss"])
+                ms = (time.perf_counter() - t0) * 1e3
+                tensor_parallel.CLOCK.update(on=False)
+                rows.append({"loss": loss,
+                             "grad_norm": float(m["grad_norm"]), "ms": ms,
+                             "collective_ms":
+                                 tensor_parallel.CLOCK["seconds"] * 1e3,
+                             "staged_collectives":
+                                 collectives.STAGED["collectives"],
+                             "staged_bytes": collectives.STAGED["bytes"]})
+            res["steps"] = rows
+            res["state_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in tree.leaves(state))
+            res["max_memory_allocated"] = (
+                torch.cuda.max_memory_allocated() if device == "cuda" else 0)
+            shard = state_shardings(cfg, mesh, zero1=True)
+            t0 = time.perf_counter()
+            full = (ckpt.gather_state(state, shard) if arm["ckpt"] else
+                    {"opt": {"mu": ckpt.gather_state(
+                        state["opt"]["mu"], shard["opt"]["mu"])}})
+            sync()
+            res["gather_s"] = time.perf_counter() - t0
+            del state, step, model
+            if rank:
+                del full
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
-            template = init_train_state(
-                one_model, torch.Generator(device=device).manual_seed(0))
-            t0 = time.perf_counter()
-            restored, at = ckpt.restore(ck_dir, template=template,
-                                        in_place=True)
-            sync()
-            res["ckpt_restore_s"] = time.perf_counter() - t0
-            res["restore_bitwise"] = at == steps and all(
-                torch.equal(a.detach(), b) for a, b in zip(
-                    tree.leaves(restored), tree.leaves(full)))
-            del restored, template
-        torch.save(res, f"{tmp}/tpt_rank{rank}.pt")
+            ck_dir = f"{tmp}/tp_ckpt_{name}"
+            if rank == 0:
+                if arm["ckpt"]:
+                    t0 = time.perf_counter()
+                    ckpt.save(full, ck_dir, step=steps)
+                    res["ckpt_save_s"] = time.perf_counter() - t0
+                    at_dir = os.path.join(ck_dir, f"step_{steps:08d}")
+                    res["ckpt_bytes"] = sum(
+                        os.path.getsize(os.path.join(at_dir, f))
+                        for f in os.listdir(at_dir))
+                # One process, the same batches and initial parameters.
+                one_step, one_model = make_train_step(
+                    cfg, dataclasses.replace(tcfg, zero1=False), device)
+                one = init_train_state(
+                    one_model, torch.Generator(device=device).manual_seed(
+                        seed + 97))
+                one_rows = []
+                for i in range(steps):
+                    sync()
+                    t0 = time.perf_counter()
+                    one, m1 = one_step(one, data(i))
+                    one_rows.append({"loss": float(m1["loss"]),
+                                     "grad_norm": float(m1["grad_norm"]),
+                                     "ms": (time.perf_counter() - t0) * 1e3})
+                res["one_process"] = one_rows
+                errs = {tree.path_str(path): (
+                    (a - b).abs().max()
+                    / b.abs().max().clamp_min(1e-30)).item()
+                    for (path, a), b in zip(
+                        tree.leaves_with_paths(full["opt"]["mu"]),
+                        tree.leaves(one["opt"]["mu"]))}
+                res["mu_worst_leaf"] = max(errs, key=errs.get)
+                res["mu_rel_err"] = errs[res["mu_worst_leaf"]]
+                if arm["ckpt"]:
+                    res["param_max_abs_diff"] = max(
+                        (a.float() - b.detach().float()).abs().max().item()
+                        for a, b in zip(tree.leaves(full["params"]),
+                                        tree.leaves(one["params"])))
+                del one, one_step
+                gc.collect()
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+                if arm["ckpt"]:
+                    template = init_train_state(
+                        one_model,
+                        torch.Generator(device=device).manual_seed(0))
+                    t0 = time.perf_counter()
+                    restored, at = ckpt.restore(ck_dir, template=template,
+                                                in_place=True)
+                    sync()
+                    res["ckpt_restore_s"] = time.perf_counter() - t0
+                    res["restore_bitwise"] = at == steps and all(
+                        torch.equal(a.detach(), b) for a, b in zip(
+                            tree.leaves(restored), tree.leaves(full)))
+                    del restored, template
+                del full, one_model
+                gc.collect()
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        torch.save(out, f"{tmp}/tpt_rank{rank}.pt")
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def phase_train_tp(gpu: str, seed: int, cfg, cut: str, shape=(4, 512),
-                   steps: int = 2) -> dict:
+def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
     """Tensor-parallel ZeRO-1 training (``train.step`` over a (1, 4) mesh,
-    the plain route as the trainer always is) at yi-9b's full width: 4
-    ranks share the card over gloo, each holding 8 query heads, 1 KV head,
-    a quarter of ``d_ff`` and of the vocabulary (the vocab-parallel
-    loss), its block of every moment.  Gates: each step's loss within
-    ``TP_LOSS_RTOL`` of the one-process step's and equal on every rank;
-    the gathered first moments within ``TP_MU_TOL`` of each leaf's
-    largest; the gathered checkpoint restored at one rank bitwise."""
+    the plain route as the trainer always is), every arm in one spawn of 4
+    ranks that share the card over gloo, each rank holding its block of
+    every leaf and of every moment (the vocab-parallel loss).  ``arms``:
+    dicts with ``phase`` (the line's name), ``cfg``, ``shape`` (batch,
+    tokens), ``cut`` and ``ckpt`` (the whole state gathered into a
+    checkpoint and restored at one rank; else only the first moments
+    gathered).  Gates: each step's loss within ``TP_LOSS_RTOL`` of the
+    one-process step's and equal on every rank; the gathered first
+    moments within ``TP_MU_TOL`` of each leaf's largest; with ``ckpt``
+    the gathered checkpoint restored at one rank bitwise.  One line an
+    arm."""
     import tempfile
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _spawn(_tp_train_rank, TP_RANKS, tmp, seed, DEV, cfg, shape, steps)
+        _spawn(_tp_train_rank, TP_RANKS, tmp, seed, DEV, arms, steps)
         ranks_s = time.perf_counter() - t0
         res = [torch.load(f"{tmp}/tpt_rank{r}.pt", weights_only=False)
                for r in range(TP_RANKS)]
-    r0 = res[0]
-    losses = [[row["loss"] for row in r["steps"]] for r in res]
-    if any(lo != losses[0] for lo in losses):
-        raise AssertionError(f"train_tp: the ranks' losses differ: {losses}")
-    one = [row["loss"] for row in r0["one_process"]]
-    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[0], one)]
-    if not max(gaps) <= TP_LOSS_RTOL or not r0["mu_rel_err"] <= TP_MU_TOL:
-        raise AssertionError(
-            f"train_tp: the split steps are not the one-process steps "
-            f"(losses {losses[0]} vs {one}, relative gaps {gaps}, limit "
-            f"{TP_LOSS_RTOL}; first moments {r0['mu_rel_err']:.3e} of a "
-            f"leaf's largest, limit {TP_MU_TOL})")
-    if not r0["restore_bitwise"]:
-        raise AssertionError("train_tp: the gathered checkpoint did not "
-                             "restore bitwise at one rank")
-    if not all(math.isfinite(x) for x in losses[0]):
-        raise AssertionError(f"train_tp: non-finite loss {losses[0]}")
-    out = {"phase": "train_tp", "gpu": gpu, "arch": cfg.arch,
-           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "cut": cut,
-           "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "backend": "gloo",
-           "route": "xla", "zero1": True, "batch": list(shape),
-           "steps": steps, "losses": losses[0], "one_process_losses": one,
-           "loss_rel_gap": gaps, "mu_rel_err": r0["mu_rel_err"],
-           "mu_worst_leaf": r0["mu_worst_leaf"],
-           "param_max_abs_diff": r0["param_max_abs_diff"],
-           "grad_norm": [row["grad_norm"] for row in r0["steps"]],
-           "one_process_grad_norm": [row["grad_norm"]
-                                     for row in r0["one_process"]],
-           "tol": f"loss rtol {TP_LOSS_RTOL}, equal across ranks; first "
-                  f"moments {TP_MU_TOL} of each leaf's largest",
-           "restore_1_rank_bitwise": True,
-           "step_ms": [[row["ms"] for row in r["steps"]] for r in res],
-           "one_process_step_ms": [row["ms"] for row in r0["one_process"]],
-           "collective_ms": [[row["collective_ms"] for row in r["steps"]]
-                             for r in res],
-           "staged_collectives": [r["steps"][-1]["staged_collectives"]
-                                  for r in res],
-           "staged_bytes": [r["steps"][-1]["staged_bytes"] for r in res],
-           "state_bytes": [r["state_bytes"] for r in res],
-           "max_memory_allocated": [r["max_memory_allocated"] for r in res],
-           "gather_s": [r["gather_s"] for r in res],
-           "ckpt_bytes": r0["ckpt_bytes"], "ckpt_save_s": r0["ckpt_save_s"],
-           "ckpt_restore_s": r0["ckpt_restore_s"],
-           "timing": "host clock; each step starts after a barrier with the "
-                     "collectives clocked (tensor_parallel.CLOCK: a device "
-                     "sync before and after each, the host staging "
-                     "included); the ranks run at once on one card",
-           "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase}
-    emit(out)
-    return out
+    lines = []
+    for arm in arms:
+        cfg, name = arm["cfg"], arm["phase"]
+        rs = [r[name] for r in res]
+        r0 = rs[0]
+        losses = [[row["loss"] for row in r["steps"]] for r in rs]
+        if any(lo != losses[0] for lo in losses):
+            raise AssertionError(f"{name}: the ranks' losses differ: "
+                                 f"{losses}")
+        one = [row["loss"] for row in r0["one_process"]]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses[0], one)]
+        if (not max(gaps) <= TP_LOSS_RTOL
+                or not r0["mu_rel_err"] <= TP_MU_TOL):
+            raise AssertionError(
+                f"{name}: the split steps are not the one-process steps "
+                f"(losses {losses[0]} vs {one}, relative gaps {gaps}, "
+                f"limit {TP_LOSS_RTOL}; first moments "
+                f"{r0['mu_rel_err']:.3e} of a leaf's largest, limit "
+                f"{TP_MU_TOL})")
+        if arm["ckpt"] and not r0["restore_bitwise"]:
+            raise AssertionError(f"{name}: the gathered checkpoint did not "
+                                 f"restore bitwise at one rank")
+        if not all(math.isfinite(x) for x in losses[0]):
+            raise AssertionError(f"{name}: non-finite loss {losses[0]}")
+        out = {"phase": name, "gpu": gpu, "arch": cfg.arch,
+               "family": cfg.family, "n_layers": cfg.n_layers,
+               "dtype": cfg.dtype, "cut": arm["cut"],
+               "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "backend": "gloo",
+               "route": "xla", "zero1": True, "batch": list(arm["shape"]),
+               "steps": steps, "losses": losses[0],
+               "one_process_losses": one, "loss_rel_gap": gaps,
+               "mu_rel_err": r0["mu_rel_err"],
+               "mu_worst_leaf": r0["mu_worst_leaf"],
+               "grad_norm": [row["grad_norm"] for row in r0["steps"]],
+               "one_process_grad_norm": [row["grad_norm"]
+                                         for row in r0["one_process"]],
+               "tol": f"loss rtol {TP_LOSS_RTOL}, equal across ranks; first "
+                      f"moments {TP_MU_TOL} of each leaf's largest",
+               "step_ms": [[row["ms"] for row in r["steps"]] for r in rs],
+               "one_process_step_ms": [row["ms"]
+                                       for row in r0["one_process"]],
+               "collective_ms": [[row["collective_ms"] for row in r["steps"]]
+                                 for r in rs],
+               "staged_collectives": [r["steps"][-1]["staged_collectives"]
+                                      for r in rs],
+               "staged_bytes": [r["steps"][-1]["staged_bytes"] for r in rs],
+               "state_bytes": [r["state_bytes"] for r in rs],
+               "max_memory_allocated": [r["max_memory_allocated"]
+                                        for r in rs],
+               "gathered": "state" if arm["ckpt"] else "first moments",
+               "gather_s": [r["gather_s"] for r in rs]}
+        if arm["ckpt"]:
+            out.update({"restore_1_rank_bitwise": True,
+                        "param_max_abs_diff": r0["param_max_abs_diff"],
+                        "ckpt_bytes": r0["ckpt_bytes"],
+                        "ckpt_save_s": r0["ckpt_save_s"],
+                        "ckpt_restore_s": r0["ckpt_restore_s"]})
+        out.update({
+            "timing": "host clock; each step starts after a barrier with "
+                      "the collectives clocked (tensor_parallel.CLOCK: a "
+                      "device sync before and after each, the host staging "
+                      "included); the ranks run at once on one card; "
+                      "ranks_s and phase_s: the one spawn and the whole "
+                      "phase, shared by the train_tp lines",
+            "ranks_s": ranks_s})
+        lines.append(out)
+    phase_s = time.perf_counter() - t_phase
+    for out in lines:
+        out["phase_s"] = phase_s
+        emit(out)
+    return lines
 
 
 PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
@@ -5045,8 +5184,8 @@ COUNTED = ("decode chunks (plain and speculative): the capture's "
            "decode_attention: the cross-attention steps of the "
            "fixed-source arms, the pallas_gather twins and sp_decode's "
            "ranks (one launch a rank a case, counted in each rank); "
-           "tp_forward: each rank's counted forward, summed over the "
-           "ranks")
+           "tp_forward (phi3.5-moe, whisper-small and the VLM): each "
+           "rank's counted forward, summed over the ranks")
 
 
 def main() -> int:
@@ -5098,11 +5237,14 @@ def main() -> int:
                  decode_kernel="pallas_paged")
     serve = phase_serve(gpu, args.seed,
                         dataclasses.replace(yi_9b.CONFIG, **paged))
-    # The prefix and adaptive arms run yi-9b's first 12 layers: their
-    # gates (hits, preemptions, invariants, placement, prefill work) do not
-    # depend on depth, and the run has a time limit.
+    # The prefix, adaptive, sampling and snapshot arms run yi-9b's first
+    # 12 layers: their gates (hits, preemptions, invariants, placement,
+    # prefill work, streams bitwise against the eager loop and across a
+    # restore) do not depend on depth, and the run has a time limit.
     cut12 = ("n_layers 48 -> 12: the run's 1200 s limit (the trainer "
              "phases took the time)")
+    cut12_tp = ("n_layers 48 -> 12: the run's 1200 s limit (the "
+                "tensor-parallel whisper and VLM arms took the time)")
     cfg12, params12 = _cut_depth(serve["cfg"], serve["params"], 12)
     phase_prefix(gpu, args.seed, cfg12, params12, cut=cut12)
     served["yi-9b"] = serve
@@ -5111,12 +5253,12 @@ def main() -> int:
                                             serve["params"], "serve_spec")
     served["yi-9b adaptive"] = phase_serve_adaptive(gpu, cfg12, params12,
                                                     cut=cut12)
-    del cfg12, params12
     # Seeded top-p sampling, then crash safety and KV page integrity.
     served["yi-9b sampling"] = phase_serve_sampling(
-        gpu, args.seed, serve["cfg"], serve["params"])
+        gpu, args.seed, cfg12, params12, cut=cut12_tp)
     served["yi-9b integrity"] = phase_serve_snapshot(
-        gpu, args.seed, serve["cfg"], serve["params"])
+        gpu, args.seed, cfg12, params12, cut=cut12_tp)
+    del cfg12, params12
     del serve["params"]
     torch.cuda.empty_cache()
     zserve = phase_serve(gpu, args.seed,
@@ -5262,26 +5404,50 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Tensor and expert parallel execution over 4 ranks that share the
     # card: phi3.5-moe's forward on the kernel route (its local experts
-    # through the grouped GEMM), yi-9b's ZeRO-1 train step.
-    phi = dataclasses.replace(phi35_moe.CONFIG, decode_kernel="pallas_paged")
-    tpf = phase_tp_forward(
-        gpu, args.seed, dataclasses.replace(phi, n_layers=2, dtype="float32"),
-        dataclasses.replace(phi, n_layers=8),
-        cut={"gate": "the fp32 weights once in this process and once over "
-                     "the ranks (~11.4 GB each)",
-             "measured": "the bf16 weights once in this process and once "
-                         "over the ranks (~21.4 GB each), and the run's "
-                         "1200 s limit"})
-    served["phi3.5-moe tp_forward"] = {"launches": {
+    # through the grouped GEMM), whisper-small's and the VLM's (flash
+    # without the mask over their sources) in the same spawn; yi-9b's and
+    # whisper-small's ZeRO-1 train steps.
+    route = dict(decode_kernel="pallas_paged")
+    phi = dataclasses.replace(phi35_moe.CONFIG, **route)
+    wsp = dataclasses.replace(whisper_small.CONFIG, **route)
+    vlm = dataclasses.replace(llama32_vision_90b.CONFIG, **route)
+    vlm_cut = ("n_layers 100 -> {n} ({g} group(s) of 4 self layers and 1 "
+               "cross layer): the weights once in this process and once "
+               "over the ranks (~{gb} GB each), and the run's 1200 s limit; "
+               "2 x 256 tokens (not 4 x 512): the gathered logits (4 x 512 "
+               "x 128256 fp32, 1.05 GB) go through the host each forward")
+    tpf = phase_tp_forward(gpu, args.seed, [
+        {"phase": "tp_forward", "shape": (4, 512),
+         "gate": dataclasses.replace(phi, n_layers=2, dtype="float32"),
+         "measured": dataclasses.replace(phi, n_layers=8),
+         "cut": {"gate": "n_layers 32 -> 2: the fp32 weights once in this "
+                         "process and once over the ranks (~11.4 GB each)",
+                 "measured": "n_layers 32 -> 8: the bf16 weights once in "
+                             "this process and once over the ranks (~21.4 "
+                             "GB each), and the run's 1200 s limit"}},
+        {"phase": "tp_forward_whisper", "shape": (4, 448),
+         "gate": dataclasses.replace(wsp, dtype="float32"),
+         "measured": wsp, "cut": {"gate": None, "measured": None}},
+        {"phase": "tp_forward_vlm", "shape": (2, 256),
+         "gate": dataclasses.replace(vlm, n_layers=5, dtype="float32"),
+         "measured": dataclasses.replace(vlm, n_layers=10),
+         "cut": {"gate": vlm_cut.format(n=5, g=1, gb=26),
+                 "measured": vlm_cut.format(n=10, g=2, gb=21)}}])
+    served["tp_forward"] = {"launches": {
         **{k: 0 for k in counts()}, **tpf["total_launches"]}}
     torch.cuda.empty_cache()
-    phase_train_tp(
-        gpu, args.seed,
-        dataclasses.replace(yi_9b.CONFIG, n_layers=2, dtype="float32"),
-        cut="n_layers 48 -> 2: the fp32 state (~14 GB) once over the ranks "
-            "and once in rank 0's one-process steps, its gathered "
-            "checkpoint (~10.5 GB) written and read, and the run's 1200 s "
-            "limit")
+    phase_train_tp(gpu, args.seed, [
+        {"phase": "train_tp", "shape": (4, 512), "ckpt": False,
+         "cfg": dataclasses.replace(yi_9b.CONFIG, n_layers=2,
+                                    dtype="float32"),
+         "cut": "n_layers 48 -> 2: the fp32 state (~14 GB) once over the "
+                "ranks and once in rank 0's one-process steps, and the "
+                "run's 1200 s limit; only the first moments gathered, no "
+                "checkpoint (its ~10.6 GB gathered, written and read took "
+                "~40 s; train_tp_whisper's carries the one-rank restore)"},
+        {"phase": "train_tp_whisper", "shape": (2, 448), "ckpt": True,
+         "cfg": dataclasses.replace(whisper_small.CONFIG, dtype="float32"),
+         "cut": None}])
     torch.cuda.empty_cache()
 
     def launched(*keys, runs=("launches",)):

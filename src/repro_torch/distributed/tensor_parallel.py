@@ -7,8 +7,9 @@ code calls the collectives itself, Megatron-style, through three autograd
 functions over the ``model`` group:
 
 * *copy to model* (:meth:`ModelParallel.copy`) where a tensor that is whole on every rank enters
-  a split region (a column-split projection, this rank's experts, a
-  replicated weight used on this rank's heads only): identity forward,
+  a split region (a column-split projection, a cross-attention source
+  projected on this rank's heads, this rank's experts, a replicated
+  weight used on this rank's heads only): identity forward,
   all-reduce of the gradient backward, since each rank's gradient covers
   only its part of the region;
 * *reduce from model* (:meth:`ModelParallel.reduce`) where a split region's partial sums leave it
@@ -16,6 +17,7 @@ functions over the ``model`` group:
   vocab-split embedding): all-reduce forward, identity backward;
 * *gather from model* (:meth:`ModelParallel.gather`) where replicated code needs a split tensor
   whole (the router's logits, ``dh``-split q/k/v before RoPE, the
+  VLM's vision tokens through the column-split ``vis_proj``, the
   logits): all-gather along a dimension forward, this rank's slice of the
   gradient backward.  The code after a gather is replicated, so its
   gradient is whole on every rank.

@@ -82,6 +82,19 @@ def _keep(key: str, leaf: torch.Tensor) -> torch.Tensor:
 # (a tensor-parallel rank keeps its block there; the default keeps it
 # whole), so no rank holds a whole split leaf longer than its draw.
 
+def placer(tp, path: tuple, lead: tuple = ()):
+    """The init helpers' ``place`` for the leaves under ``path`` (list
+    lengths ``lead`` above them): ``tp.place`` under a ``ModelParallel``,
+    else keep every leaf whole."""
+    return _keep if tp is None else tp.place(path, lead)
+
+
+def single_rank(*args, **kwargs):
+    """The cache entry points of a model split over ``model``."""
+    raise NotImplementedError(
+        "serving runs on one rank (ServeEngine takes no mesh): build the "
+        "model without a mesh whose 'model' axis is larger than 1")
+
 def norm_init(cfg: ModelConfig, device) -> Params:
     p = {"w": torch.ones(cfg.d_model, device=device)}
     if cfg.norm_kind == "layer":
@@ -503,14 +516,14 @@ def apply_attn(
       ``causal`` is False (the encoder).
 
     RoPE applies to self-attention only (``use_rope`` and no ``kv_src``);
-    cross-attention is never causal.  ``tp`` (a ``ModelParallel``, causal
-    self-attention with no cache): this rank's block of the weights, see
-    :func:`_attn_split`."""
+    cross-attention is never causal.  ``tp`` (a ``ModelParallel``, no
+    cache): this rank's block of the weights, see :func:`_attn_split`."""
     if tp is not None:
-        if cache is not None or kv_src is not None or not causal:
-            raise NotImplementedError("tensor-parallel attention: causal "
-                                      "self-attention with no cache only")
-        return _attn_split(p, x, cfg, positions, seg_lens, tp)
+        if cache is not None:
+            raise NotImplementedError("tensor-parallel attention takes no "
+                                      "cache (serving runs on one rank)")
+        return _attn_split(p, x, cfg, positions, seg_lens, tp, kv_src,
+                           causal, use_rope)
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     cross_cached = cache is not None and "lengths" not in cache
@@ -561,9 +574,12 @@ def apply_attn(
     return out.reshape(b, s, hq * dh) @ p["wo"].reshape(hq * dh, d)
 
 
-def _attn_split(p: Params, x, cfg: ModelConfig, positions, seg_lens, tp):
-    """Causal self-attention on this rank's block of the weights (their
-    shapes say which split the rule chose, ``sharding._attn_dims``):
+def _attn_split(p: Params, x, cfg: ModelConfig, positions, seg_lens, tp,
+                kv_src=None, causal: bool = True, use_rope: bool = True):
+    """Attention with no cache on this rank's block of the weights (their
+    shapes say which split the rule chose, ``sharding._attn_dims``); q
+    projects ``x``, k and v project ``kv_src`` (a cross-attention source
+    (b, t, d), whole on every rank) or ``x``:
 
     * heads: q, k, v and ``wo`` on this rank's heads.  Where K/V are
       replicated (``n_kv_heads`` does not divide over ``model``), this
@@ -578,21 +594,26 @@ def _attn_split(p: Params, x, cfg: ModelConfig, positions, seg_lens, tp):
       slice of the output goes into its rows of ``wo``;
     * replicated: the one-process attention, no collective.
 
-    The split cases end in a *reduce* of ``wo``'s partial sums."""
+    ``x`` and ``kv_src`` each enter the split region through a *copy*, so
+    each one's gradient is the sum of the ranks' parts; RoPE applies where
+    the one-process path applies it (``use_rope`` and no ``kv_src``).  The
+    split cases end in a *reduce* of ``wo``'s partial sums."""
     b, s, d = x.shape
     hq, dh = cfg.n_heads, cfg.head_dim_
     wq = p["wq"]
     if tuple(wq.shape[1:]) == (hq, dh):                 # replicated
-        return apply_attn(p, x, cfg, positions, seg_lens=seg_lens)
+        return apply_attn(p, x, cfg, positions, seg_lens=seg_lens,
+                          kv_src=kv_src, causal=causal, use_rope=use_rope)
     x = tp.copy(x)
+    src = x if kv_src is None else tp.copy(kv_src)
 
-    def proj(w, bias):
+    def proj(inp, w, bias):
         h, dl = w.shape[1:]
-        y = (x @ w.reshape(d, h * dl)).reshape(b, s, h, dl)
+        y = (inp @ w.reshape(d, h * dl)).reshape(*inp.shape[:2], h, dl)
         return y if bias is None else y + bias
 
     bias = {k: p.get("b" + k) for k in ("q", "k", "v")}
-    q = proj(wq, bias["q"])
+    q = proj(x, wq, bias["q"])
     if wq.shape[1] != hq:                               # heads
         wk, wv = p["wk"], p["wv"]
         if wk.shape[1] == cfg.n_kv_heads:               # replicated K/V
@@ -601,13 +622,15 @@ def _attn_split(p: Params, x, cfg: ModelConfig, positions, seg_lens, tp):
             for key in ("k", "v"):
                 if bias[key] is not None:
                     bias[key] = tp.copy(bias[key])[heads]
-        k, v = proj(wk, bias["k"]), proj(wv, bias["v"])
+        k, v = proj(src, wk, bias["k"]), proj(src, wv, bias["v"])
     else:                                               # dh
-        k, v = proj(p["wk"], bias["k"]), proj(p["wv"], bias["v"])
+        k, v = proj(src, p["wk"], bias["k"]), proj(src, p["wv"], bias["v"])
         q, k, v = (tp.gather(t, -1) for t in (q, k, v))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = _source_attention(q, k, v, cfg, True, seg_lens)
+    if use_rope and kv_src is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = _source_attention(q, k, v, cfg, causal and kv_src is None,
+                            seg_lens)
     wo = p["wo"]
     if wq.shape[1] == hq:                               # dh: this rank's slice
         dl = wo.shape[1]

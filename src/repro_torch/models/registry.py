@@ -41,7 +41,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 
 # The families whose forward and loss run split over a mesh's ``model``
 # axis (``distributed.tensor_parallel``).
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe")
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "encdec", "vlm")
 
 
 def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
@@ -51,8 +51,9 @@ def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
     ``mesh`` (a ``(data, model)`` DeviceMesh) with ``model`` larger than 1
     makes ``init``, ``forward`` and ``loss`` tensor and expert parallel
     over ``model``: each rank holds its ``sharding.param_spec`` block of
-    every leaf, and the collectives run inside the model code.  The dense
-    and MoE families only; the others raise."""
+    every leaf, and the collectives run inside the model code.  The dense,
+    MoE, encoder-decoder and VLM families; the recurrent ones (``ssm``,
+    ``hybrid``) raise."""
     if cfg.family not in _MODULES:
         raise ValueError(f"unknown family: {cfg.family}")
     from repro_torch.distributed.tensor_parallel import model_parallel

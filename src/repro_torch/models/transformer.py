@@ -32,12 +32,12 @@ from repro_torch.models import common as cm
 
 
 def _layer_init(gen, cfg: ModelConfig, device, cross: bool = False,
-                place=None):
-    """One layer's parameters; ``place(sub)`` gives the init helpers'
-    ``place`` for the layer's subtree ``sub`` (None: keep every leaf
-    whole)."""
+                tp=None, path: tuple = (), lead: tuple = ()):
+    """One layer's parameters; under ``tp`` each leaf is cut to this
+    rank's block as it is drawn (``path`` the layer's place in the tree,
+    ``lead`` the list lengths above it)."""
     def kw(sub):
-        return {} if place is None else {"place": place(sub)}
+        return {"place": cm.placer(tp, path + (sub,), lead)}
 
     p = {
         "ln1": cm.norm_init(cfg, device),
@@ -58,30 +58,27 @@ def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None):
     order, and only this rank's block of it is kept: the parameters are
     the blocks of the one-process ``init``'s from the same generator
     state, and no rank holds more than one whole leaf at a time."""
-    if tp is not None:
-        layers = cfg.n_layers
-        params = {"embed": cm.embed_init_params(
-                      gen, cfg, device, place=tp.place(("embed",))),
-                  "ln_f": cm.norm_init(cfg, device),
-                  "layers": [_layer_init(
-                      gen, cfg, device, place=lambda sub, i=i: tp.place(
-                          ("layers", i, sub), (layers,)))
-                      for i in range(layers)]}
-        return params
-    params = {"embed": cm.embed_init_params(gen, cfg, device),
+    params = {"embed": cm.embed_init_params(
+                  gen, cfg, device, place=cm.placer(tp, ("embed",))),
               "ln_f": cm.norm_init(cfg, device)}
     if cfg.cross_attn_every:
         g, span = _groups(cfg)
-        params["self_layers"] = [[_layer_init(gen, cfg, device)
-                                  for _ in range(span)] for _ in range(g)]
-        params["cross_layers"] = [_layer_init(gen, cfg, device, cross=True)
-                                  for _ in range(g)]
-        params["vis_proj"] = cm.dense_init(
+        params["self_layers"] = [
+            [_layer_init(gen, cfg, device, tp=tp,
+                         path=("self_layers", i, j), lead=(g, span))
+             for j in range(span)] for i in range(g)]
+        params["cross_layers"] = [
+            _layer_init(gen, cfg, device, cross=True, tp=tp,
+                        path=("cross_layers", i), lead=(g,))
+            for i in range(g)]
+        params["vis_proj"] = cm.placer(tp, ())("vis_proj", cm.dense_init(
             gen, (cfg.d_model, cfg.d_model), cfg.d_model,
-            torch_dtype(cfg.dtype), device)
+            torch_dtype(cfg.dtype), device))
     else:
-        params["layers"] = [_layer_init(gen, cfg, device)
-                            for _ in range(cfg.n_layers)]
+        params["layers"] = [
+            _layer_init(gen, cfg, device, tp=tp, path=("layers", i),
+                        lead=(cfg.n_layers,))
+            for i in range(cfg.n_layers)]
     return params
 
 
@@ -109,11 +106,12 @@ def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
     return _self_block_aux(p, x, cfg, positions, cache, seg_lens)[0]
 
 
-def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache):
+def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache, tp=None):
     x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
                           positions, cache, kv_src=vis, causal=False,
-                          use_rope=False)
-    return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg)
+                          use_rope=False, tp=tp)
+    return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg,
+                            tp=tp)
 
 
 def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
@@ -125,8 +123,9 @@ def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
     if cfg.cross_attn_every:
         def group_body(h, self_layers, cross_layer, vis):
             for lp in self_layers:       # the VLM family has no MoE
-                h = _self_block(lp, h, cfg, positions, None)
-            return _cross_block(cross_layer, h, cfg, positions, vis, None)
+                h = _self_block_aux(lp, h, cfg, positions, tp=tp)[0]
+            return _cross_block(cross_layer, h, cfg, positions, vis, None,
+                                tp)
 
         body = apply_remat(group_body, remat)
         for group, cross in zip(params["self_layers"],
@@ -266,7 +265,13 @@ def _hidden(params, tokens, cfg: ModelConfig, vis, remat: RematPolicy,
     if cfg.cross_attn_every:
         if vis is None:
             raise ValueError("a VLM forward needs the vision tokens (vis=)")
-        vis = vis.to(device=x.device, dtype=x.dtype) @ params["vis_proj"]
+        vis = vis.to(device=x.device, dtype=x.dtype)
+        w = params["vis_proj"]
+        if w.shape[1] != cfg.d_model:        # column-split over ``model``
+            # Every rank's cross layers read the whole projected tokens.
+            vis = tp.gather(tp.copy(vis) @ w, -1)
+        else:
+            vis = vis @ w
     positions = torch.arange(s, device=tokens.device)[None, :]
     x, aux = _stack_nocache(params, x, cfg, positions, vis, remat,
                             density_mean, tp)
@@ -297,16 +302,10 @@ def loss_fn(params, batch, cfg: ModelConfig,
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def _single_rank(*args, **kwargs):
-    raise NotImplementedError(
-        "serving runs on one rank (ServeEngine takes no mesh): build the "
-        "model without a mesh whose 'model' axis is larger than 1")
-
-
 def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
     tensor and expert parallel execution into ``init``, ``forward`` and
-    ``loss`` (dense and MoE families); the cache entry points then
+    ``loss`` (dense, MoE and VLM families); the cache entry points then
     refuse."""
     vlm = bool(cfg.cross_attn_every)
     if tp is not None:
@@ -315,8 +314,9 @@ def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
             init=functools.partial(init, cfg=cfg, device=device, tp=tp),
             forward=functools.partial(forward, cfg=cfg, tp=tp),
             loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
-            init_cache=_single_rank, prefill=_single_rank,
-            decode_step=_single_rank)
+            init_cache=cm.single_rank, prefill=cm.single_rank,
+            decode_step=cm.single_rank,
+            fill_source=cm.single_rank if vlm else None)
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),

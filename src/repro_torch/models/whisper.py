@@ -39,54 +39,67 @@ def _sinusoid(seq: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _enc_layer_init(gen, cfg: ModelConfig, device):
+def _enc_layer_init(gen, cfg: ModelConfig, device, at):
     return {"ln1": cm.norm_init(cfg, device),
-            "attn": cm.attn_init(gen, cfg, device),
+            "attn": cm.attn_init(gen, cfg, device, place=at("attn")),
             "ln2": cm.norm_init(cfg, device),
-            "mlp": cm.mlp_init(gen, cfg, device)}
+            "mlp": cm.mlp_init(gen, cfg, device, place=at("mlp"))}
 
 
-def _dec_layer_init(gen, cfg: ModelConfig, device):
+def _dec_layer_init(gen, cfg: ModelConfig, device, at):
     return {"ln1": cm.norm_init(cfg, device),
-            "self_attn": cm.attn_init(gen, cfg, device),
+            "self_attn": cm.attn_init(gen, cfg, device,
+                                      place=at("self_attn")),
             "ln2": cm.norm_init(cfg, device),
-            "cross_attn": cm.attn_init(gen, cfg, device),
+            "cross_attn": cm.attn_init(gen, cfg, device,
+                                       place=at("cross_attn")),
             "ln3": cm.norm_init(cfg, device),
-            "mlp": cm.mlp_init(gen, cfg, device)}
+            "mlp": cm.mlp_init(gen, cfg, device, place=at("mlp"))}
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device):
+def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None):
     """Random parameters from the reference's distributions (not its
-    numbers: torch and JAX generators differ)."""
+    numbers: torch and JAX generators differ).  With ``tp`` (a
+    ``ModelParallel``) every leaf is drawn whole, in the one-process
+    order, and only this rank's block of it is kept (``dec_pos``, norms
+    and biases stay whole)."""
+    def stack(name, n, layer):
+        return [layer(gen, cfg, device,
+                      lambda sub, i=i: cm.placer(tp, (name, i, sub), (n,)))
+                for i in range(n)]
+
     return {
-        "embed": cm.embed_init_params(gen, cfg, device),
-        "dec_pos": cm.embed_init(gen, (MAX_DEC_POS, cfg.d_model),
-                                 torch_dtype(cfg.dtype), device),
-        "enc_layers": [_enc_layer_init(gen, cfg, device)
-                       for _ in range(cfg.enc_layers)],
-        "dec_layers": [_dec_layer_init(gen, cfg, device)
-                       for _ in range(cfg.n_layers)],
+        "embed": cm.embed_init_params(gen, cfg, device,
+                                      place=cm.placer(tp, ("embed",))),
+        "dec_pos": cm.placer(tp, ())("dec_pos", cm.embed_init(
+            gen, (MAX_DEC_POS, cfg.d_model), torch_dtype(cfg.dtype),
+            device)),
+        "enc_layers": stack("enc_layers", cfg.enc_layers, _enc_layer_init),
+        "dec_layers": stack("dec_layers", cfg.n_layers, _dec_layer_init),
         "ln_enc": cm.norm_init(cfg, device),
         "ln_f": cm.norm_init(cfg, device),
     }
 
 
-def _enc_block(lp, x, cfg: ModelConfig, positions):
+def _enc_block(lp, x, cfg: ModelConfig, positions, tp=None):
     x = x + cm.apply_attn(lp["attn"], cm.apply_norm(lp["ln1"], x, cfg), cfg,
-                          positions, causal=False, use_rope=False)
-    return x + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln2"], x, cfg), cfg)
+                          positions, causal=False, use_rope=False, tp=tp)
+    return x + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln2"], x, cfg), cfg,
+                            tp=tp)
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
-           remat: RematPolicy = RematPolicy.SAVE_DOTS) -> torch.Tensor:
-    """frames: stub embeddings (b, s_enc, d) -> encoder states.  ``remat``
-    wraps each layer when grad mode is on (it is a no-op without it)."""
+           remat: RematPolicy = RematPolicy.SAVE_DOTS,
+           tp=None) -> torch.Tensor:
+    """frames: stub embeddings (b, s_enc, d) -> encoder states (whole on
+    every rank under ``tp``).  ``remat`` wraps each layer when grad mode is
+    on (it is a no-op without it)."""
     b, s, d = frames.shape
     dt = torch_dtype(cfg.dtype)
     x = frames.to(dt) + _sinusoid(s, d, frames.device).to(dt)
     positions = torch.arange(s, device=frames.device)[None, :]
     body = apply_remat(functools.partial(_enc_block, cfg=cfg,
-                                         positions=positions), remat)
+                                         positions=positions, tp=tp), remat)
     for lp in params["enc_layers"]:
         x = body(lp, x)
     return cm.apply_norm(params["ln_enc"], x, cfg)
@@ -178,45 +191,68 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
-def _train_dec_block(lp, h, enc_out, cfg: ModelConfig, positions):
+def _train_dec_block(lp, h, enc_out, cfg: ModelConfig, positions, tp=None):
     """A decoder layer with no cache: causal self-attention over the block,
     cross-attention projecting ``enc_out`` through ``wk``/``wv``."""
     h = h + cm.apply_attn(lp["self_attn"], cm.apply_norm(lp["ln1"], h, cfg),
-                          cfg, positions, use_rope=False)
+                          cfg, positions, use_rope=False, tp=tp)
     h = h + cm.apply_attn(lp["cross_attn"], cm.apply_norm(lp["ln2"], h, cfg),
                           cfg, positions, kv_src=enc_out, causal=False,
-                          use_rope=False)
-    return h + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln3"], h, cfg), cfg)
+                          use_rope=False, tp=tp)
+    return h + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln3"], h, cfg), cfg,
+                            tp=tp)
 
 
-def forward(params, tokens, cfg: ModelConfig, frames=None,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS):
-    """tokens (b, s), frames (b, s_enc, d) -> (logits, aux = 0)."""
+def _logits(params, tokens, cfg: ModelConfig, frames, remat: RematPolicy,
+            tp):
+    """The logits, this rank's vocab columns under ``tp``."""
     if frames is None:
         raise ValueError("a whisper forward needs the encoder frames "
                          "(frames=)")
-    enc_out = encode(params, frames.to(tokens.device), cfg, remat)
+    enc_out = encode(params, frames.to(tokens.device), cfg, remat, tp)
     s = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens) + params["dec_pos"][None, :s]
+    x = cm.embed(params["embed"], tokens, tp) + params["dec_pos"][None, :s]
     positions = torch.arange(s, device=tokens.device)[None, :]
     body = apply_remat(functools.partial(_train_dec_block, cfg=cfg,
-                                         positions=positions), remat)
+                                         positions=positions, tp=tp), remat)
     for lp in params["dec_layers"]:
         x = body(lp, x, enc_out)
     x = cm.apply_norm(params["ln_f"], x, cfg)
-    return (cm.unembed(params["embed"], x, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return cm.unembed(params["embed"], x, cfg, tp)
+
+
+def forward(params, tokens, cfg: ModelConfig, frames=None,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, tp=None):
+    """tokens (b, s), frames (b, s_enc, d) -> (logits, aux = 0).  Under
+    ``tp`` the logits are gathered whole on every rank."""
+    logits = _logits(params, tokens, cfg, frames, remat, tp)
+    return (cm.gather_vocab(logits, tp),
+            torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def loss_fn(params, batch, cfg: ModelConfig,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS):
-    logits, aux = forward(params, batch["tokens"], cfg,
-                          frames=batch["frames"], remat=remat)
-    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, tp=None):
+    """Mean CE; under ``tp`` the vocab-parallel loss over this rank's
+    logit columns (never gathered)."""
+    logits = _logits(params, batch["tokens"], cfg, batch["frames"], remat,
+                     tp)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab, tp)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
+def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
+    """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
+    tensor parallel execution into ``init``, ``forward`` and ``loss``; the
+    cache entry points then refuse."""
+    if tp is not None:
+        return cm.ModelApply(
+            config=cfg,
+            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+            forward=functools.partial(forward, cfg=cfg, tp=tp),
+            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
+            init_cache=cm.single_rank, prefill=cm.single_rank,
+            decode_step=cm.single_rank, fill_source=cm.single_rank)
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),

@@ -32,13 +32,15 @@ is given the ranks' mean of the per-expert fractions (the loss's
 
 **Tensor and expert parallel.**  A mesh whose ``model`` axis has more
 than one rank builds the model with it (``models.build_model(cfg, device,
-mesh)``, the dense and MoE families; the others are refused): each rank
-holds its ``sharding.param_spec`` block of every leaf and the model code
-runs the ``model``-axis collectives (``distributed.tensor_parallel``).
-Batch rows split over ``data`` only and are the same on every ``model``
-rank; gradients are reduced over ``data`` only, since a split leaf's
-gradient is already this rank's block of the whole and a replicated
-leaf's the same on every ``model`` rank.  The gradient norm that clips
+mesh)``, the dense, MoE, encoder-decoder and VLM families; the
+recurrent ones are refused): each rank holds its ``sharding.param_spec``
+block of every leaf and the model code runs the ``model``-axis
+collectives (``distributed.tensor_parallel``).  Batch rows (the tokens,
+labels and whisper's frames or the VLM's vision tokens alike) split over
+``data`` only and are the same on every ``model`` rank; gradients are
+reduced over ``data`` only, since a split leaf's gradient is already
+this rank's block of the whole and a replicated leaf's the same on every
+``model`` rank.  The gradient norm that clips
 the update is the whole model's (``optimizer.global_norm``: the squares
 of split leaves summed over ``model``, replicated leaves counted once),
 and ZeRO-1's moments are the ``data``-axis block of the rank's

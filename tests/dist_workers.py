@@ -131,9 +131,11 @@ def _dp2(rank, world, inputs, tmp) -> dict:
     return out
 
 
-def _tp_forward(cfg, params_np, mesh, toks, kernel="xla"):
-    """This rank's rows of ``toks`` (split over ``data``) through the
-    split model built from the whole bridged parameters; the logits."""
+def _tp_forward(cfg, params_np, mesh, toks, kernel="xla", src=None):
+    """This rank's rows of ``toks`` (split over ``data``), and of the
+    source ``src`` (whisper's frames or the VLM's vision tokens) where
+    given, through the split model built from the whole bridged
+    parameters; the logits."""
     import dataclasses
 
     from repro_torch import convert
@@ -144,10 +146,13 @@ def _tp_forward(cfg, params_np, mesh, toks, kernel="xla"):
     params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
                              mesh)
     n, i = mesh.size(0), mesh.get_local_rank("data")
-    rows = toks.shape[0] // n
+    rows = slice(i * toks.shape[0] // n, (i + 1) * toks.shape[0] // n)
+    source = {}
+    if src is not None:
+        source["frames" if cfg.family == "encdec" else "vis"] = _t(src[rows])
     with torch.no_grad():
         logits, _ = build_model(cfg, "cpu", mesh).forward(
-            params, _t(toks[i * rows:(i + 1) * rows]))
+            params, _t(toks[rows]), **source)
     return logits
 
 
@@ -214,7 +219,8 @@ def _tp(rank, world, inputs, tmp) -> dict:
                       for k, m in meshes.items()}}
     params = {a: pickle.loads(b) for a, b in inputs["params"].items()}
     # Each rank's init: its blocks of the one-process init's leaves.
-    for arch in ("yi-9b", "phi3.5-moe-42b-a6.6b", "minicpm-2b"):
+    for arch in ("yi-9b", "phi3.5-moe-42b-a6.6b", "minicpm-2b",
+                 "whisper-small", "llama-3.2-vision-90b"):
         for shape, mesh in meshes.items():
             cfg = get_config(arch, smoke=True)
             out[f"init_{arch}_{shape}"] = build_model(cfg, "cpu", mesh).init(
@@ -238,6 +244,43 @@ def _tp(rank, world, inputs, tmp) -> dict:
                                         meshes[(1, 4)], inputs["mini_toks"])
     out.update(_tp_train(mini, params["minicpm-2b"], meshes[(1, 4)],
                          inputs["train"], tmp, "minicpm"))
+    # The source families: whisper (heads split on both meshes, the dh
+    # split with 6 heads of 16 at (1, 4)) and the VLM (replicated K/V at
+    # (1, 4), KV heads split at (2, 2)), the kernel route once each; a
+    # ZeRO-1 train step each, whisper's checkpoint restored at one
+    # process by the test.
+    whisper = get_config("whisper-small", smoke=True)
+    vlm = get_config("llama-3.2-vision-90b", smoke=True)
+    for shape, mesh in meshes.items():
+        out[f"whisper_{shape}"] = _tp_forward(
+            whisper, params["whisper-small"], mesh, inputs["wh_toks"],
+            src=inputs["wh_frames"])
+        out[f"vlm_{shape}"] = _tp_forward(
+            vlm, params["llama-3.2-vision-90b"], mesh, inputs["vlm_toks"],
+            src=inputs["vlm_vis"])
+    out["whisper_dh"] = _tp_forward(
+        dataclasses.replace(whisper, **inputs["wh_dh_over"]),
+        params["whisper-small/dh"], meshes[(1, 4)], inputs["wh_toks"],
+        src=inputs["wh_frames"])
+    out["whisper_kernel_route"] = _tp_forward(
+        whisper, params["whisper-small"], meshes[(1, 4)], inputs["wh_toks"],
+        kernel="pallas_paged", src=inputs["wh_frames"])
+    out["vlm_kernel_route"] = _tp_forward(
+        vlm, params["llama-3.2-vision-90b"], meshes[(2, 2)],
+        inputs["vlm_toks"], kernel="pallas_paged", src=inputs["vlm_vis"])
+    out.update(_tp_train(whisper, params["whisper-small"], meshes[(2, 2)],
+                         inputs["train"], tmp, "whisper"))
+    out.update(_tp_train(vlm, params["llama-3.2-vision-90b"], meshes[(1, 4)],
+                         inputs["train"], tmp, "vlm"))
+    for name, m in (("whisper", whisper), ("vlm", vlm)):
+        split = build_model(m, "cpu", meshes[(1, 4)])
+        refused = []
+        for entry in ("init_cache", "prefill", "decode_step", "fill_source"):
+            try:
+                getattr(split, entry)(None, None, None)
+            except NotImplementedError:
+                refused.append(entry)
+        out[f"{name}_serve_refused"] = refused
     # (b) yi-9b SMOKE on (2, 2) with ZeRO-1, and (e) its checkpoint
     # restored onto (1, 4).
     yi = get_config("yi-9b", smoke=True)

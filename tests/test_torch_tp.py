@@ -24,7 +24,16 @@ tree, whose ``jax.make_mesh`` rejects a one-device mesh).
 * (d) ``optimizer.global_norm`` over a split against the whole norm.
 * (e) the (2, 2) checkpoint restored at one process, bitwise, and onto
   (1, 4), each rank its blocks bitwise.
-* (f) mamba2, zamba2, whisper and the VLM refused under ``model > 1``.
+* (f) mamba2 and zamba2 refused under ``model > 1``.
+* (g) the source families: whisper SMOKE logits on (1, 4) and (2, 2)
+  (heads split; the encoder's bidirectional attention and the decoder's
+  self-attention unrotated, cross-attention over the encoder states), and
+  with 6 heads of 16 at (1, 4) (the ``dh`` split with a source); the VLM
+  SMOKE (replicated K/V at (1, 4), KV heads split at (2, 2), the
+  column-split ``vis_proj`` gathered); the kernel route once each; a
+  ZeRO-1 train step of whisper on (2, 2) and of the VLM on (1, 4), and
+  whisper's gathered checkpoint restored at one process; their cache
+  entry points refused.
 * Each rank's ``init`` keeps exactly its ``param_spec`` block of the
   one-process ``init``'s leaves, bitwise.
 
@@ -60,6 +69,11 @@ from repro_torch.utils import tree  # noqa: E402
 
 torch.set_num_threads(1)
 PHI, YI, MINI = "phi3.5-moe-42b-a6.6b", "yi-9b", "minicpm-2b"
+WH, VLM = "whisper-small", "llama-3.2-vision-90b"
+# whisper with 6 heads of 16: over 4 ranks the heads do not divide, so
+# attention splits ``dh`` (whisper-small's own split at 8 ranks and more).
+WH_DH = "whisper-small/dh"
+VARIANTS = {WH_DH: (WH, {"n_heads": 6, "n_kv_heads": 6})}
 SHAPES = [(1, 4), (2, 2)]
 ADAMW = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 STEPS = 2
@@ -80,10 +94,22 @@ PHI_CASES = {
 }
 
 
+def _rcfg(name):
+    """The reference's SMOKE config of ``name`` (an arch or a variant)."""
+    arch, over = VARIANTS.get(name, (name, {}))
+    return dataclasses.replace(rconfig(arch, smoke=True), **over)
+
+
+def _pcfg(name):
+    """The port's SMOKE config of ``name``."""
+    arch, over = VARIANTS.get(name, (name, {}))
+    return dataclasses.replace(tconfig(arch, smoke=True), **over)
+
+
 @functools.lru_cache(maxsize=None)
-def _ref_params(arch):
+def _ref_params(name):
     """The reference's init (PRNGKey(0)) as a numpy tree."""
-    params = rbuild(rconfig(arch, smoke=True)).init(jax.random.PRNGKey(0))
+    params = rbuild(_rcfg(name)).init(jax.random.PRNGKey(0))
     return jax.tree_util.tree_map(lambda x: np.array(x), params)
 
 
@@ -94,8 +120,10 @@ def _tcfg(zero1=True):
 def _inputs():
     rng = np.random.default_rng(0)
     vocab = tconfig(PHI, smoke=True).vocab
+    wh, vlm = tconfig(WH, smoke=True), tconfig(VLM, smoke=True)
     return {
-        "params": {a: pickle.dumps(_ref_params(a)) for a in (PHI, YI, MINI)},
+        "params": {a: pickle.dumps(_ref_params(a))
+                   for a in (PHI, YI, MINI, WH, WH_DH, VLM)},
         # The reference test's tokens (PRNGKey(1), 4 x 16).
         "phi_toks": np.asarray(jax.random.randint(
             jax.random.PRNGKey(1), (4, 16), 0, vocab), np.int32),
@@ -105,6 +133,14 @@ def _inputs():
         "train": {"tcfg": _tcfg(), "batch": 8, "seq": 16, "steps": STEPS},
         "norm_leaves": [rng.standard_normal(tuple(p.shape)).astype(
             np.float32) for p in tree.leaves(_one_process_params(YI))],
+        # Drawn after the cases above, which keep their inputs.
+        "wh_dh_over": VARIANTS[WH_DH][1],
+        "wh_toks": rng.integers(0, wh.vocab, (4, 16)).astype(np.int32),
+        "wh_frames": rng.standard_normal((4, wh.enc_seq, wh.d_model)
+                                         ).astype(np.float32),
+        "vlm_toks": rng.integers(0, vlm.vocab, (4, 16)).astype(np.int32),
+        "vlm_vis": rng.standard_normal((4, vlm.n_vis_tokens, vlm.d_model)
+                                       ).astype(np.float32),
     }
 
 
@@ -135,21 +171,21 @@ def _blocks(params, cfg, shape, coord):
             for p, s in zip(tree.leaves(params), tree.leaves(shs))]
 
 
-def _one_process_params(arch):
-    return convert.from_jax(_ref_params(arch), tconfig(arch, smoke=True),
-                            "cpu")
+def _one_process_params(name):
+    return convert.from_jax(_ref_params(name), _pcfg(name), "cpu")
 
 
 def _check_logits(outs, key, shape, arch, toks_key, over=(),
-                  kernel="xla"):
-    """Each rank's logits (its ``data`` rows of the tokens: a batch of its
-    own, so sorted dispatch's capacity counts its tokens, as in the
-    data-parallel trainer) against the JAX one-device forward and the
-    port's one process on those rows."""
+                  kernel="xla", src_key=None):
+    """Each rank's logits (its ``data`` rows of the tokens, and of the
+    source ``src_key`` where given: a batch of its own, so sorted
+    dispatch's capacity counts its tokens, as in the data-parallel
+    trainer) against the JAX one-device forward and the port's one
+    process on those rows."""
     for out in outs:
         i = out["coords"][shape][0]
         want_jax, want_port = _forwards(arch, toks_key, over, kernel,
-                                        (i, shape[0]))
+                                        (i, shape[0]), src_key)
         got = out[key].numpy()
         np.testing.assert_allclose(got, want_jax, **EP_TOL)
         err = float(np.abs(got - want_port).max())
@@ -158,25 +194,31 @@ def _check_logits(outs, key, shape, arch, toks_key, over=(),
 
 
 @functools.lru_cache(maxsize=None)
-def _forwards(arch, toks_key, over=(), kernel="xla", part=(0, 1)):
+def _forwards(arch, toks_key, over=(), kernel="xla", part=(0, 1),
+              src_key=None):
     """(JAX one-device logits, the port's one-process logits) on part
-    ``i`` of ``n`` of the tokens' rows."""
-    toks = _inputs()[toks_key]
+    ``i`` of ``n`` of the tokens' rows (and the source's)."""
+    inputs = _inputs()
     i, n = part
-    toks = toks[i * len(toks) // n:(i + 1) * len(toks) // n]
-    rcfg = dataclasses.replace(rconfig(arch, smoke=True), **dict(over))
+    rows = slice(i * len(inputs[toks_key]) // n,
+                 (i + 1) * len(inputs[toks_key]) // n)
+    toks = inputs[toks_key][rows]
+    rcfg = dataclasses.replace(_rcfg(arch), **dict(over))
+    key = "frames" if rcfg.family == "encdec" else "vis"
+    src = {} if src_key is None else {key: inputs[src_key][rows]}
     want, _ = rbuild(rcfg).forward(
         jax.tree_util.tree_map(jnp.asarray, _ref_params(arch)),
-        jnp.asarray(toks))
-    cfg = dataclasses.replace(tconfig(arch, smoke=True), decode_kernel=kernel,
+        jnp.asarray(toks), **{k: jnp.asarray(v) for k, v in src.items()})
+    cfg = dataclasses.replace(_pcfg(arch), decode_kernel=kernel,
                               **dict(over))
     with torch.no_grad():
-        port, _ = tbuild(cfg, "cpu").forward(_one_process_params(arch),
-                                             torch.from_numpy(toks.copy()))
+        port, _ = tbuild(cfg, "cpu").forward(
+            _one_process_params(arch), torch.from_numpy(toks.copy()),
+            **{k: torch.from_numpy(v.copy()) for k, v in src.items()})
     return np.asarray(want, np.float32), port.numpy()
 
 
-@pytest.mark.parametrize("arch", [YI, PHI, MINI])
+@pytest.mark.parametrize("arch", [YI, PHI, MINI, WH, VLM])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_init_keeps_the_param_spec_blocks(ranks, arch, shape):
     """Each rank's ``init`` from the one-process seed keeps exactly its
@@ -232,7 +274,7 @@ def _port_state(arch):
 @functools.lru_cache(maxsize=None)
 def _one_process(arch):
     """The port's one-process steps: (losses, grad norms, final state)."""
-    cfg = tconfig(arch, smoke=True)
+    cfg = _pcfg(arch)
     step, _ = tstep.make_train_step(cfg, _tcfg(zero1=False), "cpu")
     state = _port_state(arch)
     data = SyntheticLM(cfg, batch=8, seq=16, seed=0)
@@ -248,7 +290,7 @@ def _one_process(arch):
 def _reference(arch):
     """The reference's jitted one-device steps: (losses, param leaves in
     the port's order)."""
-    cfg = rconfig(arch, smoke=True)
+    cfg = _rcfg(arch)
     train_step, _ = rstep.make_train_step(
         cfg, rstep.TrainConfig(adamw=ropt.AdamWConfig(**ADAMW)))
     params = jax.tree_util.tree_map(jnp.asarray, _ref_params(arch))
@@ -357,8 +399,87 @@ def test_collectives_are_clocked(ranks):
         assert out["clock_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
-                                  "whisper-small", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_whisper_forward_matches_the_reference(ranks, shape):
+    """(g) whisper SMOKE, 4 heads of 16: one head a rank at (1, 4), two
+    at (2, 2).  The encoder's self-attention is bidirectional and neither
+    self-attention is rotated; each decoder layer's cross-attention
+    projects the encoder states (whole on every rank, entered through a
+    *copy*) on this rank's heads."""
+    assert tsh._attn_dims(_pcfg(WH), 4, shape[1]) == ("model", None)
+    _check_logits(ranks[1], f"whisper_{shape}", shape, WH, "wh_toks",
+                  src_key="wh_frames")
+
+
+def test_whisper_head_dim_split_with_a_source(ranks):
+    """(g) whisper with 6 heads of 16 at (1, 4): q, k and v split ``dh``
+    (16 -> 4) and are gathered over it, k and v projecting the encoder
+    states in the cross layers, no RoPE anywhere."""
+    cfg = _pcfg(WH_DH)
+    assert tsh._attn_dims(cfg, cfg.n_heads, 4) == (None, "model")
+    assert tsh._kv_dims(cfg, 4) == (None, "model")
+    _check_logits(ranks[1], "whisper_dh", (1, 4), WH_DH, "wh_toks",
+                  src_key="wh_frames")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_vlm_forward_matches_the_reference(ranks, shape):
+    """(g) the VLM SMOKE (4 query heads, 2 KV heads): at (1, 4) the K/V
+    are replicated and each rank projects the KV head its query head
+    reads, over the vision tokens in the cross layers; at (2, 2) the KV
+    heads split.  ``vis_proj`` is split by output columns and gathered,
+    so every rank's cross layers read the whole projected tokens."""
+    cfg = _pcfg(VLM)
+    assert tsh._kv_dims(cfg, shape[1]) == (
+        (None, None) if shape[1] == 4 else ("model", None))
+    _check_logits(ranks[1], f"vlm_{shape}", shape, VLM, "vlm_toks",
+                  src_key="vlm_vis")
+
+
+@pytest.mark.parametrize("arch, key, shape, toks, src", [
+    (WH, "whisper_kernel_route", (1, 4), "wh_toks", "wh_frames"),
+    (VLM, "vlm_kernel_route", (2, 2), "vlm_toks", "vlm_vis")])
+def test_source_families_on_the_kernel_route(ranks, arch, key, shape, toks,
+                                             src):
+    """(g) the kernel route's wrappers at each rank's local shapes (flash
+    causal, bidirectional and over a source; the fused LayerNorm and RMS
+    norm; their plain versions on the CPU)."""
+    _check_logits(ranks[1], key, shape, arch, toks, kernel="pallas_paged",
+                  src_key=src)
+
+
+@pytest.mark.parametrize("arch, name", [(WH, "whisper"), (VLM, "vlm")])
+def test_source_family_train_step(ranks, arch, name):
+    """(g) two ZeRO-1 steps (whisper on (2, 2): each ``data`` rank its
+    rows of the tokens and frames; the VLM on (1, 4)) against the
+    reference's one-device steps and the port's one process: losses,
+    parameters, moments, grad norms."""
+    _check_train(ranks[1], name, arch)
+
+
+def test_whisper_checkpoint_restores_at_one_process(ranks):
+    """(g) whisper's (2, 2) checkpoint (stacked encoder and decoder
+    layers, the replicated ``dec_pos``), gathered by rank 0, restores at
+    one process bitwise."""
+    outs = ranks[1]
+    restored, step = ckpt.restore(outs[0]["whisper_ckpt"],
+                                  template=_port_state(WH))
+    assert step == STEPS
+    for (p, a), b in zip(tree.leaves_with_paths(restored),
+                         tree.leaves(outs[0]["whisper_full"])):
+        assert torch.equal(a.detach(), b), tree.path_str(p)
+
+
+@pytest.mark.parametrize("name", ["whisper", "vlm"])
+def test_split_source_families_refuse_serving(ranks, name):
+    """The split whisper and VLM models refuse every cache entry point,
+    ``fill_source`` included."""
+    for out in ranks[1]:
+        assert out[f"{name}_serve_refused"] == [
+            "init_cache", "prefill", "decode_step", "fill_source"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
 def test_other_families_refused_under_model_parallel(arch):
     """(f) the families without a split yet name the roadmap."""
     cfg = tconfig(arch, smoke=True)
