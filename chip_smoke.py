@@ -246,10 +246,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    layers, 3 steps with the step's fp32 gradient all-reduce and 3 with
    each gradient averaged by ``compressed_all_reduce`` (step and
    all-reduce ms, payload bytes, moment bytes, the loss gap);
-28. ``tp_forward``, ``tp_forward_whisper``, ``tp_forward_vlm``: tensor and
+28. ``tp_forward``, ``tp_forward_whisper``, ``tp_forward_vlm``,
+   ``tp_forward_mamba2``, ``tp_forward_zamba2``: tensor and
    expert parallel execution over ``model`` (``build_model(cfg, device,
    mesh)``, a (1, 4) mesh) on the kernel route, one spawn of 4 ranks that
-   share the card over gloo for three models, each rank holding its
+   share the card over gloo for five models, each rank holding its
    blocks drawn from the one-process seed: phi3.5-moe-42b-a6.6b at full
    width, dense dispatch, 4 x 512 tokens (8 query and 2 KV heads, 4 of
    the 16 experts, a quarter of the vocabulary a rank; flash, the fused
@@ -262,7 +263,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (fp32 at 1 group of 4 self layers and 1 cross layer, bf16 at 2), 2 x
    256 tokens, vision tokens 2 x 1600 x 8192 from the seed (16/2 heads of
    128 a rank, ``vis_proj`` split by columns and gathered; flash causal
-   and over the 1600 vision keys, RMS at d 8192); each kernel first held
+   and over the 1600 vision keys, RMS at d 8192); mamba2-1.3b (fp32 at 12
+   of 48 layers, bf16 at 48) and zamba2-2.7b (fp32 at 12 of 54, bf16 at
+   54), 2 x 256 tokens (16 and 20 SSM heads of 64 a rank, the SSD scan on
+   them with the one group they read, state 128 and 64; zamba2's shared
+   block 8/8 heads of 80 through flash); each kernel first held
    to its plain version at a rank's shapes (bf16 and fp32); each fp32
    arm's gathered logits (rank 0) within 2e-3 of the largest |logit| of
    the one-process kernel-route forward (computed first in this process,
@@ -270,15 +275,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    measured; per rank the forward ms with the collectives' ms clocked
    inside it, staged collectives and bytes, peak memory and launches,
    held to flash once an attention and the norm once a norm (whisper:
-   flash 12 + 2 x 12, norms 2 x 12 + 3 x 12 + 2; else flash L, norms
-   2 L + 1), grouped GEMM 3 L (``cuda_cores`` in fp32, ``wgmma`` in
+   flash 12 + 2 x 12, norms 2 x 12 + 3 x 12 + 2; mamba2: SSD L, norms
+   L + 1; zamba2: SSD L, flash L/6, norms L + 2 L/6 + 1; else flash L,
+   norms 2 L + 1), grouped GEMM 3 L (``cuda_cores`` in fp32, ``wgmma`` in
    bf16), no plain call;
-29. ``train_tp``, ``train_tp_whisper``: the ZeRO-1 train step over a
-   (1, 4) mesh on the plain route, fp32, 2 steps, one spawn: yi-9b at
+29. ``train_tp``, ``train_tp_whisper``, ``train_tp_zamba2``: the ZeRO-1
+   train step over a (1, 4) mesh on the plain route, fp32, 2 steps, one
+   spawn: yi-9b at
    full width cut to 2 layers, 4 x 512 tokens (8 query heads and 1 KV
    head, a quarter of d_ff and of the vocabulary a rank, the
    vocab-parallel loss), its first moments gathered; whisper-small at
-   full depth, 2 x 448 tokens and frames; losses within 1e-5 relative of
+   full depth, 2 x 448 tokens and frames; zamba2-2.7b at full width cut
+   to 6 layers (one group and the shared block), 2 x 256 tokens, its
+   first moments gathered; losses within 1e-5 relative of
    rank 0's one-process steps and equal across ranks, the gathered first
    moments within 1e-3 of each leaf's largest, whisper's gathered
    checkpoint restored at one rank bitwise; step and collective ms,
@@ -1313,14 +1322,16 @@ def _ssd_inputs(gen, dtype, b, l, h, dh, g, ds):
     return x, dt, A, B, C, D, S0
 
 
-def _ssd_bound(dtype, b, l, h, dh, g, ds):
+def _ssd_bound(dtype, b, l, h, dh, g, ds, init_state: bool = True):
     """Least time for one scan: x and B, C, dt read and y written once,
-    the state read and written once (fp32), against the flops of the
-    chunked algorithm at the kernel's 64-row tile (C B^T, the causal half
-    of M x, C S and the state update) at the input type's peak."""
+    the final state written once (fp32) and, with ``init_state``, the
+    initial one read once, against the flops of the chunked algorithm at
+    the kernel's 64-row tile (C B^T, the causal half of M x, C S and the
+    state update) at the input type's peak."""
     es, q = _esize(dtype), 64
     nbytes = (2 * b * l * h * dh * es + 2 * b * l * g * ds * es
-              + 4 * b * l * h + 8 * h + 2 * 4 * b * h * ds * dh)
+              + 4 * b * l * h + 8 * h
+              + (2 if init_state else 1) * 4 * b * h * ds * dh)
     nc = -(-l // q)
     ops = b * h * nc * (2 * q * q * ds + q * (q + 1) * dh + 4 * q * ds * dh)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
@@ -2098,14 +2109,15 @@ def _source_extras(cfg, seed: int) -> dict | None:
 
 
 def phase_serve(gpu: str, seed: int, cfg, name: str = "serve",
-                twins: bool = True, trace: bool = True,
+                twins=("eager", "gather"), trace: bool = True,
                 cut: str | None = None) -> dict:
     """Serve the 48 requests at ``cfg`` (a paged pallas_paged config), the
     decode chunks as CUDA graph replays, with every launch count checked
     and one replay's kernels held to the capture's counts; with
-    ``twins``, then the first 16 with the graph off (the eager loop:
-    streams bitwise equal) and, for a model with attention, under
-    pallas_gather (streams bitwise equal); with ``trace``, then the
+    ``"eager"`` in ``twins``, then the first 16 with the graph off (the
+    eager loop: streams bitwise equal) and with ``"gather"``, for a model
+    with attention, under pallas_gather (streams bitwise equal); with
+    ``trace``, then the
     decode-chunk (graph on and off) and admission-wave trace, whose
     chunk pair's wall time, idle share and peak memory the arm's line
     carries as ``graph_on_off`` ([on, off]).  A fixed-source family
@@ -2172,39 +2184,39 @@ def phase_serve(gpu: str, seed: int, cfg, name: str = "serve",
            "reqs": reqs}
     if moe:
         line["gmm_body_launches"] = out["gmm_bodies"] = gmm_bodies
-    if not twins:
-        emit(line)
-        return out
-
-    # The graph off over the first 16 requests (the first wave's): the same
-    # kernels launched by the eager loop, streams bitwise equal.  Each
-    # slot's arithmetic does not depend on what the other slots hold; the
-    # trace times both from one state.
-    ereqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
-    erun = _serve(cfg, params, ereqs, cuda_graph=False, extras=extras)
-    check_counts(name + " eager", erun["counts"], cfg, erun["stats"])
-    if moe:
-        check_gmm_bodies(name + " eager", cfg, erun["stats"])
-    if [r.generated for r in ereqs] != [r.generated for r in reqs[:SLOTS]]:
-        raise AssertionError(f"{name}: the eager loop's streams differ from "
-                             "the graph's")
-    etokens = sum(len(r.generated) for r in ereqs)
-    line["eager"] = {"requests": len(ereqs), "tokens": etokens,
-                     "wall_s": erun["wall"],
-                     "tok_per_s": etokens / erun["wall"],
-                     **_graph_fields(erun),
-                     "host_syncs_per_token":
-                         erun["stats"]["host_syncs_per_token"],
-                     "mean_ttft_ms": 1e3 * statistics.mean(
-                         r.ttft_s for r in ereqs),
-                     "launch_counts": erun["counts"], "streams_equal": True}
+    if "eager" in twins:
+        # The graph off over the first 16 requests (the first wave's): the
+        # same kernels launched by the eager loop, streams bitwise equal.
+        # Each slot's arithmetic does not depend on what the other slots
+        # hold; the trace times both from one state.
+        ereqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
+        erun = _serve(cfg, params, ereqs, cuda_graph=False, extras=extras)
+        check_counts(name + " eager", erun["counts"], cfg, erun["stats"])
+        if moe:
+            check_gmm_bodies(name + " eager", cfg, erun["stats"])
+        if [r.generated for r in ereqs] != [r.generated
+                                             for r in reqs[:SLOTS]]:
+            raise AssertionError(f"{name}: the eager loop's streams differ "
+                                 "from the graph's")
+        etokens = sum(len(r.generated) for r in ereqs)
+        line["eager"] = {"requests": len(ereqs), "tokens": etokens,
+                         "wall_s": erun["wall"],
+                         "tok_per_s": etokens / erun["wall"],
+                         **_graph_fields(erun),
+                         "host_syncs_per_token":
+                             erun["stats"]["host_syncs_per_token"],
+                         "mean_ttft_ms": 1e3 * statistics.mean(
+                             r.ttft_s for r in ereqs),
+                         "launch_counts": erun["counts"],
+                         "streams_equal": True}
     # The pallas_gather twin over the same first 16 requests.
-    if cfg.n_heads:
+    if "gather" in twins and cfg.n_heads:
         gcfg = dataclasses.replace(cfg, decode_kernel="pallas_gather")
         greqs = _requests(Request, cfg.vocab, seed)[:SLOTS]
         grun = _serve(gcfg, params, greqs,      # the pallas_gather path
                       extras=extras)
-        check_counts(name + " gather", grun["counts"], gcfg, grun["stats"])
+        check_counts(name + " gather", grun["counts"], gcfg,
+                     grun["stats"])
         if moe:
             check_gmm_bodies(name + " gather", gcfg, grun["stats"])
         if [r.generated for r in greqs] != [r.generated
@@ -4555,30 +4567,36 @@ def _tp_source(cfg, seed: int, batch: int, device) -> dict:
 def _tp_want(cfg) -> dict:
     """The launches a rank's kernel-route forward of ``cfg`` must make,
     no plain call: flash once an attention (whisper: each encoder layer,
-    each decoder layer's self and cross attention; else once a layer),
-    the norm once a norm (whisper: 2 an encoder layer, 3 a decoder layer
-    and the two final ones; else 2 a layer and the final one), three
-    grouped GEMMs an MoE layer (``wgmma`` in bf16, ``cuda_cores`` in
-    fp32)."""
+    each decoder layer's self and cross attention; zamba2: each shared
+    block call, one every ``shared_attn_every`` layers; mamba2: none;
+    else once a layer), the norm once a norm (whisper: 2 an encoder
+    layer, 3 a decoder layer and the two final ones; a Mamba-2 layer 1
+    and a shared block call 2; else 2 a layer; and the final one), the
+    SSD scan once a Mamba-2 layer, three grouped GEMMs an MoE layer
+    (``wgmma`` in bf16, ``cuda_cores`` in fp32)."""
     L = cfg.n_layers
     if cfg.family == "encdec":
         flash, norm = cfg.enc_layers + 2 * L, 2 * cfg.enc_layers + 3 * L + 2
+    elif cfg.family in ("ssm", "hybrid"):
+        flash = L // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+        norm = L + 2 * flash + 1
     else:
         flash, norm = L, 2 * L + 1
+    ssd = L if cfg.family in ("ssm", "hybrid") else 0
     gmm = 3 * L if cfg.n_experts else 0
     body = "cuda_cores" if cfg.dtype == "float32" else "wgmma"
-    return {"flash_dense": flash, "fused_norm": norm, "grouped_matmul": gmm,
-            "plain": 0, "gmm_bodies": {body: gmm} if gmm else {}}
+    return {"flash_dense": flash, "fused_norm": norm, "ssd": ssd,
+            "grouped_matmul": gmm, "plain": 0,
+            "gmm_bodies": {body: gmm} if gmm else {}}
 
 
 def _tp_launches() -> dict:
     from repro_torch.kernels.moe_gmm import moe_gmm as gk
 
     got = counts()
-    return {"flash_dense": got["flash_dense"], "fused_norm": got["fused_norm"],
-            "grouped_matmul": got["grouped_matmul"], "plain": got["plain"],
-            "others": sum(v for k, v in got.items() if k not in (
-                "flash_dense", "fused_norm", "grouped_matmul", "plain")),
+    keys = ("flash_dense", "fused_norm", "ssd", "grouped_matmul", "plain")
+    return {**{k: got[k] for k in keys},
+            "others": sum(v for k, v in got.items() if k not in keys),
             "gmm_bodies": {k: v for k, v in
                            gk.grouped_matmul.body_launches.items() if v}}
 
@@ -4656,12 +4674,15 @@ def _leaves(params) -> list:
     return tree.leaves(params)
 
 
-def _tp_heads(cfg, world: int) -> tuple[int, int]:
+def _tp_heads(cfg, world: int) -> tuple[int, int] | None:
     """(query heads, KV heads) one rank's attention runs over: its block
     where the rule splits heads, every head where it splits ``dh`` (q, k,
     v are gathered over ``dh``), and under replicated K/V the KV heads its
-    query heads read."""
+    query heads read; None for a model without attention (mamba2)."""
     from repro_torch.distributed import sharding as sh
+
+    if not cfg.n_heads:
+        return None
 
     qh, _ = sh._attn_dims(cfg, cfg.n_heads, world)
     kh, _ = sh._kv_dims(cfg, world)
@@ -4673,6 +4694,39 @@ def _tp_heads(cfg, world: int) -> tuple[int, int]:
     return hq, cfg.n_kv_heads
 
 
+def _tp_ssm(cfg, world: int) -> tuple[int, int] | None:
+    """(SSM heads, B/C groups) one rank's scan runs over: its block of
+    the heads and the groups they read where the heads divide, else every
+    head and group; None for a model without Mamba-2 layers."""
+    if not cfg.ssm_state:
+        return None
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    if h % world:
+        return h, g
+    hl = h // world
+    return hl, max(1, hl * g // h)
+
+
+def _tp_ssd_case(gen, dtype, cfg, b, l, world: int):
+    """The scan's inputs at rank 0's split shapes, as the split model
+    makes them: x, B and C strided views of the whole gathered conv output
+    (rows of ``d_inner + 2 g ds`` channels, this rank's heads and the
+    groups they read), dt softplus'ed, A and D on this rank's heads."""
+    h, dh, g, ds, di = (cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups,
+                        cfg.ssm_state, cfg.d_inner)
+    hl, gl = _tp_ssm(cfg, world)
+    xbc = torch.randn(b, l, di + 2 * g * ds, generator=gen,
+                      device=DEV).to(dtype)
+    x = xbc[..., :di].reshape(b, l, h, dh)[:, :, :hl]
+    B = xbc[..., di:di + g * ds].reshape(b, l, g, ds)[:, :, :gl]
+    C = xbc[..., di + g * ds:].reshape(b, l, g, ds)[:, :, :gl]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, hl, generator=gen, device=DEV) - 1.0)
+    A = -torch.linspace(1.0, 16.0, h, device=DEV)[:hl].contiguous()
+    D = torch.randn(hl, generator=gen, device=DEV)
+    return x, dt, A, B, C, D
+
+
 def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
     """The kernels of ``cfg``'s split forward at one rank's shapes, against
     their plain versions (TOL), in bf16 and fp32: flash over the rank's
@@ -4680,13 +4734,18 @@ def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
     the mask; the cross layers without the mask over the source), the
     fused norm at d_model (LayerNorm with its bias for whisper, over the
     encoder's rows), the grouped GEMM over an MoE rank's experts and every
-    token (dense dispatch: x (e/ranks, b s, d) @ wg (e/ranks, d, d_ff))."""
+    token (dense dispatch: x (e/ranks, b s, d) @ wg (e/ranks, d, d_ff)),
+    the SSD scan over a rank's heads (:func:`_tp_ssd_case`; its output and
+    final state checked, its body recorded, the bf16 one timed beside the
+    plain version and the bound, and held to the ``mma`` body where the
+    views are aligned)."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.fused_norm import fused_norm as nk
     from repro_torch.kernels.moe_gmm import moe_gmm as gk
+    from repro_torch.kernels.ssd import ssd as sk
 
     b, s = shape
-    hq, hkv = _tp_heads(cfg, world)
+    heads = _tp_heads(cfg, world)
     dh, d = cfg.head_dim_, cfg.d_model
     src = (cfg.enc_seq if cfg.family == "encdec" else
            cfg.n_vis_tokens if cfg.cross_attn_every else None)
@@ -4698,11 +4757,13 @@ def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
                     ).to(dt)
 
         def attn(sq, skv):
+            hq, hkv = heads
             return (randn(b, hq, sq, dh), randn(b, hkv, skv, dh),
                     randn(b, hkv, skv, dh))
 
-        cases = [("flash_attention", "causal", fk.flash_attention,
-                  fk.flash_attention_plain, attn(s, s), {"causal": True})]
+        cases = [] if heads is None else [
+            ("flash_attention", "causal", fk.flash_attention,
+             fk.flash_attention_plain, attn(s, s), {"causal": True})]
         if cfg.family == "encdec":
             cases.append(("flash_attention", "encoder", fk.flash_attention,
                           fk.flash_attention_plain, attn(src, src),
@@ -4735,15 +4796,52 @@ def _tp_local_kernels(cfg, shape, world: int, seed: int) -> list[dict]:
                              dt)})
             del got, want
         del cases, x, norm_args
+        if cfg.ssm_state:
+            rows.append(_tp_ssd_row(cfg, gen, dt, b, s, world, sk))
     return rows
+
+
+def _tp_ssd_row(cfg, gen, dtype, b, l, world: int, sk) -> dict:
+    """The SSD scan at a rank's shapes against its plain version (y and
+    the final state, TOL); on the card its body and, in bf16, its time,
+    the plain version's and the bound (no PyTorch call computes the
+    scan)."""
+    args = _tp_ssd_case(gen, dtype, cfg, b, l, world)
+    chunk = min(max(128, l // 16), 1024)
+    (y, S), (yp, Sp) = sk.ssd(*args), sk.ssd_plain(*args, chunk=chunk)
+    tag = f"tp_forward local ssd {str(dtype).split('.')[-1]}"
+    hl, gl = _tp_ssm(cfg, world)
+    row = {"kernel": "ssd", "case": "heads a rank",
+           "dtype": str(dtype).split(".")[-1],
+           "shape": [b, l, hl, cfg.ssm_headdim, gl, cfg.ssm_state],
+           "max_abs_err": max(check_close(tag + " y", y, yp, dtype),
+                              check_close(tag + " state", S, Sp,
+                                          torch.float32))}
+    if DEV == "cuda":
+        launch = sk.launch_of(*args)
+        row["body"] = launch.body
+        if dtype == torch.bfloat16:
+            if sk._aligned(args[0], args[3], args[4]) and launch.body != "mma":
+                raise AssertionError(f"{tag}: aligned views planned on the "
+                                     f"{launch.body} body, not mma")
+            bound_ms, bound_by, _ = _ssd_bound(dtype, b, l, *row["shape"][2:],
+                                               init_state=False)
+            row |= {"ms": time_ms(lambda: sk.ssd_cuda(*args)),
+                    "plain_ms": time_ms(lambda: sk.ssd_plain(
+                        *args, chunk=chunk), reps=5),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None}
+            row["over_bound"] = row["ms"] / bound_ms
+    return row
 
 
 def phase_tp_forward(gpu: str, seed: int, models) -> dict:
     """Tensor and expert parallel forwards (``build_model(cfg, device,
     mesh)`` over a (1, 4) mesh) on the kernel route, every model's arms in
     one spawn of 4 ranks that share the card over gloo, each rank holding
-    its block of every leaf and running flash, the fused norm and (MoE)
-    the grouped GEMM at its local shapes, the activations' partial sums
+    its block of every leaf and running flash, the fused norm, (MoE) the
+    grouped GEMM and (Mamba-2) the SSD scan at its local shapes, the
+    activations' partial sums
     all-reduced and the split outputs gathered through the host.
 
     ``models``: dicts with ``phase`` (the line's name), ``gate`` and
@@ -4801,7 +4899,8 @@ def phase_tp_forward(gpu: str, seed: int, models) -> dict:
                "mesh": [1, TP_RANKS], "backend": "gloo",
                "route": gate.decode_kernel, "batch": list(m["shape"]),
                "source": _tp_source_shape(gate, m["shape"][0]) or None,
-               "heads_a_rank": list(_tp_heads(gate, TP_RANKS)),
+               "heads_a_rank": _tp_heads(gate, TP_RANKS),
+               "ssm_heads_groups_a_rank": _tp_ssm(gate, TP_RANKS),
                "local_kernels": local[m["phase"]], "ranks_s": ranks_s}
         if gate.n_experts:
             out["moe_dispatch"] = gate.moe_dispatch
@@ -4829,7 +4928,7 @@ def phase_tp_forward(gpu: str, seed: int, models) -> dict:
                     f"{name}: the split forward is {gap:.3e} from the "
                     f"one-process forward, beyond {TP_LOGIT_TOL} of its "
                     f"largest |logit| {scale:.3e}")
-            for k in ("flash_dense", "fused_norm", "grouped_matmul"):
+            for k in ("flash_dense", "fused_norm", "ssd", "grouped_matmul"):
                 launches[k] = launches.get(k, 0) + sum(
                     row["launches"][k] for row in rows)
             out[arm] = {
@@ -4872,13 +4971,16 @@ def phase_tp_forward(gpu: str, seed: int, models) -> dict:
 def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                    arms, steps: int) -> None:
     """One rank of train_tp (a spawned process), for each arm (a dict:
-    ``phase``, ``cfg``, ``shape``, ``ckpt``): ``steps`` ZeRO-1 steps over
-    a (1, ``world``) mesh with the collectives clocked, then the first
-    moments gathered (a collective), or with ``ckpt`` the whole state,
-    written by rank 0 as a checkpoint; rank 0 then takes the one-process
-    steps on the same batches and compares (loss, the gathered first
-    moments, with ``ckpt`` the parameters) and, with ``ckpt``, restores
-    the checkpoint in a one-rank layout (bitwise the gathered state)."""
+    ``phase``, ``cfg``, ``shape``, ``ckpt``, ``witness``): ``steps``
+    ZeRO-1 steps over a (1, ``world``) mesh with the collectives clocked,
+    then the first moments gathered (a collective), or with ``ckpt`` the
+    whole state, written by rank 0 as a checkpoint; rank 0 then takes the
+    one-process steps on the same batches and compares (loss, the
+    gathered first moments, with ``ckpt`` the parameters) and, with
+    ``ckpt``, restores the checkpoint in a one-rank layout (bitwise the
+    gathered state).  With ``witness`` the parameters and first moments
+    are also gathered after the first step, and rank 0 takes two more
+    one-process runs (:func:`_tp_witness`)."""
     import torch.distributed as dist
 
     from repro_torch.core.remat import RematPolicy
@@ -4912,6 +5014,7 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
             state = init_train_state(
                 model, torch.Generator(device=device).manual_seed(seed + 97),
                 mesh, zero1=True)
+            shard = state_shardings(cfg, mesh, zero1=True)
             rows = []
             for i in range(steps):
                 dist.barrier()
@@ -4930,12 +5033,21 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                              "staged_collectives":
                                  collectives.STAGED["collectives"],
                              "staged_bytes": collectives.STAGED["bytes"]})
+                if i == 0 and arm.get("witness"):
+                    # Copies: a replicated leaf is gathered as the live
+                    # tensor, which the next step updates in place.
+                    first = {"params": [t.clone() for t in tree.leaves(
+                        ckpt.gather_state(state["params"], shard["params"]))],
+                             "mu": [t.clone() for t in tree.leaves(
+                                 ckpt.gather_state(state["opt"]["mu"],
+                                                   shard["opt"]["mu"]))]}
+                    if rank:
+                        del first
             res["steps"] = rows
             res["state_bytes"] = sum(t.numel() * t.element_size()
                                      for t in tree.leaves(state))
             res["max_memory_allocated"] = (
                 torch.cuda.max_memory_allocated() if device == "cuda" else 0)
-            shard = state_shardings(cfg, mesh, zero1=True)
             t0 = time.perf_counter()
             full = (ckpt.gather_state(state, shard) if arm["ckpt"] else
                     {"opt": {"mu": ckpt.gather_state(
@@ -4964,7 +5076,9 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                 one = init_train_state(
                     one_model, torch.Generator(device=device).manual_seed(
                         seed + 97))
-                one_rows = []
+                paths = [tree.path_str(p) for p, _ in
+                         tree.leaves_with_paths(full["opt"]["mu"])]
+                one_rows, one_first = [], None
                 for i in range(steps):
                     sync()
                     t0 = time.perf_counter()
@@ -4972,13 +5086,11 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                     one_rows.append({"loss": float(m1["loss"]),
                                      "grad_norm": float(m1["grad_norm"]),
                                      "ms": (time.perf_counter() - t0) * 1e3})
+                    if i == 0 and arm.get("witness"):
+                        one_first = _tp_snapshot(one)
                 res["one_process"] = one_rows
-                errs = {tree.path_str(path): (
-                    (a - b).abs().max()
-                    / b.abs().max().clamp_min(1e-30)).item()
-                    for (path, a), b in zip(
-                        tree.leaves_with_paths(full["opt"]["mu"]),
-                        tree.leaves(one["opt"]["mu"]))}
+                errs = _tp_mu_errs(paths, tree.leaves(full["opt"]["mu"]),
+                                   tree.leaves(one["opt"]["mu"]))
                 res["mu_worst_leaf"] = max(errs, key=errs.get)
                 res["mu_rel_err"] = errs[res["mu_worst_leaf"]]
                 if arm["ckpt"]:
@@ -4986,6 +5098,13 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                         (a.float() - b.detach().float()).abs().max().item()
                         for a, b in zip(tree.leaves(full["params"]),
                                         tree.leaves(one["params"])))
+                if arm.get("witness"):
+                    res["witness"] = _tp_witness(
+                        paths, first, tree.leaves(full["opt"]["mu"]),
+                        one_first, tree.leaves(one["opt"]["mu"]), rows,
+                        one_step, one_model, data, tcfg.adamw.lr, seed,
+                        device, steps)
+                    del first, one_first
                 del one, one_step
                 gc.collect()
                 if device == "cuda":
@@ -5014,19 +5133,137 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
         dist.destroy_process_group()
 
 
+def _tp_snapshot(state) -> dict:
+    """Copies of a one-process train state's leaves: params, mu, nu and
+    the step count."""
+    from repro_torch.utils import tree
+
+    return {"params": [t.detach().clone()
+                       for t in tree.leaves(state["params"])],
+            "mu": [t.clone() for t in tree.leaves(state["opt"]["mu"])],
+            "nu": [t.clone() for t in tree.leaves(state["opt"]["nu"])],
+            "count": state["opt"]["count"].clone()}
+
+
+def _tp_mu_errs(paths, got, want) -> dict:
+    """Each leaf's largest gap over ``want``'s largest |mu|, by path."""
+    return {path: ((a - b).abs().max()
+                   / b.abs().max().clamp_min(1e-30)).item()
+            for path, a, b in zip(paths, got, want)}
+
+
+def _tp_worst(errs: dict) -> dict:
+    leaf = max(errs, key=errs.get)
+    return {"rel_err": errs[leaf], "leaf": leaf}
+
+
+def _tp_moved(paths, got, want, lr: float) -> dict:
+    """The entries whose parameter after the first step differs by more
+    than ``lr`` / 2 (Adam's first update is about ``lr`` times the sign of
+    the gradient, so such an entry took the other sign): the total and
+    the leaf with the most."""
+    counts = {path: int(((a - b).abs() > lr / 2).sum())
+              for path, a, b in zip(paths, got, want)}
+    leaf = max(counts, key=counts.get)
+    return {"entries": sum(counts.values()), "leaf": leaf,
+            "in_leaf": counts[leaf]}
+
+
+def _tp_witness(paths, split_first, split_mu, one_first, one_mu, split_rows,
+                one_step, one_model, data, lr: float, seed: int, device: str,
+                steps: int) -> dict:
+    """Where the split's moments after ``steps`` steps part from the
+    one-process steps', and why (rank 0, after both ran).
+
+    * ``first_step``: the split's first moments after step 1 against the
+      one-process steps' (gated): the gradient of the same parameters.
+    * ``same_params``: the one-process second step from the split's
+      parameters and first moments after step 1 (and the one process's
+      second moments and count): its first moments against the split's
+      after step 2.  Both then take the gradient of the same parameters,
+      so the gap is the split's arithmetic alone (gated).
+    * ``one_process_vs_one_process``: that run's first moments against the
+      one-process steps' (two one-process runs from parameters that differ
+      only by the split's step-1 rounding), beside ``moved_at_step_1``,
+      the entries whose first update took the other sign.
+    * ``rows_reversed``: the one-process steps on the same batches with
+      their rows in reverse order (the same loss; only the order of the
+      sums over tokens differs) against the one-process steps: the moments
+      after step 1 and after the last, and the entries moved at step 1."""
+    from repro_torch.train.step import init_train_state
+    from repro_torch.utils import tree
+
+    t0 = time.perf_counter()
+
+    def fresh():
+        return init_train_state(one_model, torch.Generator(
+            device=device).manual_seed(seed + 97))
+
+    out = {"first_step": _tp_worst(_tp_mu_errs(paths, split_first["mu"],
+                                               one_first["mu"])),
+           "moved_at_step_1": _tp_moved(paths, split_first["params"],
+                                        one_first["params"], lr)}
+    # The second step from the split's state after step 1.
+    st = fresh()
+    with torch.no_grad():
+        for dst, src in zip(tree.leaves(st["params"]), split_first["params"]):
+            dst.copy_(src)
+        for dst, src in zip(tree.leaves(st["opt"]["mu"]), split_first["mu"]):
+            dst.copy_(src)
+        for dst, src in zip(tree.leaves(st["opt"]["nu"]), one_first["nu"]):
+            dst.copy_(src)
+        st["opt"]["count"].copy_(one_first["count"])
+    losses = []
+    for i in range(1, steps):
+        st, m = one_step(st, data(i))
+        losses.append(float(m["loss"]))
+    got = tree.leaves(st["opt"]["mu"])
+    out["same_params"] = _tp_worst(_tp_mu_errs(paths, split_mu, got)) | {
+        "losses": losses,
+        "loss_rel_gap": [abs(a["loss"] - b) / abs(b)
+                         for a, b in zip(split_rows[1:], losses)]}
+    out["one_process_vs_one_process"] = _tp_worst(_tp_mu_errs(paths, got,
+                                                              one_mu))
+    del st, got
+    # The one-process steps with each batch's rows reversed.
+    st = fresh()
+    rev = {}
+    for i in range(steps):
+        st, m = one_step(st, {k: np.ascontiguousarray(v[::-1])
+                              for k, v in data(i).items()})
+        rev.setdefault("losses", []).append(float(m["loss"]))
+        if i == 0:
+            snap = _tp_snapshot(st)
+            rev["first_moments"] = _tp_worst(_tp_mu_errs(
+                paths, snap["mu"], one_first["mu"]))
+            rev["moved_at_step_1"] = _tp_moved(paths, snap["params"],
+                                               one_first["params"], lr)
+            del snap
+    rev["last_moments"] = _tp_worst(_tp_mu_errs(
+        paths, tree.leaves(st["opt"]["mu"]), one_mu))
+    out["rows_reversed"] = rev
+    del st
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
     """Tensor-parallel ZeRO-1 training (``train.step`` over a (1, 4) mesh,
     the plain route as the trainer always is), every arm in one spawn of 4
     ranks that share the card over gloo, each rank holding its block of
     every leaf and of every moment (the vocab-parallel loss).  ``arms``:
     dicts with ``phase`` (the line's name), ``cfg``, ``shape`` (batch,
-    tokens), ``cut`` and ``ckpt`` (the whole state gathered into a
+    tokens), ``cut``, ``ckpt`` (the whole state gathered into a
     checkpoint and restored at one rank; else only the first moments
-    gathered).  Gates: each step's loss within ``TP_LOSS_RTOL`` of the
-    one-process step's and equal on every rank; the gathered first
-    moments within ``TP_MU_TOL`` of each leaf's largest; with ``ckpt``
-    the gathered checkpoint restored at one rank bitwise.  One line an
-    arm."""
+    gathered) and ``witness``.  Gates: each step's loss within
+    ``TP_LOSS_RTOL`` of the one-process step's and equal on every rank;
+    the gathered first moments within ``TP_MU_TOL`` of each leaf's
+    largest; with ``ckpt`` the gathered checkpoint restored at one rank
+    bitwise.  With ``witness`` the first-moment gate is taken after the
+    first step and after a second step from the split's own state
+    (:func:`_tp_witness`), and the moments after the last step are
+    reported beside two one-process-against-one-process gaps.  One line
+    an arm."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -5047,14 +5284,26 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
                                  f"{losses}")
         one = [row["loss"] for row in r0["one_process"]]
         gaps = [abs(a - b) / abs(b) for a, b in zip(losses[0], one)]
-        if (not max(gaps) <= TP_LOSS_RTOL
-                or not r0["mu_rel_err"] <= TP_MU_TOL):
+        wit = r0.get("witness")
+        if wit is None:
+            mu = {"after": f"step {steps}", "rel_err": r0["mu_rel_err"],
+                  "leaf": r0["mu_worst_leaf"]}
+            gated, loss_gaps = [mu], gaps
+        else:
+            mu = dict(wit.pop("first_step"), after="step 1")
+            same = dict(wit["same_params"], after=f"step {steps} from the "
+                        f"split's state after step 1")
+            gated, loss_gaps = [mu, same], gaps + same["loss_rel_gap"]
+        bad = [g for g in gated if not g["rel_err"] <= TP_MU_TOL]
+        if not max(loss_gaps) <= TP_LOSS_RTOL or bad:
             raise AssertionError(
                 f"{name}: the split steps are not the one-process steps "
-                f"(losses {losses[0]} vs {one}, relative gaps {gaps}, "
+                f"(losses {losses[0]} vs {one}, relative gaps "
+                f"{loss_gaps}, "
                 f"limit {TP_LOSS_RTOL}; first moments "
-                f"{r0['mu_rel_err']:.3e} of a leaf's largest, limit "
-                f"{TP_MU_TOL})")
+                + "; ".join(f"{g['rel_err']:.3e} of a leaf's largest after "
+                            f"{g['after']} at {g['leaf']}" for g in gated)
+                + f", limit {TP_MU_TOL})")
         if arm["ckpt"] and not r0["restore_bitwise"]:
             raise AssertionError(f"{name}: the gathered checkpoint did not "
                                  f"restore bitwise at one rank")
@@ -5067,13 +5316,14 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
                "route": "xla", "zero1": True, "batch": list(arm["shape"]),
                "steps": steps, "losses": losses[0],
                "one_process_losses": one, "loss_rel_gap": gaps,
-               "mu_rel_err": r0["mu_rel_err"],
-               "mu_worst_leaf": r0["mu_worst_leaf"],
+               "mu_rel_err": mu["rel_err"], "mu_worst_leaf": mu["leaf"],
+               "mu_after": mu["after"],
                "grad_norm": [row["grad_norm"] for row in r0["steps"]],
                "one_process_grad_norm": [row["grad_norm"]
                                          for row in r0["one_process"]],
                "tol": f"loss rtol {TP_LOSS_RTOL}, equal across ranks; first "
-                      f"moments {TP_MU_TOL} of each leaf's largest",
+                      f"moments {TP_MU_TOL} of each leaf's largest after "
+                      + " and after ".join(g["after"] for g in gated),
                "step_ms": [[row["ms"] for row in r["steps"]] for r in rs],
                "one_process_step_ms": [row["ms"]
                                        for row in r0["one_process"]],
@@ -5085,8 +5335,14 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
                "state_bytes": [r["state_bytes"] for r in rs],
                "max_memory_allocated": [r["max_memory_allocated"]
                                         for r in rs],
-               "gathered": "state" if arm["ckpt"] else "first moments",
+               "gathered": ("state" if arm["ckpt"] else "first moments") + (
+                   "; parameters and first moments after step 1"
+                   if wit else ""),
                "gather_s": [r["gather_s"] for r in rs]}
+        if wit is not None:
+            out["witness"] = dict(wit, last_moments={
+                "after": f"step {steps}", "rel_err": r0["mu_rel_err"],
+                "leaf": r0["mu_worst_leaf"]})
         if arm["ckpt"]:
             out.update({"restore_1_rank_bitwise": True,
                         "param_max_abs_diff": r0["param_max_abs_diff"],
@@ -5184,8 +5440,8 @@ COUNTED = ("decode chunks (plain and speculative): the capture's "
            "decode_attention: the cross-attention steps of the "
            "fixed-source arms, the pallas_gather twins and sp_decode's "
            "ranks (one launch a rank a case, counted in each rank); "
-           "tp_forward (phi3.5-moe, whisper-small and the VLM): each "
-           "rank's counted forward, summed over the ranks")
+           "tp_forward (phi3.5-moe, whisper-small, the VLM, mamba2 and "
+           "zamba2): each rank's counted forward, summed over the ranks")
 
 
 def main() -> int:
@@ -5235,8 +5491,13 @@ def main() -> int:
     served = {}                 # each main path's launch counts
     paged = dict(cache_layout="paged", kv_page_size=PSZ,
                  decode_kernel="pallas_paged")
-    serve = phase_serve(gpu, args.seed,
-                        dataclasses.replace(yi_9b.CONFIG, **paged))
+    serve = phase_serve(
+        gpu, args.seed, dataclasses.replace(yi_9b.CONFIG, **paged),
+        twins=(),
+        cut="the eager and pallas_gather twins: the run's 1200 s limit (the "
+            "Mamba-2 and zamba2 tensor-parallel arms took the time; a proof "
+            "run took 1127.4 s); zamba2, mamba2, olmoe and whisper keep "
+            "theirs")
     # The prefix, adaptive, sampling and snapshot arms run yi-9b's first
     # 12 layers: their gates (hits, preemptions, invariants, placement,
     # prefill work, streams bitwise against the eager loop and across a
@@ -5263,7 +5524,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     zserve = phase_serve(gpu, args.seed,
                          dataclasses.replace(zamba2_27b.CONFIG, **paged),
-                         "serve_zamba2")
+                         "serve_zamba2", twins=("gather",),
+                         cut="the eager twin: the run's 1200 s limit (a "
+                             "proof run with the Mamba-2 and zamba2 "
+                             "tensor-parallel arms took 1111.2 s); mamba2, "
+                             "olmoe and whisper keep theirs")
     phase_preempt(gpu, args.seed, zserve["cfg"], zserve["params"],
                   zserve["reqs"])
     served["zamba2-2.7b"] = zserve
@@ -5294,7 +5559,7 @@ def main() -> int:
                       (minicpm_2b, "serve_minicpm")):
         dserve = phase_serve(gpu, args.seed,
                              dataclasses.replace(mod.CONFIG, **paged), name,
-                             twins=False, trace=False)
+                             twins=(), trace=False)
         served[mod.CONFIG.arch] = dserve
         del dserve["params"]
         torch.cuda.empty_cache()
@@ -5311,7 +5576,7 @@ def main() -> int:
     vserve = phase_serve(
         gpu, args.seed,
         dataclasses.replace(llama32_vision_90b.CONFIG, n_layers=20, **paged),
-        "serve_vlm", twins=False, trace=False,
+        "serve_vlm", twins=(), trace=False,
         cut=("n_layers 100 -> 20 (4 groups of 4 self layers and 1 cross "
              "layer): the 100 layers' bf16 weights (~171 GB) exceed one "
              "card"))
@@ -5396,21 +5661,28 @@ def main() -> int:
     phase_train_dp(
         gpu, args.seed,
         dataclasses.replace(minicpm, n_layers=2, dtype="float32"),
-        dataclasses.replace(minicpm, n_layers=4),
-        cut="n_layers 40 -> 4 (the measured arm): two ranks' bf16 states "
+        dataclasses.replace(minicpm, n_layers=2),
+        cut="n_layers 40 -> 2 (the measured arm): two ranks' bf16 states "
             "and fp32 gradients on one card, and the run's 1200 s limit "
             "(8 -> 4 once tp_forward and train_tp took the run past 1120 "
-            "s)")
+            "s, 4 -> 2 once the Mamba-2 and zamba2 arms took a proof run "
+            "to 1127.4 s)")
     torch.cuda.empty_cache()
     # Tensor and expert parallel execution over 4 ranks that share the
     # card: phi3.5-moe's forward on the kernel route (its local experts
     # through the grouped GEMM), whisper-small's and the VLM's (flash
-    # without the mask over their sources) in the same spawn; yi-9b's and
-    # whisper-small's ZeRO-1 train steps.
+    # without the mask over their sources), mamba2's and zamba2's (the
+    # SSD scan on a rank's heads) in the same spawn; yi-9b's,
+    # whisper-small's and zamba2's ZeRO-1 train steps.
     route = dict(decode_kernel="pallas_paged")
     phi = dataclasses.replace(phi35_moe.CONFIG, **route)
     wsp = dataclasses.replace(whisper_small.CONFIG, **route)
     vlm = dataclasses.replace(llama32_vision_90b.CONFIG, **route)
+    mb = dataclasses.replace(mamba2_13b.CONFIG, **route)
+    zb = dataclasses.replace(zamba2_27b.CONFIG, **route)
+    ssm_cut = ("n_layers {L} -> 12{g}: the run's 1200 s limit (each layer "
+               "stages its gathered in_proj and conv outputs through the "
+               "host, twice as many bytes in fp32)")
     vlm_cut = ("n_layers 100 -> {n} ({g} group(s) of 4 self layers and 1 "
                "cross layer): the weights once in this process and once "
                "over the ranks (~{gb} GB each), and the run's 1200 s limit; "
@@ -5432,7 +5704,18 @@ def main() -> int:
          "gate": dataclasses.replace(vlm, n_layers=5, dtype="float32"),
          "measured": dataclasses.replace(vlm, n_layers=10),
          "cut": {"gate": vlm_cut.format(n=5, g=1, gb=26),
-                 "measured": vlm_cut.format(n=10, g=2, gb=21)}}])
+                 "measured": vlm_cut.format(n=10, g=2, gb=21)}},
+        {"phase": "tp_forward_mamba2", "shape": (2, 256),
+         "gate": dataclasses.replace(mb, n_layers=12, dtype="float32"),
+         "measured": mb,
+         "cut": {"gate": ssm_cut.format(L=48, g=""), "measured": None}},
+        {"phase": "tp_forward_zamba2", "shape": (2, 256),
+         "gate": dataclasses.replace(zb, n_layers=12, dtype="float32"),
+         "measured": zb,
+         "cut": {"gate": ssm_cut.format(L=54, g=" (two groups of 6 "
+                                              "Mamba-2 layers and the "
+                                              "shared block)"),
+                 "measured": None}}])
     served["tp_forward"] = {"launches": {
         **{k: 0 for k in counts()}, **tpf["total_launches"]}}
     torch.cuda.empty_cache()
@@ -5447,7 +5730,15 @@ def main() -> int:
                 "~40 s; train_tp_whisper's carries the one-rank restore)"},
         {"phase": "train_tp_whisper", "shape": (2, 448), "ckpt": True,
          "cfg": dataclasses.replace(whisper_small.CONFIG, dtype="float32"),
-         "cut": None}])
+         "cut": None},
+        {"phase": "train_tp_zamba2", "shape": (2, 256), "ckpt": False,
+         "witness": True,
+         "cfg": dataclasses.replace(zamba2_27b.CONFIG, n_layers=6,
+                                    dtype="float32"),
+         "cut": "n_layers 54 -> 6 (one group of 6 Mamba-2 layers and the "
+                "shared block): the run's 1200 s limit; only the first "
+                "moments gathered, no checkpoint (the CPU tests restore "
+                "mamba2's)"}])
     torch.cuda.empty_cache()
 
     def launched(*keys, runs=("launches",)):

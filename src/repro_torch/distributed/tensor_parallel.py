@@ -26,6 +26,27 @@ With a *copy* at every split region's entry, the gradient of a
 replicated leaf (a norm weight, replicated K/V weights) is the same on
 every model rank, and a split leaf's gradient is its block of the whole.
 
+The Mamba-2 block (``models.mamba2``) keeps the rule's storage (its
+``in_proj`` columns, conv channels and ``d_inner`` rows, each a
+contiguous block, which do not line up with the z/x/B/C/dt parts) and
+splits its compute by SSM heads: ``in_proj``'s block output and the conv
+block's are each *gathered* whole and then enter the split region
+through a *copy*, whose all-reduce backward makes their gradient whole
+before the gather's backward takes this rank's slice; ``A_log``, ``D``,
+``dt_bias`` (and a replicated conv) enter through a *copy* and are read
+on this rank's heads; ``out_proj``'s row-split partial sums leave
+through a *reduce*.  The gated RMSNorm's statistic over the whole
+``d_inner`` is this rank's sum of squares through ``copy(reduce(s))``:
+the *reduce* sums it forward, and since every rank's rows read the sum,
+its gradient is partial on each rank and the *copy* sums it backward
+(a *reduce* alone, identity backward, would drop the other ranks'
+share).  Each backward path crosses exactly one all-reduce; two in a
+row would multiply its gradient by the group's size.  Where ``d_inner``
+does not divide, ``norm_w`` and ``out_proj`` stay whole and the block
+after the gathers runs whole on every rank (every head, the whole norm,
+``out_proj`` with no reduce): that code is replicated, so nothing in it
+is copied, and only the split conv's input enters through a *copy*.
+
 Every collective goes through ``distributed.collectives``: under gloo a
 CUDA tensor is copied to the host and back, explicitly, and counted in
 ``collectives.STAGED``.  bf16 tensors go to gloo as bf16 (its all-reduce
@@ -126,6 +147,28 @@ class ModelParallel:
         kh, kd = sh._kv_dims(cfg, self.size)
         self.q_split = "heads" if qh else "dh" if qd else None
         self.kv_split = "heads" if kh else "dh" if kd else None
+        if cfg.ssm_state:
+            self._ssm_picks(cfg)
+
+    def _ssm_picks(self, cfg: ModelConfig) -> None:
+        """The Mamba-2 block's picks, read from the rule itself: whether
+        ``in_proj``'s columns, the conv channels and ``d_inner``
+        (``norm_w``, ``out_proj``'s rows) split over ``model`` (else each
+        is replicated), and whether the SSM runs this rank's heads
+        (``ssm_heads`` divides) or every head.  ``ssm_heads`` dividing
+        makes ``d_inner`` divide, so split heads always have split rows."""
+        di, g, ds = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+
+        def split(leaf: str, shape: tuple) -> bool:
+            spec = sh.param_spec(f"layers/mamba/{leaf}", shape, cfg,
+                                 self.mesh)
+            return "model" in spec
+
+        self.in_proj_split = split(
+            "in_proj", (cfg.d_model, 2 * di + 2 * g * ds + cfg.ssm_heads))
+        self.conv_split = split("conv_w", (cfg.ssm_conv, di + 2 * g * ds))
+        self.ssm_rows_split = split("norm_w", (di,))
+        self.ssm_heads_split = cfg.ssm_heads % self.size == 0
 
     # -- the collectives ---------------------------------------------------
 
@@ -165,13 +208,21 @@ class ModelParallel:
         local heads map onto a contiguous range in order (the attention
         then runs at the group ``hq_local // len``), else one KV head a
         query head (group 1)."""
-        g = self.cfg.n_heads // self.cfg.n_kv_heads
-        first = self.rank * hq_local
-        want = [(first + i) // g for i in range(hq_local)]
-        lo, n = want[0], want[-1] - want[0] + 1
-        if hq_local % n == 0 and all(
-                w - lo == i // (hq_local // n) for i, w in enumerate(want)):
-            return slice(lo, lo + n)
+        return self._read(self.cfg.n_heads, self.cfg.n_kv_heads, hq_local)
+
+    def ssm_groups(self, h_local: int) -> torch.Tensor | slice:
+        """The B/C groups this rank's SSM heads read (head j reads group
+        ``j // (ssm_heads / ssm_groups)``), as :meth:`kv_heads`."""
+        return self._read(self.cfg.ssm_heads, self.cfg.ssm_groups, h_local)
+
+    def _read(self, n: int, n_read: int, local: int) -> torch.Tensor | slice:
+        g = n // n_read
+        first = self.rank * local
+        want = [(first + i) // g for i in range(local)]
+        lo, k = want[0], want[-1] - want[0] + 1
+        if local % k == 0 and all(
+                w - lo == i // (local // k) for i, w in enumerate(want)):
+            return slice(lo, lo + k)
         return torch.tensor(want)
 
 

@@ -40,8 +40,8 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 
 
 # The families whose forward and loss run split over a mesh's ``model``
-# axis (``distributed.tensor_parallel``).
-TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "encdec", "vlm")
+# axis (``distributed.tensor_parallel``): every family.
+TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
@@ -51,9 +51,9 @@ def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
     ``mesh`` (a ``(data, model)`` DeviceMesh) with ``model`` larger than 1
     makes ``init``, ``forward`` and ``loss`` tensor and expert parallel
     over ``model``: each rank holds its ``sharding.param_spec`` block of
-    every leaf, and the collectives run inside the model code.  The dense,
-    MoE, encoder-decoder and VLM families; the recurrent ones (``ssm``,
-    ``hybrid``) raise."""
+    every leaf, and the collectives run inside the model code.  Every
+    family (:data:`TENSOR_PARALLEL_FAMILIES`); the split model's cache
+    entry points refuse, since serving runs on one rank."""
     if cfg.family not in _MODULES:
         raise ValueError(f"unknown family: {cfg.family}")
     from repro_torch.distributed.tensor_parallel import model_parallel
@@ -65,8 +65,7 @@ def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
     if cfg.family not in TENSOR_PARALLEL_FAMILIES:
         raise NotImplementedError(
             f"{cfg.arch}: the {cfg.family} family has no tensor-parallel "
-            f"execution over 'model' yet (ROADMAP.md, queue 1); use a mesh "
-            f"with model = 1")
+            f"execution over 'model'; use a mesh with model = 1")
     return module.build(cfg, resolve_device(device),
                         model_parallel(cfg, mesh))
 

@@ -12,6 +12,14 @@ all invocations (the extra unit is the sink of dropped rows,
 arithmetic: group i runs layers i*k .. i*k + k - 1, then the shared block
 over KV cache i.  ``forward`` runs the same groups with no cache, the
 activation policy wrapping each group's body.
+
+Tensor parallel over a mesh's ``model`` axis (``build(cfg, device, tp)``;
+``init``/``forward``/``loss``, the cache entry points refuse): the Mamba-2
+layers as ``models.mamba2`` splits them (each rank holds its
+``sharding.param_spec`` block of every leaf and scans its SSM heads), the
+shared block as the dense transformer's (``models.common``'s split
+attention by heads, ``dh`` or replicated K/V, and the column/row-split
+MLP), the embedding, logits and loss vocab-parallel.
 """
 from __future__ import annotations
 
@@ -26,29 +34,35 @@ from repro_torch.models import common as cm
 from repro_torch.models import mamba2 as mb
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device):
-    """Random parameters from the reference's distributions."""
+def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None):
+    """Random parameters from the reference's distributions; with ``tp``
+    each rank keeps its block of every leaf, drawn in the one-process
+    order."""
     if cfg.shared_attn_every <= 0:
         raise ValueError("zamba2 needs shared_attn_every > 0")
     return {
-        "embed": cm.embed_init_params(gen, cfg, device),
+        "embed": cm.embed_init_params(gen, cfg, device,
+                                      place=cm.placer(tp, ("embed",))),
         "ln_f": cm.norm_init(cfg, device),
-        "layers": [mb._layer_init(gen, cfg, device)
-                   for _ in range(cfg.n_layers)],
+        "layers": mb.layers_init(gen, cfg, device, tp),
         # The single shared transformer block (parameters counted once).
         "shared": {
             "ln1": cm.norm_init(cfg, device),
-            "attn": cm.attn_init(gen, cfg, device),
+            "attn": cm.attn_init(gen, cfg, device,
+                                 place=cm.placer(tp, ("shared", "attn"))),
             "ln2": cm.norm_init(cfg, device),
-            "mlp": cm.mlp_init(gen, cfg, device),
+            "mlp": cm.mlp_init(gen, cfg, device,
+                               place=cm.placer(tp, ("shared", "mlp"))),
         },
     }
 
 
-def _shared_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
+def _shared_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None,
+                  tp=None):
     x = x + cm.apply_attn(p["attn"], cm.apply_norm(p["ln1"], x, cfg), cfg,
-                          positions, cache, seg_lens=seg_lens)
-    return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg)
+                          positions, cache, seg_lens=seg_lens, tp=tp)
+    return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["ln2"], x, cfg), cfg,
+                            tp=tp)
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
@@ -101,35 +115,56 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
 
 
-def forward(params, tokens, cfg: ModelConfig,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS):
-    """tokens (b, s) -> (logits, aux = 0)."""
+def _logits(params, tokens, cfg: ModelConfig, remat: RematPolicy, tp):
+    """The logits, this rank's vocab columns under ``tp``."""
     k = cfg.shared_attn_every
-    x = cm.embed(params["embed"], tokens)
+    x = cm.embed(params["embed"], tokens, tp)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
 
     def group_body(h, group, shared):
         for lp in group:
-            h = mb.mamba_block(lp, h, cfg)
-        return _shared_block(shared, h, cfg, positions, None)
+            h = mb.mamba_block(lp, h, cfg, tp)
+        return _shared_block(shared, h, cfg, positions, None, tp=tp)
 
     body = apply_remat(group_body, remat)
     layers = params["layers"]
     for gi in range(cfg.n_layers // k):
         x = body(x, layers[gi * k:gi * k + k], params["shared"])
     x = cm.apply_norm(params["ln_f"], x, cfg)
-    return (cm.unembed(params["embed"], x, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return cm.unembed(params["embed"], x, cfg, tp)
+
+
+def forward(params, tokens, cfg: ModelConfig,
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, tp=None):
+    """tokens (b, s) -> (logits, aux = 0); under ``tp`` the logits are
+    gathered whole on every rank."""
+    logits = _logits(params, tokens, cfg, remat, tp)
+    return (cm.gather_vocab(logits, tp),
+            torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def loss_fn(params, batch, cfg: ModelConfig,
-            remat: RematPolicy = RematPolicy.SAVE_DOTS):
-    logits, aux = forward(params, batch["tokens"], cfg, remat=remat)
-    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab)
+            remat: RematPolicy = RematPolicy.SAVE_DOTS, tp=None):
+    """Mean CE; under ``tp`` the vocab-parallel loss over this rank's
+    columns."""
+    logits = _logits(params, batch["tokens"], cfg, remat, tp)
+    ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab, tp)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def build(cfg: ModelConfig, device: torch.device) -> cm.ModelApply:
+def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
+    """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
+    tensor parallel execution into ``init``, ``forward`` and ``loss``; the
+    cache entry points then refuse."""
+    if tp is not None:
+        return cm.ModelApply(
+            config=cfg,
+            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+            forward=functools.partial(forward, cfg=cfg, tp=tp),
+            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
+            init_cache=cm.single_rank, prefill=cm.single_rank,
+            decode_step=cm.single_rank)
     return cm.ModelApply(
         config=cfg,
         init=functools.partial(init, cfg=cfg, device=device),

@@ -220,7 +220,8 @@ def _tp(rank, world, inputs, tmp) -> dict:
     params = {a: pickle.loads(b) for a, b in inputs["params"].items()}
     # Each rank's init: its blocks of the one-process init's leaves.
     for arch in ("yi-9b", "phi3.5-moe-42b-a6.6b", "minicpm-2b",
-                 "whisper-small", "llama-3.2-vision-90b"):
+                 "whisper-small", "llama-3.2-vision-90b", "mamba2-1.3b",
+                 "zamba2-2.7b"):
         for shape, mesh in meshes.items():
             cfg = get_config(arch, smoke=True)
             out[f"init_{arch}_{shape}"] = build_model(cfg, "cpu", mesh).init(
@@ -281,6 +282,43 @@ def _tp(rank, world, inputs, tmp) -> dict:
             except NotImplementedError:
                 refused.append(entry)
         out[f"{name}_serve_refused"] = refused
+    # The recurrent families: mamba2 and zamba2 on both meshes, the
+    # variants (every SSM head on every rank; a replicated conv; a whole
+    # ``d_inner``) at (1, 4), the kernel route once each; a ZeRO-1 train
+    # step each and of the whole-``d_inner`` variant, mamba2's checkpoint
+    # restored at one process by the test.
+    ssm = {a: get_config(a, smoke=True)
+           for a in ("mamba2-1.3b", "zamba2-2.7b")}
+    for shape, mesh in meshes.items():
+        for arch, cfg in ssm.items():
+            out[f"{arch}_{shape}"] = _tp_forward(cfg, params[arch], mesh,
+                                                 inputs["ssm_toks"])
+    for name, (arch, over) in inputs["ssm_variants"].items():
+        out[name] = _tp_forward(dataclasses.replace(ssm[arch], **over),
+                                params[name], meshes[(1, 4)],
+                                inputs["ssm_toks"])
+    for arch, shape in (("mamba2-1.3b", (2, 2)), ("zamba2-2.7b", (1, 4))):
+        out[f"{arch}_kernel_route"] = _tp_forward(
+            ssm[arch], params[arch], meshes[shape], inputs["ssm_toks"],
+            kernel="pallas_paged")
+    out.update(_tp_train(ssm["mamba2-1.3b"], params["mamba2-1.3b"],
+                         meshes[(2, 2)], inputs["train"], tmp, "mamba2"))
+    out.update(_tp_train(ssm["zamba2-2.7b"], params["zamba2-2.7b"],
+                         meshes[(1, 4)], inputs["train"], tmp, "zamba2"))
+    rows = "mamba2-1.3b/rows"
+    arch, over = inputs["ssm_variants"][rows]
+    out.update(_tp_train(dataclasses.replace(ssm[arch], **over),
+                         params[rows], meshes[(1, 4)], inputs["train"], tmp,
+                         "mamba2_rows"))
+    for arch, cfg in ssm.items():
+        split = build_model(cfg, "cpu", meshes[(1, 4)])
+        refused = []
+        for entry in ("init_cache", "prefill", "decode_step"):
+            try:
+                getattr(split, entry)(None, None, None)
+            except NotImplementedError:
+                refused.append(entry)
+        out[f"{arch}_serve_refused"] = refused
     # (b) yi-9b SMOKE on (2, 2) with ZeRO-1, and (e) its checkpoint
     # restored onto (1, 4).
     yi = get_config("yi-9b", smoke=True)

@@ -24,7 +24,18 @@ tree, whose ``jax.make_mesh`` rejects a one-device mesh).
 * (d) ``optimizer.global_norm`` over a split against the whole norm.
 * (e) the (2, 2) checkpoint restored at one process, bitwise, and onto
   (1, 4), each rank its blocks bitwise.
-* (f) mamba2 and zamba2 refused under ``model > 1``.
+* (f) the recurrent families: mamba2 and zamba2 SMOKE logits on (1, 4)
+  and (2, 2) (each rank holding its ``param_spec`` block of every leaf
+  and scanning its SSM heads: at (1, 4) a replicated ``in_proj`` beside
+  split conv channels, at (2, 2) a split ``in_proj``; in both a rank's
+  heads reading one of two B/C groups; zamba2's shared block split by
+  heads), mamba2 with 6 SSM heads at (1, 4) (every rank scans every head
+  and keeps its ``d_inner`` rows), with a replicated conv and with a
+  ``d_inner`` that does not divide (the block whole after the gathers);
+  the kernel route once each; a ZeRO-1 train step of mamba2 on (2, 2)
+  and of zamba2 on (1, 4); mamba2's gathered checkpoint restored at one process; their
+  cache entry points refused; the rule's picks and a rank's blocks at
+  full width.
 * (g) the source families: whisper SMOKE logits on (1, 4) and (2, 2)
   (heads split; the encoder's bidirectional attention and the decoder's
   self-attention unrotated, cross-attention over the encoder states), and
@@ -70,10 +81,27 @@ from repro_torch.utils import tree  # noqa: E402
 torch.set_num_threads(1)
 PHI, YI, MINI = "phi3.5-moe-42b-a6.6b", "yi-9b", "minicpm-2b"
 WH, VLM = "whisper-small", "llama-3.2-vision-90b"
+MB, ZB = "mamba2-1.3b", "zamba2-2.7b"
 # whisper with 6 heads of 16: over 4 ranks the heads do not divide, so
 # attention splits ``dh`` (whisper-small's own split at 8 ranks and more).
 WH_DH = "whisper-small/dh"
-VARIANTS = {WH_DH: (WH, {"n_heads": 6, "n_kv_heads": 6})}
+# mamba2 with d_model 48: 6 SSM heads of 16 do not divide over 4 ranks
+# (``d_inner`` 96 does, so ``norm_w`` and ``out_proj`` split in rows of
+# 24 across heads); ``in_proj``'s 262 columns stay whole beside a split
+# conv (the SMOKE's 328 columns split at 4 and at 2).
+MB_HEADS = "mamba2-1.3b/heads"
+# mamba2 with one group of state 3: the 134 conv channels stay whole at 4.
+MB_CONV = "mamba2-1.3b/conv"
+# mamba2 with d_model 45, 6 SSM heads of 15, one group of state 3:
+# ``d_inner`` 90 does not divide over 4 ranks, so ``norm_w`` and
+# ``out_proj`` stay whole beside a split ``in_proj`` (192 columns) and a
+# split conv (96 channels).
+MB_ROWS = "mamba2-1.3b/rows"
+SSM_VARIANTS = {MB_HEADS: (MB, {"d_model": 48}),
+                MB_CONV: (MB, {"ssm_state": 3, "ssm_groups": 1}),
+                MB_ROWS: (MB, {"d_model": 45, "ssm_headdim": 15,
+                               "ssm_state": 3, "ssm_groups": 1})}
+VARIANTS = {WH_DH: (WH, {"n_heads": 6, "n_kv_heads": 6}), **SSM_VARIANTS}
 SHAPES = [(1, 4), (2, 2)]
 ADAMW = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 STEPS = 2
@@ -123,7 +151,8 @@ def _inputs():
     wh, vlm = tconfig(WH, smoke=True), tconfig(VLM, smoke=True)
     return {
         "params": {a: pickle.dumps(_ref_params(a))
-                   for a in (PHI, YI, MINI, WH, WH_DH, VLM)},
+                   for a in (PHI, YI, MINI, WH, WH_DH, VLM, MB, ZB,
+                             *SSM_VARIANTS)},
         # The reference test's tokens (PRNGKey(1), 4 x 16).
         "phi_toks": np.asarray(jax.random.randint(
             jax.random.PRNGKey(1), (4, 16), 0, vocab), np.int32),
@@ -141,6 +170,9 @@ def _inputs():
         "vlm_toks": rng.integers(0, vlm.vocab, (4, 16)).astype(np.int32),
         "vlm_vis": rng.standard_normal((4, vlm.n_vis_tokens, vlm.d_model)
                                        ).astype(np.float32),
+        "ssm_toks": rng.integers(0, tconfig(MB, smoke=True).vocab,
+                                 (4, 16)).astype(np.int32),
+        "ssm_variants": SSM_VARIANTS,
     }
 
 
@@ -218,7 +250,7 @@ def _forwards(arch, toks_key, over=(), kernel="xla", part=(0, 1),
     return np.asarray(want, np.float32), port.numpy()
 
 
-@pytest.mark.parametrize("arch", [YI, PHI, MINI, WH, VLM])
+@pytest.mark.parametrize("arch", [YI, PHI, MINI, WH, VLM, MB, ZB])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_init_keeps_the_param_spec_blocks(ranks, arch, shape):
     """Each rank's ``init`` from the one-process seed keeps exactly its
@@ -295,7 +327,7 @@ def _reference(arch):
         cfg, rstep.TrainConfig(adamw=ropt.AdamWConfig(**ADAMW)))
     params = jax.tree_util.tree_map(jnp.asarray, _ref_params(arch))
     state = {"params": params, "opt": ropt.init_state(params)}
-    data = SyntheticLM(tconfig(arch, smoke=True), batch=8, seq=16, seed=0)
+    data = SyntheticLM(_pcfg(arch), batch=8, seq=16, seed=0)
     step = jax.jit(train_step)
     losses = []
     for i in range(STEPS):
@@ -303,8 +335,7 @@ def _reference(arch):
                                 for k, v in data(i).items()})
         losses.append(float(m["loss"]))
     as_np = jax.tree_util.tree_map(np.asarray, state["params"])
-    return losses, tree.leaves(convert.from_jax(
-        as_np, tconfig(arch, smoke=True), "cpu"))
+    return losses, tree.leaves(convert.from_jax(as_np, _pcfg(arch), "cpu"))
 
 
 def _check_train(outs, name, arch):
@@ -479,16 +510,131 @@ def test_split_source_families_refuse_serving(ranks, name):
             "init_cache", "prefill", "decode_step", "fill_source"]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_other_families_refused_under_model_parallel(arch):
-    """(f) the families without a split yet name the roadmap."""
-    cfg = tconfig(arch, smoke=True)
-    mesh = MeshShape(("data", "model"), (1, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild(cfg, "cpu", mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tstep.make_train_step(cfg, _tcfg(), "cpu", mesh)
-    tbuild(cfg, "cpu", MeshShape(("data", "model"), (4, 1)))
+@pytest.mark.parametrize("arch", [MB, ZB])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ssm_forward_matches_the_reference(ranks, arch, shape):
+    """(f) mamba2 and zamba2 SMOKE (8 SSM heads of 16 in 2 groups,
+    ``in_proj`` 328 columns, 192 conv channels), every leaf split: at
+    (1, 4) 82 ``in_proj`` columns (the first two blocks inside z) and 48
+    conv channels, a rank scanning 2 heads of one group; at (2, 2) 164
+    columns (the first block all of z and 36 columns of x) and 96
+    channels, 4 heads of one group a rank.  zamba2's shared block splits
+    its 4 heads of 16."""
+    _check_logits(ranks[1], f"{arch}_{shape}", shape, arch, "ssm_toks")
+
+
+@pytest.mark.parametrize("name", list(SSM_VARIANTS))
+def test_ssm_variants_at_four_ranks(ranks, name):
+    """(f) at (1, 4): mamba2 with 6 SSM heads (every rank scans every
+    head, then keeps its 24 rows of ``d_inner`` for the gated norm and
+    ``out_proj``), mamba2 with a whole conv (every rank convolves every
+    channel), and mamba2 with ``d_inner`` 90 (every rank runs the whole
+    block after the split ``in_proj`` and conv, ``out_proj`` whole)."""
+    _check_logits(ranks[1], name, (1, 4), name, "ssm_toks")
+
+
+@pytest.mark.parametrize("arch, shape", [(MB, (2, 2)), (ZB, (1, 4))])
+def test_ssm_families_on_the_kernel_route(ranks, arch, shape):
+    """(f) the kernel route's wrappers at a rank's shapes (the SSD scan on
+    its heads and their groups, the fused norm, zamba2's flash on its
+    heads; their plain versions on the CPU)."""
+    _check_logits(ranks[1], f"{arch}_kernel_route", shape, arch,
+                  "ssm_toks", kernel="pallas_paged")
+
+
+@pytest.mark.parametrize("arch, name", [(MB, "mamba2"), (ZB, "zamba2"),
+                                        (MB_ROWS, "mamba2_rows")])
+def test_ssm_family_train_step(ranks, arch, name):
+    """(f) two ZeRO-1 steps (mamba2 on (2, 2); zamba2, and mamba2 with
+    ``d_inner`` 90, on (1, 4)) against the reference's one-device steps
+    and the port's one process.  The moments catch a gradient left
+    partial (the norm's statistic, or ``A_log``/``D``/``dt_bias`` read on
+    a rank's heads only) or summed twice (a copy in the whole block after
+    the gathers)."""
+    _check_train(ranks[1], name, arch)
+
+
+def test_mamba2_checkpoint_restores_at_one_process(ranks):
+    """(f) mamba2's (2, 2) checkpoint (split ``in_proj``, conv, ``norm_w``
+    and ``out_proj``; replicated ``A_log``, ``D``, ``dt_bias``), gathered
+    by rank 0, restores at one process bitwise."""
+    outs = ranks[1]
+    restored, step = ckpt.restore(outs[0]["mamba2_ckpt"],
+                                  template=_port_state(MB))
+    assert step == STEPS
+    for (p, a), b in zip(tree.leaves_with_paths(restored),
+                         tree.leaves(outs[0]["mamba2_full"])):
+        assert torch.equal(a.detach(), b), tree.path_str(p)
+
+
+@pytest.mark.parametrize("arch", [MB, ZB])
+def test_split_recurrent_families_refuse_serving(ranks, arch):
+    """(f) the split mamba2 and zamba2 refuse every cache entry point."""
+    for out in ranks[1]:
+        assert out[f"{arch}_serve_refused"] == [
+            "init_cache", "prefill", "decode_step"]
+
+
+class _Ranked(_At):
+    """A mesh seen from one coordinate, with the rank lookups
+    ``ModelParallel`` makes (no process group behind it)."""
+
+    def get_local_rank(self, axis):
+        return self.coord[self.mesh_dim_names.index(axis)]
+
+    def get_group(self, axis):
+        return None
+
+
+@pytest.mark.parametrize("name, smoke, shape, want", [
+    (MB, False, (1, 4), (True, True, True, True)),
+    (ZB, False, (1, 4), (True, True, True, True)),
+    (MB, True, (1, 4), (True, True, True, True)),
+    (MB, True, (2, 2), (True, True, True, True)),
+    (MB, True, (1, 3), (False, True, False, False)),
+    (MB_HEADS, True, (1, 4), (False, True, True, False)),
+    (MB_CONV, True, (1, 4), (False, False, True, True)),
+    (MB_ROWS, True, (1, 4), (True, True, False, False))])
+def test_ssm_picks_from_the_rule(name, smoke, shape, want):
+    """(f) ``ModelParallel``'s picks (``in_proj`` split, conv split,
+    ``d_inner`` split, heads split) for the full-width and SMOKE configs,
+    and for ``d_inner`` 128 over 3 ranks (``in_proj``'s 328 columns and
+    the rows whole, the 192 conv channels split); the B/C groups a rank's
+    heads read (the CONFIGs have one, the SMOKEs two)."""
+    from repro_torch.distributed.tensor_parallel import ModelParallel
+
+    arch, over = VARIANTS.get(name, (name, {}))
+    cfg = dataclasses.replace(tconfig(arch, smoke=smoke), **over)
+    for r in range(shape[1]):
+        tp = ModelParallel(cfg, _Ranked(shape, (0, r)))
+        assert (tp.in_proj_split, tp.conv_split, tp.ssm_rows_split,
+                tp.ssm_heads_split) == want
+        if tp.ssm_heads_split:
+            hl = cfg.ssm_heads // shape[1]
+            per = cfg.ssm_heads // cfg.ssm_groups
+            lo = r * hl // per
+            assert tp.ssm_groups(hl) == slice(lo, lo + max(1, hl // per))
+
+
+@pytest.mark.parametrize("arch, blocks", [
+    (MB, {"in_proj": (2048, 2128), "conv_w": (4, 1088), "conv_b": (1088,),
+          "norm_w": (1024,), "out_proj": (1024, 2048), "A_log": (64,),
+          "tok": (12800, 2048)}),
+    (ZB, {"in_proj": (2560, 2612), "conv_w": (4, 1312), "norm_w": (1280,),
+          "out_proj": (1280, 2560), "A_log": (80,), "wq": (2560, 8, 80),
+          "wk": (2560, 8, 80), "wg": (2560, 2560), "wd": (2560, 2560),
+          "tok": (8192, 2560), "unembed": (2560, 8192)})])
+def test_full_width_blocks(arch, blocks):
+    """(f) a rank's blocks of the full-width model at (1, 4), drawn on the
+    meta device: 2128 or 2612 ``in_proj`` columns, 1088 or 1312 conv
+    channels, 16 or 20 SSM heads' rows of ``d_inner``, zamba2's shared
+    block 8 of 32 heads and a quarter of ``d_ff``."""
+    cfg = tconfig(arch)
+    params = tbuild(cfg, "meta", _Ranked((1, 4), (0, 3))).init(None)
+    got = {tree.path_str(p).split("/")[-1]: tuple(x.shape)
+           for p, x in tree.leaves_with_paths(params)}
+    for leaf, shape in blocks.items():
+        assert got[leaf] == shape, (leaf, got[leaf], shape)
 
 
 def test_state_shardings_refuse_a_ranks_blocks():
