@@ -292,6 +292,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    moments within 1e-3 of each leaf's largest, whisper's gathered
    checkpoint restored at one rank bitwise; step and collective ms,
    staged bytes, peak memory;
+30. ``split_serve`` (phi3.5-moe-42b-a6.6b, in ``tp_forward``'s spawn, at
+   its arms' depths: fp32 2 layers gated, bf16 8 reported) and
+   ``split_serve_yi`` (yi-9b, in ``train_tp``'s spawn, fp32 2 layers
+   gated): the split cache over 4 ranks (``init_cache``/``prefill``/
+   ``decode_step`` of a model built over a (1, 4) mesh: each rank a
+   quarter of the sequence of every KV head, the partials merged by a
+   log-sum-exp all-reduce over ``model``), a 2 x 256 prompt (crossing two
+   ranks' blocks of a 512-position cache) and 4 greedy decode steps on the
+   ``xla`` and ``pallas_gather`` routes, against rank 0's one-process
+   prefill and decode steps on the same weights and route: fp32 within
+   2e-3 of the largest |logit| at every step with greedy tokens equal,
+   bf16 reported; on ``pallas_gather`` the dense decode kernel's launches
+   (one a layer a decode step a rank, the rank's block), counted into the
+   kernels line;
+31. ``dryrun``: ``python -m repro_torch.launch.dryrun`` for olmoe-1b-7b x
+   decode_32k over the 16 x 16 mesh and minicpm-2b x train_4k over the
+   2 x 16 x 16 mesh (256 and 512 ranks of a fake process group on meta
+   tensors, in subprocesses started with the script and read at its end;
+   no card), each record's roofline and memory; ``dryrun_account``: the
+   dry run's counting function over ``train_minicpm``'s step (minicpm-2b
+   at full depth, 4 x 2048, bf16, one rank) once on meta tensors and once
+   on the card's model and state: FLOPs equal, the argument bytes equal
+   the state and batch the card holds, the predicted peak (argument +
+   temp) within 10 % of the card's ``max_memory_allocated`` over that
+   step, and the roofline's max(t_compute, t_memory) at most 1.05 x the
+   measured step; its ``roofline_fraction`` measured;
 and in phase 2's flash rows the verify shape (16 slots, q_len 5 at the
 cursor over ragged 512-2048 keys, paged) beside SDPA with an explicit mask
 and the bound.  Every phase line carries ``at_s``, the seconds since the
@@ -3551,6 +3577,8 @@ def phase_train_minicpm(gpu: str, seed: int, cfg, batch: int = 4,
     step_ms = statistics.median(r["ms"] for r in rows[1:])
     trace = (_trace_train_step(train_step, state, data(steps % 2), step_ms)
              if DEV == "cuda" else None)
+    account = _dryrun_account(gpu, cfg, tcfg, train_step, state,
+                              data(steps % 2), step_ms)
     losses = [r["loss"] for r in rows]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train_minicpm: non-finite loss {losses}")
@@ -3587,6 +3615,174 @@ def phase_train_minicpm(gpu: str, seed: int, cfg, batch: int = 4,
            "step1_memory": mem1, "grads_reached": reached,
            "remat_pick": pick, "trace": trace,
            "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    emit(account)
+    return out
+
+
+DRYRUN_PEAK_TOL = 0.10      # predicted peak within this of the card's
+DRYRUN_BOUND_SLACK = 1.05   # the roofline bound at most this x measured
+
+
+def _dryrun_account(gpu: str, cfg, tcfg, train_step, state, batch,
+                    step_ms: float) -> dict:
+    """The dry run's account (``launch.dryrun.count_step``) of one train
+    step held against the card: the same step built on meta tensors (the
+    model, state and batch of ``train_minicpm``, nothing allocated) and
+    the card's own model and state, each counted once.  Gates: FLOPs
+    equal; the meta argument bytes equal the state and batch the card
+    holds; the predicted peak (argument + temp) within DRYRUN_PEAK_TOL of
+    ``max_memory_allocated`` over the counted step on the card (after
+    ``reset_peak_memory_stats``); the roofline's max(t_compute, t_memory)
+    against the H100 at most DRYRUN_BOUND_SLACK x the phase's median
+    ``step_ms`` (no card beats its roofline: a miss means the count is
+    wrong)."""
+    from repro_torch import hw
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.train.step import (batch_to_device, init_train_state,
+                                        make_train_step)
+    from repro_torch.utils import tree
+
+    t0 = time.perf_counter()
+    b, s = batch["tokens"].shape
+    shape = ShapeConfig("train_minicpm", s, b, "train")
+    meta_step, meta_model = make_train_step(cfg, tcfg, "meta")
+    meta_state = init_train_state(meta_model, None)
+    meta_batch = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+                  for k, v in batch.items()}
+    meta = dryrun.count_step(lambda: meta_step(meta_state, meta_batch),
+                             tree.leaves(meta_state)
+                             + list(meta_batch.values()))
+    del meta_state, meta_step, meta_model
+    card_batch = batch_to_device(batch, DEV)
+    held = tree.leaves(state) + list(card_batch.values())
+    _mem_reset()
+    before = _mem()["allocated"]
+    card = dryrun.count_step(lambda: train_step(state, card_batch), held)
+    peak = _mem()["max_allocated"]
+    terms = roofline.roofline_terms(cfg, shape, MeshShape(("data", "model"),
+                                                          (1, 1)),
+                                    meta["cost"], meta["colls"], meta["mem"],
+                                    chip=hw.H100)
+    bound_s = max(terms["t_compute_s"], terms["t_memory_s"])
+    predicted = (meta["mem"]["argument_size_in_bytes"]
+                 + meta["mem"]["temp_size_in_bytes"])
+    held_bytes = dryrun.unique_bytes(held)
+    mf = roofline.model_flops(cfg, shape)
+    out = {"phase": "dryrun_account", "gpu": gpu, "arch": cfg.arch,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": [b, s],
+           "mesh": [1, 1], "remat": tcfg.remat.value,
+           "flops": {"meta": meta["cost"]["flops"],
+                     "card": card["cost"]["flops"]},
+           "bytes_accessed": {"meta": meta["cost"]["bytes accessed"],
+                              "card": card["cost"]["bytes accessed"]},
+           "argument_size_in_bytes": {
+               "meta": meta["mem"]["argument_size_in_bytes"],
+               "card_held": held_bytes},
+           "temp_size_in_bytes": {"meta": meta["mem"]["temp_size_in_bytes"],
+                                  "card": card["mem"]["temp_size_in_bytes"]},
+           "predicted_peak_bytes": predicted,
+           "max_memory_allocated": peak,
+           "allocated_before_step": before,
+           "peak_rel_err": (predicted - peak) / peak if peak else None,
+           "roofline": terms, "bound_ms": bound_s * 1e3,
+           "step_ms": step_ms,
+           "counted_step_ms": card["seconds"] * 1e3,
+           "bound_over_step": bound_s * 1e3 / step_ms,
+           "roofline_fraction": (mf / hw.H100.peak_flops_bf16)
+           / (step_ms / 1e3),
+           "meta_count_s": meta["seconds"],
+           "tol": {"flops": "equal", "argument": "equal",
+                   "peak": DRYRUN_PEAK_TOL, "bound": DRYRUN_BOUND_SLACK},
+           "phase_s": time.perf_counter() - t0}
+    if meta["cost"]["flops"] != card["cost"]["flops"]:
+        raise AssertionError(f"dryrun_account: FLOPs on meta "
+                             f"{meta['cost']['flops']} != on the card "
+                             f"{card['cost']['flops']}")
+    if meta["mem"]["argument_size_in_bytes"] != held_bytes:
+        raise AssertionError(f"dryrun_account: argument bytes "
+                             f"{meta['mem']['argument_size_in_bytes']} != "
+                             f"the {held_bytes} the card holds")
+    if DEV == "cuda" and not abs(predicted - peak) <= DRYRUN_PEAK_TOL * peak:
+        raise AssertionError(f"dryrun_account: predicted peak {predicted} "
+                             f"is not within {DRYRUN_PEAK_TOL} of the "
+                             f"card's {peak}")
+    if DEV == "cuda" and not bound_s * 1e3 <= DRYRUN_BOUND_SLACK * step_ms:
+        raise AssertionError(f"dryrun_account: the roofline bound "
+                             f"{bound_s * 1e3:.1f} ms exceeds "
+                             f"{DRYRUN_BOUND_SLACK} x the measured "
+                             f"{step_ms:.1f} ms step")
+    return out
+
+
+# The production dry-run cells run in subprocesses beside the card phases
+# (a fake process group is process-wide; they use no card).
+DRYRUN_CELLS = (("olmoe-1b-7b", "decode_32k", "single"),
+                ("minicpm-2b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 900
+
+
+def start_dryrun(out_dir: str) -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    DRYRUN_CELLS (one thread each); -> [(cell, process, start time)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    for old in pathlib.Path(out_dir).glob("*.json"):
+        old.unlink()            # a multi-pod cell reads a single-pod record
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.log"),
+                   "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--mesh", mesh,
+               "--out", out_dir]
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+            time.perf_counter(), log))
+    return procs
+
+
+def phase_dryrun(gpu: str, out_dir: str, procs) -> dict:
+    """Wait for the dry-run subprocesses (killed past DRYRUN_TIMEOUT_S
+    from their start) and print each record's roofline and memory."""
+    cells = []
+    for (arch, shape, mesh), proc, t0, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        read_after = time.perf_counter() - t0
+        path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+        if rc != 0 or not os.path.exists(path):
+            with open(log.name) as f:
+                tail = f.read()[-2000:]
+            raise AssertionError(f"dryrun {arch} x {shape} x {mesh}: rc "
+                                 f"{rc}\n{tail}")
+        with open(path) as f:
+            rec = json.load(f)
+        cells.append({"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                      "n_chips": rec["n_chips"], "knobs": rec["knobs"],
+                      "roofline": rec["roofline"],
+                      "memory_analysis": rec["memory_analysis"],
+                      "argument_parts": rec["argument_parts"],
+                      "cost_analysis": rec["cost_analysis"],
+                      "collectives": rec["counted"]["coll_count"],
+                      "step_seconds": rec["step_seconds"],
+                      "build_seconds": rec["build_seconds"],
+                      "read_after_s": read_after})
+    out = {"phase": "dryrun", "gpu": gpu, "cells": cells,
+           "note": "meta tensors over a fake process group on the host "
+                   "(no card); FLOPs: FlopCounterMode's matmul-class ops; "
+                   "bytes: eager's unfused input + output bytes of every "
+                   "op that writes; roofline against the H100; "
+                   "read_after_s: from the subprocess's start to this "
+                   "phase's read (it ran beside the card phases)"}
     emit(out)
     return out
 
@@ -4601,14 +4797,179 @@ def _tp_launches() -> dict:
                            gk.grouped_matmul.body_launches.items() if v}}
 
 
+SERVE_PROMPT = (2, 256)      # the split serve arms' prompt (rows, tokens)
+SERVE_STEPS = 4              # greedy decode steps after the prefill
+SERVE_MAX_LEN = 512          # 128 positions a rank: the prompt spans two
+SERVE_ROUTES = ("xla", "pallas_gather")
+
+
+def _serve_steps(model, params, toks, sync) -> tuple[list, dict]:
+    """Prefill ``toks`` into a fresh cache, then SERVE_STEPS greedy decode
+    steps, each fed its own argmax -> (each step's logits, ms)."""
+    ms = []
+    with torch.no_grad():
+        cache = model.init_cache(params, batch=toks.shape[0],
+                                 max_len=SERVE_MAX_LEN)
+        logits = []
+        nxt = toks
+        for i in range(1 + SERVE_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            step = model.prefill if i == 0 else model.decode_step
+            out, cache = step(params, cache, nxt)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(out)
+            nxt = out.argmax(-1).to(torch.int32)
+    return logits, {"prefill_ms": ms[0], "decode_ms": ms[1:]}
+
+
+def _serve_want(cfg, route: str) -> dict:
+    """A rank's launches over the split prefill and SERVE_STEPS decode
+    steps: none on "xla"; on "pallas_gather" the dense decode kernel once
+    a layer a decode step (the rank's block), the norm once a norm a call,
+    three grouped GEMMs an MoE layer a call, no flash (the prefill's
+    partials are plain) and no plain call."""
+    if route == "xla":
+        return {k: 0 for k in counts()}
+    L, calls = cfg.n_layers, 1 + SERVE_STEPS
+    return {**{k: 0 for k in counts()},
+            "decode_dense": L * SERVE_STEPS,
+            "fused_norm": (2 * L + 1) * calls,
+            "grouped_matmul": (3 * L if cfg.n_experts else 0) * calls}
+
+
+def _split_serve_rank(rank: int, mesh, cfg, device: str, seed: int,
+                      sync) -> dict:
+    """One rank of a split serve arm: the model built over ``mesh`` on
+    each of SERVE_ROUTES (the same blocks of the weights, drawn from the
+    seed), its prefill and decode steps with the counters and
+    ``collectives.STAGED`` zeroed just before and read just after; rank 0
+    then runs the one-process model on the same weights and route and
+    compares each step's logits."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.models import build_model
+
+    base = dataclasses.replace(cfg, cache_layout="contiguous")
+    seeded = lambda: torch.Generator(device=device).manual_seed(seed + 103)
+    params = build_model(base, device, mesh).init(seeded())
+    toks = _tp_tokens(seed + 7, cfg.vocab, SERVE_PROMPT, device)
+    out, split = {}, {}
+    for route in SERVE_ROUTES:
+        model = build_model(dataclasses.replace(base, decode_kernel=route),
+                            device, mesh)
+        dist.barrier()
+        reset_counts()
+        collectives.STAGED.update(collectives=0, bytes=0)
+        logits, ms = _serve_steps(model, params, toks, sync)
+        launches = counts()
+        want = _serve_want(cfg, route)
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"split serve {cfg.arch} {route}: rank "
+                                 f"{rank} launches {launches} != {want}")
+        out[route] = {**ms, "launches": launches,
+                      "staged_collectives": collectives.STAGED["collectives"],
+                      "staged_bytes": collectives.STAGED["bytes"],
+                      "logits_checksum": [_checksum(t) for t in logits]}
+        split[route] = [t.float() for t in logits]
+    del params
+    gc.collect()
+    if rank == 0:
+        one = build_model(base, device).init(seeded())
+        for route in SERVE_ROUTES:
+            model = build_model(dataclasses.replace(base,
+                                                    decode_kernel=route),
+                                device)
+            logits, ms = _serve_steps(model, one, toks, sync)
+            steps = []
+            for a, b in zip(split[route], logits):
+                b = b.float()
+                gap = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                steps.append({"max_abs_err": gap, "max_abs_logit": scale,
+                              "rel_err": gap / scale,
+                              "tokens_equal": bool(torch.equal(
+                                  a.argmax(-1), b.argmax(-1))),
+                              "finite": bool(torch.isfinite(a).all())})
+            out[route].update(one_process=ms, steps=steps)
+        del one
+    del split
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _serve_line(gpu: str, phase: str, arms, res, spawn: str) -> dict:
+    """The split serve arms' line from every rank's results: the fp32
+    ones gated (TP_LOGIT_TOL of the largest |logit| at every step,
+    greedy tokens equal), the bf16 ones reported; the ranks' logits
+    equal (checksums of their bits)."""
+    out = {"phase": phase, "gpu": gpu, "ranks": TP_RANKS,
+           "mesh": [1, TP_RANKS], "backend": "gloo", "spawn": spawn,
+           "prompt": list(SERVE_PROMPT), "decode_steps": SERVE_STEPS,
+           "max_len": SERVE_MAX_LEN,
+           "positions_a_rank": SERVE_MAX_LEN // TP_RANKS, "arms": []}
+    decode_dense = 0
+    for name, cfg in arms:
+        rows = [r[name] for r in res]
+        arm = {"arch": cfg.arch, "family": cfg.family,
+               "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+               "gated": cfg.dtype == "float32",
+               "tol": (f"{TP_LOGIT_TOL} of the largest |logit| at every "
+                       f"step, greedy tokens equal"
+                       if cfg.dtype == "float32" else None),
+               "routes": {}}
+        for route in SERVE_ROUTES:
+            if any(r[route]["logits_checksum"]
+                   != rows[0][route]["logits_checksum"] for r in rows):
+                raise AssertionError(f"{phase} {name} {route}: the ranks' "
+                                     f"logits differ")
+            steps = rows[0][route]["steps"]
+            if not all(st["finite"] for st in steps):
+                raise AssertionError(f"{phase} {name} {route}: non-finite "
+                                     f"logits")
+            if arm["gated"] and not all(
+                    st["rel_err"] <= TP_LOGIT_TOL and st["tokens_equal"]
+                    for st in steps):
+                raise AssertionError(f"{phase} {name} {route}: the split "
+                                     f"steps {steps} are not within "
+                                     f"{TP_LOGIT_TOL} of the one process "
+                                     f"with equal greedy tokens")
+            decode_dense += sum(r[route]["launches"]["decode_dense"]
+                                for r in rows)
+            arm["routes"][route] = {
+                "steps": steps,
+                "max_rel_err": max(st["rel_err"] for st in steps),
+                "prefill_ms": [r[route]["prefill_ms"] for r in rows],
+                "decode_ms": [r[route]["decode_ms"] for r in rows],
+                "one_process": rows[0][route]["one_process"],
+                "staged_collectives": [r[route]["staged_collectives"]
+                                       for r in rows],
+                "staged_bytes": [r[route]["staged_bytes"] for r in rows],
+                "launches": [r[route]["launches"] for r in rows],
+                "expected": _serve_want(cfg, route)}
+        out["arms"].append(arm)
+    out["decode_dense_launches"] = decode_dense
+    out["timing"] = ("host clock around each synchronised call, the "
+                     "collectives staged through the host (gloo); "
+                     "one_process: rank 0's one-process calls")
+    emit(out)
+    return out
+
+
 def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
-                 arms) -> None:
+                 arms, serve=()) -> None:
     """One rank of tp_forward (a spawned process): for each arm ``(name,
     cfg, shape)``, the model built over a (1, ``world``) mesh draws this
     rank's blocks, runs one warm forward, then a counted and timed one
     with the collectives clocked (every kernel counter,
     ``collectives.STAGED`` and the clock zeroed just before it, read just
-    after).  Rank 0 keeps the gathered logits for the parent."""
+    after).  Rank 0 keeps the gathered logits for the parent.  Then each
+    split serve arm ``(name, cfg)`` (:func:`_split_serve_rank`)."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives, tensor_parallel
@@ -4662,6 +5023,9 @@ def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
             if device == "cuda":
                 torch.cuda.empty_cache()
             dist.barrier()
+        for name, cfg in serve:
+            res[name] = _split_serve_rank(rank, mesh, cfg, device, seed,
+                                          sync)
         torch.save(res, f"{tmp}/tpf_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -4835,7 +5199,7 @@ def _tp_ssd_row(cfg, gen, dtype, b, l, world: int, sk) -> dict:
     return row
 
 
-def phase_tp_forward(gpu: str, seed: int, models) -> dict:
+def phase_tp_forward(gpu: str, seed: int, models, serve=()) -> dict:
     """Tensor and expert parallel forwards (``build_model(cfg, device,
     mesh)`` over a (1, 4) mesh) on the kernel route, every model's arms in
     one spawn of 4 ranks that share the card over gloo, each rank holding
@@ -4884,7 +5248,7 @@ def phase_tp_forward(gpu: str, seed: int, models) -> dict:
             torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _spawn(_tp_fwd_rank, TP_RANKS, tmp, seed, DEV, arms)
+        _spawn(_tp_fwd_rank, TP_RANKS, tmp, seed, DEV, arms, serve)
         ranks_s = time.perf_counter() - t0
         res = [torch.load(f"{tmp}/tpf_rank{r}.pt", weights_only=False)
                for r in range(TP_RANKS)]
@@ -4965,11 +5329,13 @@ def phase_tp_forward(gpu: str, seed: int, models) -> dict:
     for out in lines:
         out["phase_s"] = phase_s
         emit(out)
-    return {"lines": lines, "total_launches": launches}
+    served = (_serve_line(gpu, "split_serve", serve, res, "tp_forward")
+              if serve else None)
+    return {"lines": lines, "total_launches": launches, "serve": served}
 
 
 def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
-                   arms, steps: int) -> None:
+                   arms, steps: int, serve=()) -> None:
     """One rank of train_tp (a spawned process), for each arm (a dict:
     ``phase``, ``cfg``, ``shape``, ``ckpt``, ``witness``): ``steps``
     ZeRO-1 steps over a (1, ``world``) mesh with the collectives clocked,
@@ -4980,7 +5346,8 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
     ``ckpt``, restores the checkpoint in a one-rank layout (bitwise the
     gathered state).  With ``witness`` the parameters and first moments
     are also gathered after the first step, and rank 0 takes two more
-    one-process runs (:func:`_tp_witness`)."""
+    one-process runs (:func:`_tp_witness`).  Then each split serve arm
+    ``(name, cfg)`` (:func:`_split_serve_rank`)."""
     import torch.distributed as dist
 
     from repro_torch.core.remat import RematPolicy
@@ -5127,6 +5494,9 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                 if device == "cuda":
                     torch.cuda.empty_cache()
             dist.barrier()
+        for name, cfg in serve:
+            out[name] = _split_serve_rank(rank, mesh, cfg, device, seed,
+                                          sync)
         torch.save(out, f"{tmp}/tpt_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -5247,7 +5617,8 @@ def _tp_witness(paths, split_first, split_mu, one_first, one_mu, split_rows,
     return out
 
 
-def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
+def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
+                   serve=()) -> dict:
     """Tensor-parallel ZeRO-1 training (``train.step`` over a (1, 4) mesh,
     the plain route as the trainer always is), every arm in one spawn of 4
     ranks that share the card over gloo, each rank holding its block of
@@ -5263,13 +5634,14 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
     first step and after a second step from the split's own state
     (:func:`_tp_witness`), and the moments after the last step are
     reported beside two one-process-against-one-process gaps.  One line
-    an arm."""
+    an arm.  Then the split serve arms' line (``serve``, in the same
+    spawn: :func:`_split_serve_rank`)."""
     import tempfile
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        _spawn(_tp_train_rank, TP_RANKS, tmp, seed, DEV, arms, steps)
+        _spawn(_tp_train_rank, TP_RANKS, tmp, seed, DEV, arms, steps, serve)
         ranks_s = time.perf_counter() - t0
         res = [torch.load(f"{tmp}/tpt_rank{r}.pt", weights_only=False)
                for r in range(TP_RANKS)]
@@ -5362,7 +5734,9 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2) -> list:
     for out in lines:
         out["phase_s"] = phase_s
         emit(out)
-    return lines
+    served = (_serve_line(gpu, "split_serve_yi", serve, res, "train_tp")
+              if serve else None)
+    return {"lines": lines, "serve": served}
 
 
 PTXAS_REPORT = ("decode_attention", "flash_attention", "matmul", "ssd",
@@ -5452,18 +5826,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from repro_torch.configs import (
-        granite_20b,
-        llama32_vision_90b,
-        mamba2_13b,
-        minicpm_2b,
-        olmoe_1b_7b,
-        phi35_moe,
-        whisper_small,
-        yi_9b,
-        zamba2_27b,
-    )
-
     from repro_torch import hw
 
     gpu = card_line()
@@ -5481,6 +5843,33 @@ def main() -> int:
                          "peak_flops_bf16": hw.H100.peak_flops_bf16,
                          "peak_flops_fp32": hw.H100.peak_flops_fp32},
           "build_s": build_s, "ptxas": ptxas})
+    # The production dry-run cells run on the host beside the card phases.
+    dry_dir = ROOT / "build" / "dryrun"
+    dry_dir.mkdir(parents=True, exist_ok=True)
+    dry = start_dryrun(str(dry_dir))
+    try:
+        return _main_phases(args, gpu, dry, str(dry_dir))
+    finally:
+        for _, proc, _, log in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
+    from repro_torch.configs import (
+        granite_20b,
+        llama32_vision_90b,
+        mamba2_13b,
+        minicpm_2b,
+        olmoe_1b_7b,
+        phi35_moe,
+        whisper_small,
+        yi_9b,
+        zamba2_27b,
+    )
+
     kern = phase_kernels(gpu, args.seed)
     flash = phase_flash(gpu, args.seed)
     norm = phase_norm(gpu, args.seed)
@@ -5715,11 +6104,20 @@ def main() -> int:
          "cut": {"gate": ssm_cut.format(L=54, g=" (two groups of 6 "
                                               "Mamba-2 layers and the "
                                               "shared block)"),
-                 "measured": None}}])
+                 "measured": None}}],
+        # The split cache at the depths the phi arms run.
+        serve=[("split_serve.gate",
+                dataclasses.replace(phi35_moe.CONFIG, n_layers=2,
+                                    dtype="float32")),
+               ("split_serve.measured",
+                dataclasses.replace(phi35_moe.CONFIG, n_layers=8))])
     served["tp_forward"] = {"launches": {
         **{k: 0 for k in counts()}, **tpf["total_launches"]}}
+    served["split_serve"] = {"launches": {
+        **{k: 0 for k in counts()},
+        "decode_dense": tpf["serve"]["decode_dense_launches"]}}
     torch.cuda.empty_cache()
-    phase_train_tp(gpu, args.seed, [
+    ttp = phase_train_tp(gpu, args.seed, [
         {"phase": "train_tp", "shape": (4, 512), "ckpt": False,
          "cfg": dataclasses.replace(yi_9b.CONFIG, n_layers=2,
                                     dtype="float32"),
@@ -5738,8 +6136,15 @@ def main() -> int:
          "cut": "n_layers 54 -> 6 (one group of 6 Mamba-2 layers and the "
                 "shared block): the run's 1200 s limit; only the first "
                 "moments gathered, no checkpoint (the CPU tests restore "
-                "mamba2's)"}])
+                "mamba2's)"}],
+        serve=[("split_serve_yi.gate",
+                dataclasses.replace(yi_9b.CONFIG, n_layers=2,
+                                    dtype="float32"))])
+    served["split_serve_yi"] = {"launches": {
+        **{k: 0 for k in counts()},
+        "decode_dense": ttp["serve"]["decode_dense_launches"]}}
     torch.cuda.empty_cache()
+    phase_dryrun(gpu, dry_dir, dry)
 
     def launched(*keys, runs=("launches",)):
         """(total, by path) of the main paths' launches of ``keys``, over

@@ -19,8 +19,17 @@ ranks that share a card run over gloo.  Under gloo every collective here
 copies a CUDA tensor to the host, runs there and copies the result back,
 explicitly; the arithmetic stays on the card.  ``STAGED`` counts such
 collectives and the bytes they moved each way.
+
+**The record.**  Every collective the port issues goes through
+:func:`all_reduce` or :func:`all_gather` (``tensor_parallel``,
+``sp_decode``, the trainer and the optimizer call nothing else).  While a
+:func:`recording` context is open each call appends ``(kind, result
+bytes, group size)`` to it: the dry run's collective account
+(``launch.roofline.collective_record``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -28,6 +37,26 @@ import torch.distributed as dist
 from repro_torch.core.rinse import bucket_flush_schedule
 
 STAGED = {"collectives": 0, "bytes": 0}
+# The open recording's list, None when none is open.
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Yield a list that collects ``(kind, result_bytes, group_size)`` of
+    every collective issued inside the context (``kind`` as the
+    reference's HLO names it: ``"all-reduce"``, ``"all-gather"``)."""
+    global _RECORD
+    outer, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = outer
+
+
+def _note(kind: str, result_bytes: int, group) -> None:
+    if _RECORD is not None:
+        _RECORD.append((kind, result_bytes, dist.get_world_size(group)))
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -42,6 +71,7 @@ def _count(t: torch.Tensor) -> None:
 def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM,
                group=None) -> torch.Tensor:
     """``t`` reduced over ``group``, in place; returns ``t``."""
+    _note("all-reduce", t.numel() * t.element_size(), group)
     if _staged(t, group):
         _count(t)
         host = t.cpu()
@@ -55,6 +85,7 @@ def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM,
 def all_gather(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     """Every rank's ``t`` (equal shapes), in rank order of ``group``."""
     n = dist.get_world_size(group)
+    _note("all-gather", n * t.numel() * t.element_size(), group)
     if _staged(t, group):
         _count(t)
         host = t.detach().cpu().contiguous()

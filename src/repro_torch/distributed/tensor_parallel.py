@@ -47,6 +47,9 @@ after the gathers runs whole on every rank (every head, the whole norm,
 ``out_proj`` with no reduce): that code is replicated, so nothing in it
 is copied, and only the split conv's input enters through a *copy*.
 
+A split model's self-attention cache (dense and MoE) holds this rank's
+block of the sequence: see ``models.common._attn_split_cached``.
+
 Every collective goes through ``distributed.collectives``: under gloo a
 CUDA tensor is copied to the host and back, explicitly, and counted in
 ``collectives.STAGED``.  bf16 tensors go to gloo as bf16 (its all-reduce
@@ -188,6 +191,18 @@ class ModelParallel:
                                                        group=self.group), t)
 
     # -- placement ---------------------------------------------------------
+
+    def cache_block(self, batch: int, max_len: int) -> tuple[int, ...]:
+        """This rank's block ``(L, b, S, hkv, dh)`` of a self-attention
+        cache leaf of the one-process shape ``(L, batch, max_len, hkv,
+        dh)`` under ``sharding.cache_spec`` (the batch over the batch
+        axes, the sequence over ``model``), through
+        ``sharding.local_shape``; the sink position is not in it."""
+        cfg = self.cfg
+        full = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        spec = sh.cache_spec(cfg, self.mesh, batch)(
+            "layers/k", torch.empty(full, device="meta"))
+        return sh.local_shape(full, sh.Sharding(self.mesh, spec))
 
     def place(self, path: tuple, lead: tuple = ()):
         """``place(key, full) -> this rank's block`` for the leaves under

@@ -1,2 +1,3 @@
-"""Launch helpers: meshes (``mesh``).  The dry run, roofline and report of
-the reference's ``launch/`` are not ported yet."""
+"""Launch: meshes (``mesh``), meta-tensor input specs (``specs``), the
+multi-pod dry run (``dryrun``), its roofline terms (``roofline``) and
+tables (``report``)."""

@@ -3,7 +3,8 @@
 
 * :func:`make_local_mesh` spans the ranks of the initialised
   ``torch.distributed`` process group: a ``DeviceMesh`` whose axis groups
-  the collectives run over.
+  the collectives run over (the dry run's 256 or 512 ranks are a
+  ``"fake"`` group in one process, ``launch.dryrun``).
 * :func:`make_production_mesh` is shape only: axis names and sizes, no
   ranks, so the rules can be evaluated for 256 or 512 chips in one
   process.
@@ -13,6 +14,7 @@ The rules read a mesh through :func:`axis_sizes`, which takes either.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,12 +36,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_local_mesh(data: int = 1, model: int = 1):
+def make_local_mesh(data: int = 1, model: int = 1, pod: int | None = None):
     """A ``(data, model)`` DeviceMesh over the ranks of the default process
-    group (``data * model`` must equal the world size).  The port reads
-    only its axis groups and coordinates, never DTensor placement, so the
-    mesh's own device type is ``"cpu"`` whatever device the tensors are
-    on (``distributed.collectives`` stages a CUDA tensor through the host
+    group, or with ``pod`` a ``(pod, data, model)`` one (the product must
+    equal the world size).  The port reads only its axis groups and
+    coordinates, never DTensor placement, so the mesh's own device type is
+    ``"cpu"`` whatever device the tensors are on
+    (``distributed.collectives`` stages a CUDA tensor through the host
     under gloo)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -47,12 +50,13 @@ def make_local_mesh(data: int = 1, model: int = 1):
     if not dist.is_initialized():
         raise RuntimeError("make_local_mesh: torch.distributed is not "
                            "initialised")
+    shape = (data, model) if pod is None else (pod, data, model)
+    names = ("data", "model") if pod is None else ("pod", "data", "model")
     world = dist.get_world_size()
-    if data * model != world:
-        raise ValueError(f"make_local_mesh: {data} x {model} != world size "
-                         f"{world}")
-    return init_device_mesh("cpu", (data, model),
-                            mesh_dim_names=("data", "model"))
+    if math.prod(shape) != world:
+        raise ValueError(f"make_local_mesh: {' x '.join(map(str, shape))} "
+                         f"!= world size {world}")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
 def axis_sizes(mesh) -> dict[str, int]:

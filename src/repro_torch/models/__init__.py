@@ -1,3 +1,8 @@
 """Model definitions in PyTorch: the dense decoder, Mamba-2 and the Zamba2
 hybrid."""
-from repro_torch.models.registry import ARCHS, build_model, get_config  # noqa: F401
+from repro_torch.models.registry import (  # noqa: F401
+    ARCHS,
+    build_model,
+    get_config,
+    runnable_cells,
+)

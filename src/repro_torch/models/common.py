@@ -90,10 +90,14 @@ def placer(tp, path: tuple, lead: tuple = ()):
 
 
 def single_rank(*args, **kwargs):
-    """The cache entry points of a model split over ``model``."""
+    """The cache entry points of a model split over ``model`` whose family
+    has no split cache path yet (every family but dense and MoE)."""
     raise NotImplementedError(
-        "serving runs on one rank (ServeEngine takes no mesh): build the "
-        "model without a mesh whose 'model' axis is larger than 1")
+        "this family's cache entry points run on one rank: the split cache "
+        "path for mamba2/zamba2, whisper and the VLM is ROADMAP queue 1 "
+        "item 2; build the model without a mesh whose 'model' axis is "
+        "larger than 1")
+
 
 def norm_init(cfg: ModelConfig, device) -> Params:
     p = {"w": torch.ones(cfg.d_model, device=device)}
@@ -322,17 +326,22 @@ def last_valid_slice(x: torch.Tensor, seg_lens: torch.Tensor | None
 
 
 def append_kv(cache_kv: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
-              seg_lens: torch.Tensor | None) -> None:
+              seg_lens: torch.Tensor | None, start: int = 0) -> None:
     """Scatter a (b, s, ...) block into a (b, S + 1, ...) ring, in place.
 
     Row i of slot b lands at position lengths[b] + i.  Invalid rows
     (i >= seg_lens[b]) and overflow (pos >= S) go to the sink position S
-    (see the module docstring), never into the public [:, :S] view."""
+    (see the module docstring), never into the public [:, :S] view.  A
+    ring that holds the sequence block ``[start, start + S)`` (a rank of
+    the split cache) takes the rows whose positions fall inside it; the
+    others go to its sink."""
     b, s = new.shape[:2]
     S = cache_kv.shape[1] - 1
     dev = cache_kv.device
     pos = lengths.long()[:, None] + torch.arange(s, device=dev)[None, :]
-    drop = pos >= S
+    if start:
+        pos = pos - start
+    drop = (pos >= S) | (pos < 0) if start else pos >= S
     valid = seg_mask(s, seg_lens)
     if valid is not None:
         drop = drop | ~valid
@@ -516,12 +525,19 @@ def apply_attn(
       ``causal`` is False (the encoder).
 
     RoPE applies to self-attention only (``use_rope`` and no ``kv_src``);
-    cross-attention is never causal.  ``tp`` (a ``ModelParallel``, no
-    cache): this rank's block of the weights, see :func:`_attn_split`."""
+    cross-attention is never causal.  ``tp`` (a ``ModelParallel``): this
+    rank's block of the weights, see :func:`_attn_split`, and with a self
+    cache this rank's sequence block of it, see
+    :func:`_attn_split_cached`."""
     if tp is not None:
         if cache is not None:
-            raise NotImplementedError("tensor-parallel attention takes no "
-                                      "cache (serving runs on one rank)")
+            if "lengths" not in cache or kv_src is not None:
+                raise NotImplementedError(
+                    "tensor-parallel attention over a cache takes a self "
+                    "cache only (the cross caches' split path is ROADMAP "
+                    "queue 1 item 2)")
+            return _attn_split_cached(p, x, cfg, positions, cache, seg_lens,
+                                      tp)
         return _attn_split(p, x, cfg, positions, seg_lens, tp, kv_src,
                            causal, use_rope)
     b, s, d = x.shape
@@ -637,6 +653,118 @@ def _attn_split(p: Params, x, cfg: ModelConfig, positions, seg_lens, tp,
         out = tp.copy(out).narrow(-1, tp.rank * dl, dl)
     hl, dl = wo.shape[:2]
     return tp.reduce(out.reshape(b, s, hl * dl) @ wo.reshape(hl * dl, d))
+
+
+def _sdpa_partials(q, k, v, q_offset, kv_len):
+    """Causal attention of q (b, s, hq, dh) over one block of keys k/v
+    (b, t, hkv, dh), unnormalised -> (acc (b, s, hq, dh), m (b, s, hq),
+    l (b, s, hq)), fp32: the blocked online softmax of
+    :func:`_sdpa_chunked` without its last division.  Key j of the block
+    is visible to query row i of slot b iff ``j < kv_len[b]`` and
+    ``j <= q_offset[b] + i`` (block coordinates; either may be negative).
+    A row that sees no key has m = -1e30, l = 0 and acc = 0, so it drops
+    out of the log-sum-exp merge (``distributed.sp_decode``)."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    dev = q.device
+    qb, ck = _chunk_sizes(s, t)
+    off = _offset_rows(q_offset, dev)
+    outs = []
+    for q0 in range(0, s, qb):
+        qblk = (q[:, q0:q0 + qb].float() * dh ** -0.5)
+        n = qblk.shape[1]
+        qblk = qblk.reshape(b, n, hkv, group, dh)
+        qi = (off[:, None, None] + q0
+              + torch.arange(n, device=dev)[None, :, None])       # (B, n, 1)
+        m = torch.full((b, hkv, group, n), -1e30, device=dev)
+        l = torch.zeros((b, hkv, group, n), device=dev)
+        acc = torch.zeros((b, hkv, group, n, dh), device=dev)
+        for k0 in range(0, t, ck):
+            kc, vc = k[:, k0:k0 + ck].float(), v[:, k0:k0 + ck].float()
+            ki = k0 + torch.arange(kc.shape[1], device=dev)[None, None, :]
+            mask = ((ki < kv_len[:, None, None]) & (ki <= qi))[:, None, None]
+            logits = torch.einsum("bshgd,bthd->bhgst", qblk, kc)
+            logits = torch.where(mask, logits, -1e30)
+            m_cur = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_cur)
+            p = torch.where(mask, torch.exp(logits - m_cur[..., None]), 0.0)
+            del logits
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgst,bthd->bhgsd", p, vc)
+            m = m_cur
+        outs.append((acc.permute(0, 3, 1, 2, 4).reshape(b, n, hq, dh),
+                     m.permute(0, 3, 1, 2).reshape(b, n, hq),
+                     l.permute(0, 3, 1, 2).reshape(b, n, hq)))
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def _attn_split_cached(p: Params, x, cfg: ModelConfig, positions, cache,
+                       seg_lens, tp):
+    """Self-attention over a split cache on this rank's block of the
+    weights: the cache ring holds this rank's sequence block ``[start,
+    start + S_l)`` (``start = rank * S_l``) of every KV head, for this
+    rank's batch rows (``sharding.cache_spec``).
+
+    q, k and v are projected on this rank's block of the weights and
+    gathered over ``model`` to every head (and the whole ``dh``, where the
+    rule splits ``dh``; replicated K/V weights give every KV head
+    already), then rotated.  Each new K/V row is written by the rank whose
+    block holds its position and goes to the sink on every other rank
+    (:func:`append_kv` with ``start``), with no host sync.  Every query
+    head attends over this rank's block (partials with the causal offsets
+    moved into block coordinates), and the partials merge by the
+    log-sum-exp all-reduce over ``model``
+    (``distributed.sp_decode.merge_partials``), the schedule of
+    ``sp_decode`` over ``model`` instead of ``data``.  On a kernel route a
+    decode step's partials come from the dense split-KV decode kernel on
+    the block (``sp_decode.local_partials``).  The rank's heads (or
+    ``dh`` slice) of the merged output go into its rows of ``wo``, whose
+    partial sums leave through a *reduce*."""
+    from repro_torch.distributed import sp_decode
+
+    b, s, d = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+    def proj(w, bias, heads):
+        h, dl = w.shape[1:]
+        y = (x @ w.reshape(d, h * dl)).reshape(b, s, h, dl)
+        if bias is not None:
+            y = y + bias
+        if h != heads:                                  # heads split
+            y = tp.gather(y, 2)
+        elif dl != dh:                                  # dh split
+            y = tp.gather(y, 3)
+        return y
+
+    q = rope(proj(p["wq"], p.get("bq"), hq), positions, cfg.rope_theta)
+    k = rope(proj(p["wk"], p.get("bk"), hkv), positions, cfg.rope_theta)
+    v = proj(p["wv"], p.get("bv"), hkv)
+    lengths = cache["lengths"]
+    s_l = cache["k"].shape[1] - 1
+    start = tp.rank * s_l
+    append_kv(cache["k"], k, lengths, seg_lens, start)
+    append_kv(cache["v"], v, lengths, seg_lens, start)
+    kc, vc = cache["k"][:, :-1], cache["v"][:, :-1]    # public ring view
+    kv_len = lengths + (s if seg_lens is None else seg_lens)
+    if cfg.decode_kernel != "xla" and s == 1:
+        acc, m, l = sp_decode.local_partials(
+            q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_len, start,
+            dh ** -0.5)
+        acc, m, l = acc[:, None], m[:, None], l[:, None]
+    else:
+        acc, m, l = _sdpa_partials(q, kc, vc, lengths - start,
+                                   kv_len - start)
+    out = sp_decode.merge_partials(acc, m, l, tp.group).to(x.dtype)
+    wo = p["wo"]
+    hl, dl = wo.shape[:2]
+    if hl != hq:
+        out = out.narrow(2, tp.rank * hl, hl)
+    elif dl != dh:
+        out = out.narrow(3, tp.rank * dl, dl)
+    y = out.reshape(b, s, hl * dl) @ wo.reshape(hl * dl, d)
+    return tp.reduce(y) if (hl, dl) != (hq, dh) else y
 
 
 # ---------------------------------------------------------------------------

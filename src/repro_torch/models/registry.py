@@ -5,7 +5,7 @@ import importlib
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 
@@ -14,15 +14,15 @@ _CONFIG_MODULES = {
     "granite-20b": "repro_torch.configs.granite_20b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2.5-32b": "repro_torch.configs.qwen25_32b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_27b",
-    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
-    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
-    "whisper-small": "repro_torch.configs.whisper_small",
     "llama-3.2-vision-90b": "repro_torch.configs.llama32_vision_90b",
 }
 
-ARCHS = tuple(_CONFIG_MODULES)
+ARCHS = tuple(_CONFIG_MODULES)       # the reference's order
 
 _MODULES = {
     "dense": "repro_torch.models.transformer",
@@ -42,6 +42,10 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 # The families whose forward and loss run split over a mesh's ``model``
 # axis (``distributed.tensor_parallel``): every family.
 TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# The families whose ``init_cache``/``prefill``/``decode_step`` also run
+# split over ``model`` (the self K/V's sequence over ``model``, the batch
+# over the batch axes: ``models.transformer``).
+SPLIT_CACHE_FAMILIES = ("dense", "moe")
 
 
 def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
@@ -76,3 +80,16 @@ def param_shapes(cfg: ModelConfig):
     block of each leaf a rank holds."""
     module = importlib.import_module(_MODULES[cfg.family])
     return module.build(cfg, torch.device("meta")).init(None)
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells after the principled skips:
+    long_500k only for sub-quadratic archs (the reference's list)."""
+    cells = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape_name in SHAPES:
+            if shape_name == "long_500k" and not cfg.subquadratic:
+                continue
+            cells.append((arch, shape_name))
+    return cells

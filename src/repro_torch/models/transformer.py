@@ -102,8 +102,9 @@ def _self_block_aux(p, x, cfg: ModelConfig, positions, cache=None,
     return x + m, aux
 
 
-def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None):
-    return _self_block_aux(p, x, cfg, positions, cache, seg_lens)[0]
+def _self_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None,
+                tp=None):
+    return _self_block_aux(p, x, cfg, positions, cache, seg_lens, tp=tp)[0]
 
 
 def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache, tp=None):
@@ -146,12 +147,12 @@ def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
 
 
 def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
-                  seg_lens=None):
+                  seg_lens=None, tp=None):
     """Loop over layers threading each layer's KV buffers (views of the
     stacked cache, written in place).  ``cache["lengths"]`` is the (b,)
     ragged cursor shared by every layer.  A VLM runs its groups: ``span``
     self layers over the (g, span) pool, then the group's cross layer over
-    its fixed-source K/V."""
+    its fixed-source K/V.  ``tp``: the split cache (dense and MoE)."""
     lengths = cache["lengths"]
     pages = cache.get("pages")
 
@@ -175,7 +176,8 @@ def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
     else:
         for i, lp in enumerate(params["layers"]):
             x = _self_block(lp, x, cfg, positions,
-                            self_kv(cache["layers"], i), seg_lens=seg_lens)
+                            self_kv(cache["layers"], i), seg_lens=seg_lens,
+                            tp=tp)
     new_cache = dict(cache)
     new_cache["lengths"] = (
         lengths + (x.shape[1] if seg_lens is None else seg_lens)
@@ -184,15 +186,27 @@ def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
-               n_pages=None, *, device, vis=None):
+               n_pages=None, *, device, vis=None, tp=None):
     """Contiguous ring (L, b, max_len + 1, hkv, dh) or paged pool
     (L, N + 1, page_size, hkv, dh) plus table; the extra unit is the sink
     of dropped rows (models.common).  A VLM's self pool has lead axes
     (g, span), and ``vis`` (b, n_vis, d) gives its cross K/V
-    (g, b, n_vis, hkv, dh) and the projected ``"vis"`` leaf."""
+    (g, b, n_vis, hkv, dh) and the projected ``"vis"`` leaf.
+
+    Split (``tp``, dense and MoE): this rank's ``sharding.cache_spec``
+    block of the one-process cache for a global ``batch``, read through
+    ``sharding.local_shape``: its rows of the batch (over the batch axes)
+    and its block of ``max_len`` (over ``model``), every KV head, plus the
+    block's own sink position.  The paged layout stays on one rank."""
     hkv, dh = cfg.n_kv_heads, cfg.head_dim_
     dt = torch_dtype(cfg.dtype)
     lead = _groups(cfg) if cfg.cross_attn_every else (cfg.n_layers,)
+    if tp is not None:
+        if cfg.cache_layout == "paged":
+            raise NotImplementedError(
+                "the paged cache layout runs on one rank (ServeEngine takes "
+                "no mesh); a split model takes cache_layout='contiguous'")
+        _, batch, max_len, _, _ = tp.cache_block(batch, max_len)
     cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
     if cfg.cache_layout == "paged":
         kv, pages = cm.paged_kv_buffers(lead, batch, max_len, cfg, n_pages,
@@ -241,20 +255,25 @@ def fill_source(params, cache, cfg: ModelConfig, vis):
 
 
 def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
-            all_logits=False):
+            all_logits=False, tp=None):
+    """Split (``tp``): ``tokens`` and ``seg_lens`` are this rank's batch
+    rows (the same on every ``model`` rank), the cache this rank's block
+    (:func:`init_cache`), and the logits come back whole on every rank."""
     s = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens)
+    x = cm.embed(params["embed"], tokens, tp)
     positions = (cache["lengths"][:, None]
                  + torch.arange(s, device=tokens.device)[None, :])
     x, new_cache = _stack_cached(params, x, cfg, positions, cache,
-                                 seg_lens=seg_lens)
+                                 seg_lens=seg_lens, tp=tp)
     x = cm.apply_norm(params["ln_f"], x, cfg)
     out = x if all_logits else cm.last_valid_slice(x, seg_lens)
-    return cm.unembed(params["embed"], out, cfg), new_cache
+    return cm.gather_vocab(cm.unembed(params["embed"], out, cfg, tp),
+                           tp), new_cache
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
-    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
+def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
+                tp=None):
+    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens, tp=tp)
 
 
 def _hidden(params, tokens, cfg: ModelConfig, vis, remat: RematPolicy,
@@ -305,26 +324,25 @@ def loss_fn(params, batch, cfg: ModelConfig,
 def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
     tensor and expert parallel execution into ``init``, ``forward`` and
-    ``loss`` (dense, MoE and VLM families); the cache entry points then
-    refuse."""
+    ``loss`` (dense, MoE and VLM families), and for dense and MoE into
+    the cache entry points (the split cache, :func:`init_cache`); the
+    VLM's cache entry points refuse (``common.single_rank``)."""
     vlm = bool(cfg.cross_attn_every)
-    if tp is not None:
-        return cm.ModelApply(
-            config=cfg,
-            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
-            forward=functools.partial(forward, cfg=cfg, tp=tp),
-            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
-            init_cache=cm.single_rank, prefill=cm.single_rank,
-            decode_step=cm.single_rank,
-            fill_source=cm.single_rank if vlm else None)
-    return cm.ModelApply(
+    entries = dict(
         config=cfg,
-        init=functools.partial(init, cfg=cfg, device=device),
-        forward=functools.partial(forward, cfg=cfg),
-        loss=functools.partial(loss_fn, cfg=cfg),
-        init_cache=functools.partial(init_cache, cfg=cfg, device=device),
-        prefill=functools.partial(prefill, cfg=cfg),
-        decode_step=functools.partial(decode_step, cfg=cfg),
+        init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+        forward=functools.partial(forward, cfg=cfg, tp=tp),
+        loss=functools.partial(loss_fn, cfg=cfg, tp=tp))
+    if tp is not None and vlm:
+        return cm.ModelApply(
+            **entries, init_cache=cm.single_rank, prefill=cm.single_rank,
+            decode_step=cm.single_rank, fill_source=cm.single_rank)
+    return cm.ModelApply(
+        **entries,
+        init_cache=functools.partial(init_cache, cfg=cfg, device=device,
+                                     tp=tp),
+        prefill=functools.partial(prefill, cfg=cfg, tp=tp),
+        decode_step=functools.partial(decode_step, cfg=cfg, tp=tp),
         reset_slots=cm.reset_lengths,
         kv_pool=("layers", "self") if vlm else ("layers",),
         fill_source=functools.partial(fill_source, cfg=cfg) if vlm else None,

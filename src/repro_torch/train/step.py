@@ -18,9 +18,11 @@ updates the state's parameters, moments and count in place and returns
 the same dict.  With ``microbatch == 1`` the step's gradients stay in each
 parameter's ``.grad`` (in the parameter's dtype) until the next step.
 
-**Data parallel.**  Given a mesh whose ``data`` axis has more than one
-rank, each rank takes its rows of the global batch (rank r of n the r-th
-n-th), and the gradients, cast to ``grad_reduce_dtype``, are summed
+**Data parallel.**  Given a mesh whose batch axes (``TrainConfig.
+batch_axes``: ``("data",)``, or ``("pod", "data")`` on a multi-pod mesh,
+whose ranks are then flattened pod-major) have more than one rank, each
+rank takes its rows of the global batch (rank r of n the r-th n-th), and
+the gradients, cast to ``grad_reduce_dtype``, are summed over those ranks
 through ``distributed.collectives.bucketed_all_reduce`` and divided by n.
 Every rank holds the same number of rows and the loss is a mean over
 tokens, so the mean of the ranks' losses and gradients is the global
@@ -32,23 +34,25 @@ is given the ranks' mean of the per-expert fractions (the loss's
 
 **Tensor and expert parallel.**  A mesh whose ``model`` axis has more
 than one rank builds the model with it (``models.build_model(cfg, device,
-mesh)``, the dense, MoE, encoder-decoder and VLM families; the
-recurrent ones are refused): each rank holds its ``sharding.param_spec``
+mesh)``, every family): each rank holds its ``sharding.param_spec``
 block of every leaf and the model code runs the ``model``-axis
 collectives (``distributed.tensor_parallel``).  Batch rows (the tokens,
 labels and whisper's frames or the VLM's vision tokens alike) split over
-``data`` only and are the same on every ``model`` rank; gradients are
-reduced over ``data`` only, since a split leaf's gradient is already
-this rank's block of the whole and a replicated leaf's the same on every
-``model`` rank.  The gradient norm that clips
+the batch axes only and are the same on every ``model`` rank; gradients
+are reduced over the batch axes only, since a split leaf's gradient is
+already this rank's block of the whole and a replicated leaf's the same
+on every ``model`` rank.  The gradient norm that clips
 the update is the whole model's (``optimizer.global_norm``: the squares
 of split leaves summed over ``model``, replicated leaves counted once),
 and ZeRO-1's moments are the ``data``-axis block of the rank's
-``model``-axis block.
+``model``-axis block (``optimizer.opt_shardings``, the reference's rule:
+replicated over ``pod``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import time
 from typing import Any
 
@@ -74,9 +78,10 @@ class TrainConfig:
     microbatch: int = 1               # grad-accumulation splits per step
     grad_reduce_dtype: str = "float32"  # "bfloat16" halves collective bytes
     zero1: bool = False
-    # Mesh axes the batch dim shards over: the reference's field; the port
-    # runs ("data",) only (the rows are the same on every `model` rank)
-    # and refuses any other value.
+    # Mesh axes the batch dim shards over: ("data",), or ("pod", "data")
+    # on a multi-pod mesh (the rows then split over the flattened pod x
+    # data ranks); the rows are the same on every `model` rank.  Any other
+    # value is refused.
     batch_axes: tuple = ("data",)
 
 
@@ -103,14 +108,15 @@ class _DataParallel:
     axis's group."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh):
-        sizes = axis_sizes(mesh)
-        if tuple(tcfg.batch_axes) != ("data",):
-            raise NotImplementedError(f"make_train_step: batch axes "
-                                      f"{tcfg.batch_axes}; only ('data',)")
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
-        self.n = sizes["data"]
-        self.rank = mesh.get_local_rank("data")
-        self.group = mesh.get_group("data")
+        self.n = _batch_ranks(tcfg, mesh)
+        if len(tcfg.batch_axes) == 1:
+            self.rank = mesh.get_local_rank("data")
+            self.group = mesh.get_group("data")
+        else:                   # ("pod", "data"): rank pod * |data| + data
+            flat = mesh["pod", "data"]._flatten()
+            self.rank = flat.get_local_rank()
+            self.group = flat.get_group()
         self.moments = None     # the moments' shardings, made on first use
         self.last = {"payload_bytes": 0, "seconds": 0.0}
 
@@ -146,6 +152,23 @@ class _DataParallel:
         return self.moments
 
 
+def _batch_ranks(tcfg: TrainConfig, mesh) -> int:
+    """The ranks the batch rows split over: the product of the batch
+    axes' sizes (1 without a mesh).  Refuses axes other than ``("data",)``
+    and ``("pod", "data")``, and ``"pod"`` on a mesh without one."""
+    axes = tuple(tcfg.batch_axes)
+    if axes not in (("data",), ("pod", "data")):
+        raise NotImplementedError(f"make_train_step: batch axes {axes}; "
+                                  f"only ('data',) or ('pod', 'data')")
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    if any(a not in sizes for a in axes):
+        raise ValueError(f"make_train_step: batch axes {axes} on a mesh of "
+                         f"axes {tuple(sizes)}")
+    return math.prod(sizes[a] for a in axes)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
                     mesh=None):
     """Returns ``(train_step, model)``; ``train_step(state, batch) ->
@@ -161,7 +184,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
     device = resolve_device(device)
     reduce_dtype = getattr(torch, tcfg.grad_reduce_dtype)
     dp = (_DataParallel(cfg, tcfg, mesh)
-          if mesh is not None and axis_sizes(mesh)["data"] > 1 else None)
+          if _batch_ranks(tcfg, mesh) > 1 else None)
     split = _model_split(cfg, mesh)
     # The MoE aux loss reads the whole batch's per-expert fractions.
     moe = ({"density_mean": dp.mean}
@@ -275,3 +298,15 @@ def state_shardings(cfg: ModelConfig, mesh, params_shape=None,
     oshard = opt.opt_shardings(pshard, params_shape["params"], mesh,
                                zero1=zero1)
     return {"params": pshard, "opt": oshard}
+
+
+@functools.cache
+def eval_shape_state(arch: str, smoke: bool = False):
+    """``(cfg, model, state)``: a shape-only train state on ``"meta"``
+    (nothing allocated) from :func:`init_train_state`, the one-process
+    shapes, for the sharding rules and the dry run."""
+    from repro_torch.models import get_config
+
+    cfg = get_config(arch, smoke=smoke)
+    model = build_model(cfg, "meta")
+    return cfg, model, init_train_state(model, None)

@@ -332,10 +332,17 @@ def _tp(rank, world, inputs, tmp) -> dict:
                                   shardings=state_shardings(yi, mesh14,
                                                             zero1=True))
     out["yi_restored_14"] = (step, restored)
+    # The split dense model serves from a contiguous cache only: the
+    # paged layout stays on one rank.
     try:
-        model14.prefill(None, None, None)
-    except NotImplementedError:
-        out["serve_refused"] = True
+        build_model(dataclasses.replace(yi, cache_layout="paged"), "cpu",
+                    mesh14).init_cache(None, batch=4, max_len=32)
+    except NotImplementedError as e:
+        out["serve_refused"] = "paged" in str(e)
+    # The split cache path (dense and MoE) on both meshes, and the
+    # trainer's (pod, data) batch axes.
+    out.update(_split_serve_cases(inputs, params, meshes))
+    out.update(_pod_data_train(yi, params["yi-9b"], inputs["train"]))
     # (d) the split gradient norm: this rank's blocks of whole tensors
     # shaped like yi's leaves.
     from repro_torch.distributed import sharding as sh
@@ -352,6 +359,75 @@ def _tp(rank, world, inputs, tmp) -> dict:
     out["clock_s"] = tensor_parallel.CLOCK["seconds"]
     tensor_parallel.CLOCK.update(on=False)
     return out
+
+
+def _split_serve(cfg, params_np, mesh, case) -> dict:
+    """This rank's batch rows of ``case``'s prompt through the split
+    ``init_cache``/``prefill`` and ``case["steps"]`` greedy
+    ``decode_step``s (each fed its own argmax); the logits of each step."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(cfg, decode_kernel=case.get("kernel", "xla"))
+    params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
+                             mesh)
+    model = build_model(cfg, "cpu", mesh)
+    toks, seg = case["toks"], case["seg_lens"]
+    n, i = mesh.size(0), mesh.get_local_rank("data")
+    rows = slice(i * len(toks) // n, (i + 1) * len(toks) // n)
+    logits = []
+    with torch.no_grad():
+        cache = model.init_cache(params, batch=len(toks),
+                                 max_len=case["max_len"])
+        out, cache = model.prefill(params, cache, _t(toks[rows]),
+                                   seg_lens=_t(seg[rows]))
+        logits.append(out)
+        for _ in range(case["steps"]):
+            out, cache = model.decode_step(params, cache,
+                                           out.argmax(-1).to(torch.int32))
+            logits.append(out)
+    return {"logits": logits, "rows": (rows.start, rows.stop),
+            "block": tuple(cache["layers"]["k"].shape)}
+
+
+def _split_serve_cases(inputs, params, meshes) -> dict:
+    from repro_torch.models import get_config
+
+    out = {}
+    for name, case in inputs["split_serve"].items():
+        cfg = get_config(case["arch"], smoke=True)
+        for shape in case["meshes"]:
+            out[f"split_{name}_{shape}"] = _split_serve(
+                cfg, params[case["arch"]], meshes[shape], case)
+    return out
+
+
+def _pod_data_train(cfg, params_np, case) -> dict:
+    """Two ZeRO-1 steps on a (pod, data, model) = (2, 2, 1) mesh with the
+    batch over ("pod", "data"); the losses and this rank's first moments."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils import tree
+
+    mesh = make_local_mesh(2, 1, pod=2)
+    tcfg = dataclasses.replace(case["tcfg"], batch_axes=("pod", "data"))
+    train_step, _ = make_train_step(cfg, tcfg, "cpu", mesh)
+    state, _ = _state(cfg, params_np, mesh, True)
+    data = SyntheticLM(cfg, batch=case["batch"], seq=case["seq"], seed=0)
+    losses = []
+    for step in range(case["steps"]):
+        state, m = train_step(state, data(step))
+        losses.append(float(m["loss"]))
+    return {"pod_losses": losses,
+            "pod_params": [p.detach().clone()
+                           for p in tree.leaves(state["params"])],
+            "pod_coord": tuple(mesh.get_coordinate())}
 
 
 JOBS = {"collectives": _collectives, "dp2": _dp2, "tp": _tp}

@@ -1,0 +1,463 @@
+"""The port's ``launch/`` (``specs``, ``roofline``, ``dryrun``, ``report``)
+and ``models.registry.runnable_cells`` held against the JAX package's.
+
+* Torch twins of ``tests/test_dryrun_smoke.py``: the olmoe-1b-7b x
+  ``decode_32k`` cell run by ``python -m repro_torch.launch.dryrun`` in a
+  subprocess on ``"meta"`` over the 256-rank fake group (the reference's
+  assertions, the reference's knobs, no ``jax`` imported); the collective
+  record of the reference test's all-gather and all-reduce, issued
+  through the port's ``collectives`` on a small fake group, against
+  ``repro.launch.roofline.parse_collectives`` of the same two HLO lines;
+  ``model_flops`` for every runnable cell.
+* ``plan_model_policies`` equal to the reference's dict (the twin of
+  ``tests/test_planner_sweep.py``'s plan-cache test) on the reference's
+  chip.
+* ``input_specs``: leaf paths, shapes and dtype names equal to the
+  reference's ``jax.eval_shape`` trees (the port's per-layer leaves
+  stacked; the sink position the port's self K/V rings carry taken off).
+* ``roofline_terms`` equal to the reference's under ``hw.V5E``.
+* A cell's per-rank parameter, optimizer and cache bytes equal the bytes
+  of the reference's ``param_spec``/``opt_shardings``/``cache_spec``
+  blocks, worked out from its PartitionSpecs and the mesh's axis sizes.
+* One multi-pod train cell (minicpm-2b SMOKE, ``(pod, data, model)``) in
+  a subprocess.
+"""
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh, NamedSharding  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro import hw as rhw  # noqa: E402
+from repro.configs.base import SHAPES as RSHAPES  # noqa: E402
+from repro.distributed import sharding as rsh  # noqa: E402
+from repro.launch import roofline as rroof  # noqa: E402
+from repro.launch import specs as rspecs  # noqa: E402
+from repro.models import get_config as rconfig  # noqa: E402
+from repro.models import registry as rregistry  # noqa: E402
+from repro.train import optimizer as ropt  # noqa: E402
+from repro_torch import hw as thw  # noqa: E402
+from repro_torch.configs.base import SHAPES as TSHAPES  # noqa: E402
+from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.launch import dryrun as tdry  # noqa: E402
+from repro_torch.launch import report as treport  # noqa: E402
+from repro_torch.launch import roofline as troof  # noqa: E402
+from repro_torch.launch import specs as tspecs  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
+from repro_torch.models import ARCHS, runnable_cells  # noqa: E402
+from repro_torch.models import get_config as tconfig  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+KINDS = ("train_4k", "prefill_32k", "decode_32k")
+# Run a module as ``__main__`` and fail if jax or the reference package
+# was imported on the way.
+_RUN_NO_JAX = (
+    "import runpy, sys; sys.argv = sys.argv[1:]; "
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True); "
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'repro')); assert not bad, bad")
+
+
+def _dryrun(tmp, *args) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run(
+        [sys.executable, "-c", _RUN_NO_JAX, "repro_torch.launch.dryrun",
+         *args, "--out", str(tmp)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    return r
+
+
+@pytest.fixture(scope="module")
+def olmoe_record(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun")
+    _dryrun(tmp, "--arch", "olmoe-1b-7b", "--shape", "decode_32k",
+            "--mesh", "single")
+    out = tmp / "olmoe-1b-7b__decode_32k__single.json"
+    assert out.exists()
+    return json.loads(out.read_text())
+
+
+@pytest.fixture(scope="module")
+def multi_record(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun_multi")
+    _dryrun(tmp, "--arch", "minicpm-2b", "--shape", "train_4k",
+            "--mesh", "multi", "--smoke")
+    return json.loads(
+        (tmp / "minicpm-2b__train_4k__multi.json").read_text())
+
+
+def test_dryrun_single_cell(olmoe_record):
+    """The reference test's assertions on the port's record."""
+    rec = olmoe_record
+    rl = rec["roofline"]
+    assert rl["dominant"] in ("compute", "memory", "collective")
+    assert rl["t_memory_s"] > 0
+    assert rec["counted"]["flops"] > 0
+    assert rec["memory_analysis"]["temp_size_in_bytes"] > 0
+    assert rec["mesh"] == {"data": 16, "model": 16}
+    assert rec["collectives_scanned_module_raw"]["total_count"] > 0
+
+
+def _reference_knobs(arch, shape_name, smoke=False):
+    """The knobs the reference's ``run_cell`` starts a cell with (its CLI
+    defaults and rules; the multi-pod cells reuse the single-pod ones)."""
+    knobs = dict(remat="save_dots", grad_reduce_dtype="float32",
+                 microbatch=1, zero1=True)
+
+    class _M:
+        shape = {"data": 16, "model": 16}
+
+    knobs["fsdp"] = rsh.fsdp_needed(rconfig(arch, smoke=smoke), _M,
+                                    train=RSHAPES[shape_name].kind == "train")
+    if RSHAPES[shape_name].kind == "train":
+        knobs.update(remat="recompute", microbatch=4)
+    return knobs
+
+
+def test_dryrun_knobs_are_the_reference_rules(olmoe_record, multi_record):
+    assert olmoe_record["knobs"] == _reference_knobs("olmoe-1b-7b",
+                                                     "decode_32k")
+    assert multi_record["knobs"] == _reference_knobs("minicpm-2b",
+                                                     "train_4k", smoke=True)
+
+
+def _block_bytes(shape, spec, sizes, itemsize) -> int:
+    """Bytes of one rank's block of a ``shape`` leaf under a reference
+    PartitionSpec on a mesh of axis ``sizes``."""
+    n = math.prod(shape)
+    for part in spec:
+        for axis in ((part,) if isinstance(part, str) else part or ()):
+            n //= sizes[axis]
+    return n * itemsize
+
+
+def _tree_blocks(tree, spec_of, sizes, itemsize=None) -> int:
+    total = 0
+    for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        size = itemsize or jnp.dtype(x.dtype).itemsize
+        total += _block_bytes(tuple(x.shape), spec_of(path, x), sizes, size)
+    return total
+
+
+def test_cell_bytes_equal_the_reference_blocks(olmoe_record):
+    """The decode cell's per-rank parameter and cache bytes against the
+    reference's ``param_spec``/``cache_spec`` blocks on the 16 x 16 mesh
+    (the port's rings add one sink position a row; its lengths are its
+    rows, the reference's replicated)."""
+    cfg = rconfig("olmoe-1b-7b")
+    shape = RSHAPES["decode_32k"]
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    sizes = {"data": 16, "model": 16}
+    specs = rspecs.input_specs("olmoe-1b-7b", "decode_32k")
+    params = _tree_blocks(specs["params"], lambda path, x: rsh.param_spec(
+        rsh._path_str(path), tuple(x.shape), cfg, mesh), sizes)
+    cspec = rsh.cache_spec(cfg, mesh, shape.global_batch)
+    kv = {k: v for k, v in specs["cache"]["layers"].items()}
+    cache = _tree_blocks({"layers": kv}, lambda path, x: cspec(
+        rsh._path_str(path), x), sizes)
+    parts = olmoe_record["argument_parts"]
+    assert parts["params"] == params
+    assert parts["cache"] == cache
+    b_l = shape.global_batch // 16
+    assert parts["cache_sink"] == (2 * cfg.n_layers * b_l * cfg.n_kv_heads
+                                   * cfg.head_dim_ * 2)
+    assert parts["cache_lengths"] == b_l * 4
+    assert parts["inputs"] == b_l * 1 * 4
+    assert olmoe_record["memory_analysis"]["argument_size_in_bytes"] == sum(
+        parts.values())
+
+
+def test_multi_pod_train_cell(multi_record):
+    """minicpm-2b SMOKE x train_4k on (pod, data, model) = (2, 16, 16):
+    the batch over (pod, data), ZeRO-1 moments over data; its parameter
+    and optimizer bytes are the reference's blocks."""
+    rec = multi_record
+    assert rec["mesh"] == {"pod": 2, "data": 16, "model": 16}
+    assert rec["n_chips"] == 512
+    assert rec["memory_analysis"]["temp_size_in_bytes"] > 0
+    assert rec["counted"]["coll_count"] > 0
+    cfg = rconfig("minicpm-2b", smoke=True)
+    mesh = AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    sizes = {"pod": 2, "data": 16, "model": 16}
+    state = rspecs.input_specs("minicpm-2b", "train_4k", smoke=True)["state"]
+
+    def pspec(path, x):
+        return rsh.param_spec(rsh._path_str(path), tuple(x.shape), cfg, mesh)
+
+    params = _tree_blocks(state["params"], pspec, sizes)
+    pshard = jax.tree_util.tree_map_with_path(
+        lambda path, x: NamedSharding(mesh, P(*pspec(path, x))),
+        state["params"])
+    mu = ropt.opt_shardings(pshard, state["params"], mesh, zero1=True)["mu"]
+    flat_mu = jax.tree_util.tree_leaves(mu)
+    flat_p = jax.tree_util.tree_leaves(state["params"])
+    moments = sum(_block_bytes(tuple(x.shape), s.spec, sizes, 4)
+                  for x, s in zip(flat_p, flat_mu))
+    parts = rec["argument_parts"]
+    assert parts["params"] == params
+    assert parts["opt"] == 2 * moments + 4          # mu, nu and the count
+    rows = TSHAPES["train_4k"].global_batch // 32
+    assert parts["inputs"] == 2 * rows * TSHAPES["train_4k"].seq_len * 4
+
+
+_COLLECTIVE_SCRIPT = """
+import json, sys
+import torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.distributed import collectives
+from repro_torch.launch import roofline
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+four = dist.new_group([0, 1, 2, 3])
+with collectives.recording() as notes:
+    collectives.all_gather(torch.empty((4, 512, 128), dtype=torch.bfloat16,
+                                       device="meta"), four)
+    collectives.all_reduce(torch.empty(1024, device="meta"))
+dist.destroy_process_group()
+print(json.dumps(roofline.collective_record(notes)))
+"""
+
+
+def test_collective_record_matches_parse_collectives():
+    """The reference test's all-gather (bf16[16,512,128] over 4 ranks) and
+    all-reduce (f32[1024] over 16), issued through the port's collectives
+    on a 16-rank fake group, against the reference's parse of the same two
+    HLO lines: equal ``per_kind`` and totals."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _COLLECTIVE_SCRIPT],
+                       capture_output=True, text=True, timeout=300, env=env,
+                       cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    hlo = """
+  %ag = bf16[16,512,128]{2,1,0} all-gather(%p0), replica_groups={{0,1,2,3}}, dimensions={0}
+  %ar.1 = f32[1024]{0} all-reduce(%p1), replica_groups=[16,16]<=[256], to_apply=%add
+"""
+    want = rroof.parse_collectives(hlo)
+    assert got == json.loads(json.dumps(want))
+
+
+@pytest.mark.parametrize("kind", ["all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute"])
+def test_moved_bytes_match_the_reference(kind):
+    for group in range(2, 513):
+        for rb in (1.0, 4096.0, 3 * 2.0 ** 30):
+            assert troof._moved_bytes(kind, rb, group) == \
+                rroof._moved_bytes(kind, rb, group), (kind, group, rb)
+
+
+def test_model_flops_match_the_reference_for_every_cell():
+    for arch, shape in runnable_cells():
+        assert troof.model_flops(tconfig(arch), TSHAPES[shape]) == \
+            rroof.model_flops(rconfig(arch), RSHAPES[shape]), (arch, shape)
+
+
+def test_runnable_cells_equal_the_reference():
+    assert runnable_cells() == rregistry.runnable_cells()
+    assert len(runnable_cells()) == 32
+
+
+def test_roofline_terms_match_the_reference():
+    cost = {"flops": 3.1e13, "bytes accessed": 7.7e11}
+    colls = {"total_moved_bytes": 2.5e9}
+    mem = {"argument_size_in_bytes": 3 << 30, "temp_size_in_bytes": 5 << 30}
+
+    class _RMesh:
+        shape = {"data": 16, "model": 16}
+
+    for arch, shape in (("yi-9b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+                        ("phi3.5-moe-42b-a6.6b", "prefill_32k")):
+        got = troof.roofline_terms(tconfig(arch), TSHAPES[shape],
+                                   MeshShape(("data", "model"), (16, 16)),
+                                   cost, colls, mem, chip=thw.V5E)
+        want = rroof.roofline_terms(rconfig(arch), RSHAPES[shape], _RMesh,
+                                    cost, colls, mem, chip=rhw.V5E)
+        assert got == want, (arch, shape)
+
+
+@pytest.mark.parametrize("arch, shape", [("yi-9b", "decode_32k"),
+                                         ("olmoe-1b-7b", "prefill_32k")])
+def test_plan_model_policies_equal_the_reference(arch, shape):
+    from repro.launch.dryrun import plan_model_policies as rplan
+
+    got = tdry.plan_model_policies(tconfig(arch), TSHAPES[shape],
+                                   chip="tpu-v5e")
+    assert got == rplan(rconfig(arch), RSHAPES[shape])
+    assert got["plan_cache_hit_rate"] > 0.8
+    assert got["ops_planned"] == got["layers"] * got["ops_per_layer"]
+
+
+def _ref_leaves(tree) -> dict:
+    return {rsh._path_str(path): (tuple(x.shape), str(x.dtype))
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _port_leaves(tree, cache: bool) -> dict:
+    """The port's tree as the reference stacks it: list indices dropped,
+    list lengths prepended; a self K/V ring's sink position taken off."""
+    out = {}
+    for path, lead, x in tsh._stacked_leaves(tree):
+        key = tsh.stacked_path(path)
+        shape = tuple(lead) + tuple(x.shape)
+        if cache and key.split("/")[-1] in ("k", "v") and "cross" not in key:
+            shape = shape[:-3] + (shape[-3] - 1,) + shape[-2:]
+        v = (shape, str(x.dtype).removeprefix("torch."))
+        assert out.setdefault(key, v) == v, key
+    return out
+
+
+def _check_specs(arch, shape, smoke):
+    want = rspecs.input_specs(arch, shape, smoke=smoke)
+    got = tspecs.input_specs(arch, shape, smoke=smoke)
+    assert got["kind"] == want["kind"]
+    assert sorted(got) == sorted(want)
+    for key in want:
+        if key == "kind":
+            continue
+        assert _port_leaves(got[key], key == "cache") == \
+            _ref_leaves(want[key]), (arch, shape, key)
+        assert all(t.device.type == "meta" for t in
+                   torch.utils._pytree.tree_leaves(got[key])
+                   if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("shape", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_match_the_reference_at_smoke(arch, shape):
+    _check_specs(arch, shape, smoke=True)
+
+
+@pytest.mark.parametrize("shape", KINDS)
+@pytest.mark.parametrize("arch", ["yi-9b", "olmoe-1b-7b"])
+def test_input_specs_match_the_reference_at_full_size(arch, shape):
+    _check_specs(arch, shape, smoke=False)
+
+
+def test_eval_shape_state_is_meta_and_cached():
+    from repro_torch.train.step import eval_shape_state
+
+    cfg, model, state = eval_shape_state("yi-9b", smoke=True)
+    assert eval_shape_state("yi-9b", smoke=True)[2] is state
+    leaves = torch.utils._pytree.tree_leaves(state)
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+    want = rspecs.input_specs("yi-9b", "train_4k", smoke=True)["state"]
+    assert _port_leaves(state, False) == _ref_leaves(want)
+
+
+@pytest.mark.parametrize("arch, shape, item", [
+    ("yi-9b", "train_4k", "item 1"),
+    ("llama-3.2-vision-90b", "train_4k", "item 1"),
+    ("mamba2-1.3b", "decode_32k", "item 2"),
+    ("zamba2-2.7b", "long_500k", "item 2"),
+    ("whisper-small", "prefill_32k", "item 2"),
+    ("llama-3.2-vision-90b", "decode_32k", "item 2"),
+])
+def test_waiting_cells_fail_at_once_naming_their_item(arch, shape, item):
+    """A cell that waits on FSDP or another family's split cache path
+    raises before anything is built (no process group is made)."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        tdry.build_cell(arch, shape, multi_pod=False, zero1=True)
+    assert not torch.distributed.is_initialized()
+
+
+def test_waiting_cells_are_the_complement_of_this_slice():
+    """The 16 cells of this slice run; the other 16 runnable cells wait."""
+    runs = []
+    for arch, shape in runnable_cells():
+        cfg = tconfig(arch)
+        fsdp = tsh.fsdp_needed(cfg, MeshShape(("data", "model"), (16, 16)),
+                               train=TSHAPES[shape].kind == "train")
+        if tdry.waits_on(cfg, TSHAPES[shape], fsdp) is None:
+            runs.append((arch, shape))
+    assert sorted(runs) == sorted(
+        [(a, "train_4k") for a in ("minicpm-2b", "mamba2-1.3b",
+                                   "zamba2-2.7b", "whisper-small")]
+        + [(a, s) for a in ("yi-9b", "granite-20b", "minicpm-2b",
+                            "qwen2.5-32b", "phi3.5-moe-42b-a6.6b",
+                            "olmoe-1b-7b")
+           for s in ("prefill_32k", "decode_32k")])
+
+
+def test_report_tabulates_records(olmoe_record, multi_record, tmp_path):
+    for name, rec in (("olmoe-1b-7b__decode_32k__single.json", olmoe_record),
+                      ("minicpm-2b__train_4k__multi.json", multi_record)):
+        (tmp_path / name).write_text(json.dumps(rec))
+    rows = treport.load(str(tmp_path))
+    table = treport.dryrun_table(rows)
+    assert "| olmoe-1b-7b | decode_32k | 16x16 |" in table
+    assert "| minicpm-2b-smoke | train_4k | 2x16x16 |" in table
+    roof = treport.roofline_table(rows, "single")
+    assert "olmoe-1b-7b" in roof and "minicpm-2b" not in roof
+
+
+def test_count_step_counts_flops_bytes_and_peak():
+    """The account on a small CPU step: a matmul's FLOPs, an op's inputs
+    and outputs, the live peak of the storages it makes, views counting
+    zero."""
+    a = torch.randn(64, 32)
+    b = torch.randn(32, 16)
+
+    def step():
+        u = (a @ b).t()             # 64 x 16 fp32: 4096 bytes; a view of it
+        return (u * 2).sum()        # a new 4096-byte storage, then 4 bytes
+
+    got = tdry.count_step(step, [a, b])
+    assert got["cost"]["flops"] == 2 * 64 * 32 * 16
+    assert got["cost"]["bytes accessed"] == (
+        (64 * 32 + 32 * 16 + 64 * 16) * 4       # mm
+        + 2 * 64 * 16 * 4                        # mul
+        + (64 * 16 + 1) * 4)                     # sum
+    assert got["mem"]["argument_size_in_bytes"] == (64 * 32 + 32 * 16) * 4
+    assert got["mem"]["temp_size_in_bytes"] == 2 * 64 * 16 * 4 + 4
+    assert got["mem"]["output_size_in_bytes"] == 4
+    assert got["colls"]["total_count"] == 0
+
+
+@pytest.mark.parametrize("name", ["specs", "roofline", "dryrun", "report",
+                                  "mesh"])
+def test_launch_modules_import_no_jax(name):
+    """The port's AST import rule over each ``launch/`` module."""
+    import ast
+
+    path = ROOT / "src" / "repro_torch" / "launch" / f"{name}.py"
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [m for m in names
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+def test_every_collective_goes_through_the_recorded_functions():
+    """The collective record sees every collective the port issues: no
+    module but ``distributed/collectives.py`` calls a ``torch.distributed``
+    collective (the checkpoint's ``barrier`` moves no data)."""
+    import ast
+
+    names = {"all_reduce", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
+             "all_to_all_single", "broadcast", "reduce", "gather",
+             "scatter", "send", "recv", "isend", "irecv"}
+    bad = []
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        if path.name == "collectives.py" and path.parent.name == "distributed":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in names
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "dist"):
+                bad.append((str(path.relative_to(ROOT)), node.lineno))
+    assert bad == []

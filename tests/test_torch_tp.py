@@ -47,6 +47,18 @@ tree, whose ``jax.make_mesh`` rejects a one-device mesh).
   entry points refused.
 * Each rank's ``init`` keeps exactly its ``param_spec`` block of the
   one-process ``init``'s leaves, bitwise.
+* (h) the split cache (dense and MoE): qwen2.5-32b, yi-9b and olmoe SMOKE
+  on (1, 4) and (2, 2), each rank holding its ``cache_spec`` block (its
+  batch rows, its block of the sequence, every KV head): ``prefill`` of a
+  ragged prompt that crosses the ranks' sequence blocks and 4 greedy
+  ``decode_step``s, and a prompt whose decode steps run past the cache
+  into every rank's sink, against the port's one process (fp32 logits
+  within 1e-5 of the largest |logit| at every step, greedy tokens equal);
+  the ``pallas_gather`` route (the decode kernel's plain partials on a
+  rank's block) once; the paged layout refused by name.
+* (i) the trainer's ``("pod", "data")`` batch axes: yi-9b SMOKE on a
+  (2, 2, 1) ``(pod, data, model)`` mesh, two ZeRO-1 steps against the
+  port's one process.
 
 Every multi-rank case runs in one spawn of four ranks for the whole file
 (``tests/dist_workers.py``: JAX-free ranks, a ``file://`` store under tmp,
@@ -82,6 +94,7 @@ torch.set_num_threads(1)
 PHI, YI, MINI = "phi3.5-moe-42b-a6.6b", "yi-9b", "minicpm-2b"
 WH, VLM = "whisper-small", "llama-3.2-vision-90b"
 MB, ZB = "mamba2-1.3b", "zamba2-2.7b"
+QWEN, OLMOE = "qwen2.5-32b", "olmoe-1b-7b"
 # whisper with 6 heads of 16: over 4 ranks the heads do not divide, so
 # attention splits ``dh`` (whisper-small's own split at 8 ranks and more).
 WH_DH = "whisper-small/dh"
@@ -152,7 +165,7 @@ def _inputs():
     return {
         "params": {a: pickle.dumps(_ref_params(a))
                    for a in (PHI, YI, MINI, WH, WH_DH, VLM, MB, ZB,
-                             *SSM_VARIANTS)},
+                             *SSM_VARIANTS, QWEN, OLMOE)},
         # The reference test's tokens (PRNGKey(1), 4 x 16).
         "phi_toks": np.asarray(jax.random.randint(
             jax.random.PRNGKey(1), (4, 16), 0, vocab), np.int32),
@@ -173,7 +186,38 @@ def _inputs():
         "ssm_toks": rng.integers(0, tconfig(MB, smoke=True).vocab,
                                  (4, 16)).astype(np.int32),
         "ssm_variants": SSM_VARIANTS,
+        "split_serve": _split_cases(),
     }
+
+
+# The split cache cases: ``max_len`` 32 puts 8 positions in a rank's
+# sequence block at (1, 4) and 16 at (2, 2), so the 12-token prompt (12,
+# 5, 9 and 7 of its tokens valid) crosses blocks; ``max_len`` 16 with a
+# 14-token prompt sends the third and fourth decode steps' K/V past the
+# cache, into every rank's sink.
+SPLIT_CASES = {
+    **{f"{a}/cross": dict(arch=a, max_len=32, seg=[12, 5, 9, 7])
+       for a in (QWEN, YI, OLMOE)},
+    **{f"{a}/overflow": dict(arch=a, max_len=16, seg=[14, 14, 14, 14])
+       for a in (YI, OLMOE)},
+    f"{YI}/pallas_gather": dict(arch=YI, max_len=32, seg=[12, 5, 9, 7],
+                                kernel="pallas_gather", meshes=[(1, 4)]),
+}
+SPLIT_STEPS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _split_cases():
+    rng = np.random.default_rng(31)
+    out = {}
+    for name, case in SPLIT_CASES.items():
+        vocab = tconfig(case["arch"], smoke=True).vocab
+        s = max(case["seg"])
+        out[name] = {**case, "meshes": case.get("meshes", SHAPES),
+                     "steps": SPLIT_STEPS,
+                     "toks": rng.integers(0, vocab, (4, s)).astype(np.int32),
+                     "seg_lens": np.asarray(case["seg"], np.int32)}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -418,9 +462,78 @@ def test_checkpoint_reshards_onto_another_mesh(ranks):
 
 
 def test_split_model_refuses_serving(ranks):
-    """The split model's cache entry points refuse: serving is
-    single-rank, as the reference's ``ServeEngine`` takes no mesh."""
+    """The split dense model refuses the paged cache layout by name:
+    paged serving stays on one rank (``ServeEngine`` takes no mesh, as
+    the reference's)."""
     assert all(out.get("serve_refused") for out in ranks[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process_serve(name):
+    """The port's one-process prefill and greedy decode steps of a split
+    case on the whole batch: each step's logits."""
+    case = _split_cases()[name]
+    cfg = dataclasses.replace(_pcfg(case["arch"]),
+                              decode_kernel=case.get("kernel", "xla"))
+    model = tbuild(cfg, "cpu")
+    params = _one_process_params(case["arch"])
+    out = []
+    with torch.no_grad():
+        cache = model.init_cache(params, batch=4, max_len=case["max_len"])
+        logits, cache = model.prefill(
+            params, cache, torch.from_numpy(case["toks"].copy()),
+            seg_lens=torch.from_numpy(case["seg_lens"].copy()))
+        out.append(logits)
+        for _ in range(case["steps"]):
+            logits, cache = model.decode_step(
+                params, cache, logits.argmax(-1).to(torch.int32))
+            out.append(logits)
+    return out
+
+
+@pytest.mark.parametrize("name, shape", [
+    (name, shape) for name, case in SPLIT_CASES.items()
+    for shape in case.get("meshes", SHAPES)])
+def test_split_cache_prefill_and_decode_match_one_process(ranks, name,
+                                                          shape):
+    """(h) each rank's rows of the split prefill and decode steps against
+    the one process's: within 1e-5 of the largest |logit| at every step,
+    greedy tokens equal; each rank holds its ``cache_spec`` block plus a
+    sink position."""
+    case = _split_cases()[name]
+    want = _one_process_serve(name)
+    cfg = tconfig(case["arch"], smoke=True)
+    for out in ranks[1]:
+        got = out[f"split_{name}_{shape}"]
+        rows = slice(*got["rows"])
+        assert got["block"] == (
+            cfg.n_layers, 4 // shape[0], case["max_len"] // shape[1] + 1,
+            cfg.n_kv_heads, cfg.head_dim_)
+        for step, (a, b) in enumerate(zip(got["logits"], want)):
+            b = b[rows]
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            assert err <= ONE_PROCESS_TOL * scale, (name, step, err, scale)
+            assert torch.equal(a.argmax(-1), b.argmax(-1)), (name, step)
+
+
+def test_pod_data_train_step_matches_one_process(ranks):
+    """(i) yi-9b on (pod, data, model) = (2, 2, 1), the batch over the
+    flattened pod x data ranks (two rows each), ZeRO-1 moments over
+    ``data``: the losses and parameters of two steps against the port's
+    one process, equal on every rank."""
+    losses, _, one = _one_process(YI)
+    outs = ranks[1]
+    assert sorted(out["pod_coord"] for out in outs) == [
+        (0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]
+    for out in outs:
+        assert out["pod_losses"] == outs[0]["pod_losses"]
+        np.testing.assert_allclose(out["pod_losses"], losses, rtol=1e-5)
+        for a, b in zip(out["pod_params"], tree.leaves(one["params"])):
+            np.testing.assert_allclose(a.numpy(), b.detach().numpy(),
+                                       **PARAM_TOL)
+        for a, b in zip(out["pod_params"], outs[0]["pod_params"]):
+            assert torch.equal(a, b)
 
 
 def test_collectives_are_clocked(ranks):
