@@ -260,12 +260,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rank; flash causal, bidirectional over the encoder's 1500 rows and
    over the 1500 frames in the cross layers, the LayerNorm with bias at
    d 768; fp32 and bf16); llama-3.2-vision-90b at full width cut by depth
-   (fp32 at 1 group of 4 self layers and 1 cross layer, bf16 at 2), 2 x
+   (1 group of 4 self layers and 1 cross layer, fp32 and bf16), 2 x
    256 tokens, vision tokens 2 x 1600 x 8192 from the seed (16/2 heads of
    128 a rank, ``vis_proj`` split by columns and gathered; flash causal
    and over the 1600 vision keys, RMS at d 8192); mamba2-1.3b (fp32 at 12
-   of 48 layers, bf16 at 48) and zamba2-2.7b (fp32 at 12 of 54, bf16 at
-   54), 2 x 256 tokens (16 and 20 SSM heads of 64 a rank, the SSD scan on
+   of 48 layers, bf16 at 24) and zamba2-2.7b (fp32 at 12 of 54, bf16 at
+   24), 2 x 256 tokens (16 and 20 SSM heads of 64 a rank, the SSD scan on
    them with the one group they read, state 128 and 64; zamba2's shared
    block 8/8 heads of 80 through flash); each kernel first held
    to its plain version at a rank's shapes (bf16 and fp32); each fp32
@@ -279,7 +279,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    L + 1; zamba2: SSD L, flash L/6, norms L + 2 L/6 + 1; else flash L,
    norms 2 L + 1), grouped GEMM 3 L (``cuda_cores`` in fp32, ``wgmma`` in
    bf16), no plain call;
-29. ``train_tp``, ``train_tp_whisper``, ``train_tp_zamba2``: the ZeRO-1
+29. ``train_tp``, ``train_tp_whisper``, ``train_tp_zamba2``,
+   ``train_fsdp``: the ZeRO-1
    train step over a (1, 4) mesh on the plain route, fp32, 2 steps, one
    spawn: yi-9b at
    full width cut to 2 layers, 4 x 512 tokens (8 query heads and 1 KV
@@ -291,7 +292,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rank 0's one-process steps and equal across ranks, the gathered first
    moments within 1e-3 of each leaf's largest, whisper's gathered
    checkpoint restored at one rank bitwise; step and collective ms,
-   staged bytes, peak memory;
+   staged bytes, peak memory; ``train_fsdp``: yi-9b at 2 layers, 4 x 512
+   tokens, FSDP over a (2, 2) mesh of the same ranks (the MLP and
+   embedding leaves split over ``data`` and ``model``, gathered on use,
+   their gradients reduce-scattered), the same gates, each rank's
+   parameter and optimizer bytes equal to ``state_shardings(fsdp=True)``'s,
+   and the FSDP model's kernel-route forward (flash and the fused norm,
+   first held to their plain versions at a rank's shapes in bf16 and
+   fp32) within 2e-3 of the one-process forward's largest |logit|, 2
+   flash and 5 norm launches a rank; collectives by kind a step;
 30. ``split_serve`` (phi3.5-moe-42b-a6.6b, in ``tp_forward``'s spawn, at
    its arms' depths: fp32 2 layers gated, bf16 8 reported) and
    ``split_serve_yi`` (yi-9b, in ``train_tp``'s spawn, fp32 2 layers
@@ -3718,9 +3727,11 @@ def _dryrun_account(gpu: str, cfg, tcfg, train_step, state, batch,
 
 
 # The production dry-run cells run in subprocesses beside the card phases
-# (a fake process group is process-wide; they use no card).
+# (a fake process group is process-wide; they use no card).  yi-9b's
+# train cell runs with FSDP at its default (on).
 DRYRUN_CELLS = (("olmoe-1b-7b", "decode_32k", "single"),
-                ("minicpm-2b", "train_4k", "multi"))
+                ("minicpm-2b", "train_4k", "multi"),
+                ("yi-9b", "train_4k", "single"))
 DRYRUN_TIMEOUT_S = 900
 
 
@@ -3773,6 +3784,10 @@ def phase_dryrun(gpu: str, out_dir: str, procs) -> dict:
                       "argument_parts": rec["argument_parts"],
                       "cost_analysis": rec["cost_analysis"],
                       "collectives": rec["counted"]["coll_count"],
+                      "collectives_by_kind": {
+                          k: v["count"] for k, v in
+                          rec["collectives_scanned_module_raw"][
+                              "per_kind"].items() if v["count"]},
                       "step_seconds": rec["step_seconds"],
                       "build_seconds": rec["build_seconds"],
                       "read_after_s": read_after})
@@ -5337,8 +5352,11 @@ def phase_tp_forward(gpu: str, seed: int, models, serve=()) -> dict:
 def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                    arms, steps: int, serve=()) -> None:
     """One rank of train_tp (a spawned process), for each arm (a dict:
-    ``phase``, ``cfg``, ``shape``, ``ckpt``, ``witness``): ``steps``
-    ZeRO-1 steps over a (1, ``world``) mesh with the collectives clocked,
+    ``phase``, ``cfg``, ``shape``, ``ckpt``, ``witness``, ``fsdp``):
+    ``steps`` ZeRO-1 steps over a (1, ``world``) mesh (with ``fsdp``: FSDP
+    over a (2, ``world`` / 2) mesh of the same ranks, after its
+    kernel-route forward, :func:`_fsdp_rank`) with the collectives clocked
+    and recorded,
     then the first moments gathered (a collective), or with ``ckpt`` the
     whole state, written by rank 0 as a checkpoint; rank 0 then takes the
     one-process steps on the same batches and compares (loss, the
@@ -5365,6 +5383,7 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                             rank=rank, world_size=world)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     mesh = make_local_mesh(1, world)
+    mesh22 = make_local_mesh(2, world // 2)     # the FSDP arms' mesh
     tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=1e-3, warmup_steps=0,
                                              total_steps=10),
                        zero1=True, remat=RematPolicy.SAVE_DOTS)
@@ -5372,16 +5391,22 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
     try:
         for arm in arms:
             cfg, name = arm["cfg"], arm["phase"]
+            fsdp = bool(arm.get("fsdp"))
+            amesh = mesh22 if fsdp else mesh
             data = SyntheticLM(cfg, batch=arm["shape"][0],
                                seq=arm["shape"][1], seed=seed)
             res = out[name] = {}
             if device == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            step, model = make_train_step(cfg, tcfg, device, mesh)
+            step, model = make_train_step(
+                cfg, dataclasses.replace(tcfg, fsdp=fsdp), device, amesh)
             state = init_train_state(
                 model, torch.Generator(device=device).manual_seed(seed + 97),
-                mesh, zero1=True)
-            shard = state_shardings(cfg, mesh, zero1=True)
+                amesh, zero1=True)
+            shard = state_shardings(cfg, amesh, zero1=True, fsdp=fsdp)
+            if fsdp:
+                res["fsdp"] = _fsdp_rank(rank, cfg, amesh, state, arm,
+                                         device, seed, tmp, sync)
             rows = []
             for i in range(steps):
                 dist.barrier()
@@ -5389,14 +5414,18 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                 collectives.STAGED.update(collectives=0, bytes=0)
                 tensor_parallel.CLOCK.update(on=True, seconds=0.0)
                 t0 = time.perf_counter()
-                state, m = step(state, data(i))
-                loss = float(m["loss"])
+                with collectives.recording() as notes:
+                    state, m = step(state, data(i))
+                    loss = float(m["loss"])
                 ms = (time.perf_counter() - t0) * 1e3
                 tensor_parallel.CLOCK.update(on=False)
                 rows.append({"loss": loss,
                              "grad_norm": float(m["grad_norm"]), "ms": ms,
                              "collective_ms":
                                  tensor_parallel.CLOCK["seconds"] * 1e3,
+                             "grad_reduce_ms":
+                                 step.collective["seconds"] * 1e3,
+                             "collectives": _by_kind(notes),
                              "staged_collectives":
                                  collectives.STAGED["collectives"],
                              "staged_bytes": collectives.STAGED["bytes"]})
@@ -5443,6 +5472,9 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                 one = init_train_state(
                     one_model, torch.Generator(device=device).manual_seed(
                         seed + 97))
+                if fsdp:
+                    res["fsdp_forward"] = _fsdp_forward_gap(
+                        cfg, one["params"], arm, device, seed, tmp, sync)
                 paths = [tree.path_str(p) for p, _ in
                          tree.leaves_with_paths(full["opt"]["mu"])]
                 one_rows, one_first = [], None
@@ -5501,6 +5533,113 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _by_kind(notes) -> dict:
+    """A collective record's count and result bytes by kind."""
+    out = {}
+    for kind, nbytes, _ in notes:
+        row = out.setdefault(kind, {"count": 0, "bytes": 0})
+        row["count"] += 1
+        row["bytes"] += nbytes
+    return out
+
+
+def _state_bytes(cfg, mesh, fsdp: bool) -> dict:
+    """A rank's parameter and optimizer (mu, nu, count) bytes worked out
+    from ``state_shardings(..., fsdp=)`` on ``mesh`` (ZeRO-1)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.registry import param_shapes
+    from repro_torch.train.step import state_shardings
+    from repro_torch.utils import tree
+
+    whole = tree.leaves(param_shapes(cfg))
+    shs = state_shardings(cfg, mesh, zero1=True, fsdp=fsdp)
+
+    def blocks(specs, esize) -> int:
+        return sum(math.prod(sh.local_shape(tuple(x.shape), s)) * (
+            esize or x.element_size()) for x, s in zip(whole, specs))
+    return {"params": blocks(tree.leaves(shs["params"]), None),
+            "opt": 2 * blocks(tree.leaves(shs["opt"]["mu"]), 4) + 4}
+
+
+def _fsdp_rank(rank: int, cfg, mesh, state, arm, device: str, seed: int,
+               tmp: str, sync) -> dict:
+    """An FSDP arm's checks on one rank before its steps: the parameter
+    and optimizer bytes it holds beside those worked out from the
+    shardings with and without FSDP on the same mesh, and the FSDP
+    model's kernel-route forward of its ``data`` rows (flash and the
+    fused norm on the gathered weights; the rank's first kernel-route
+    call, no warm-up: the run's 1200 s limit), every kernel counter
+    zeroed just before it and read just after, its logits written for
+    rank 0 by the ranks at ``model`` coordinate 0."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree
+
+    held = {"params": tree.tree_bytes(state["params"]),
+            "opt": tree.tree_bytes(state["opt"])}
+    kcfg = dataclasses.replace(cfg, decode_kernel="pallas_paged")
+    model = build_model(kcfg, device, mesh, fsdp=True)
+    params = tree.tree_map(lambda t: t.detach(), state["params"])
+    n, i = mesh.size(0), mesh.get_local_rank("data")
+    toks = _tp_tokens(seed, cfg.vocab, arm["shape"], device)
+    per = toks.shape[0] // n
+    toks = toks[i * per:(i + 1) * per]
+    with torch.no_grad():
+        sync()
+        reset_counts()
+        tensor_parallel.CLOCK.update(on=True, seconds=0.0)
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, toks)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        tensor_parallel.CLOCK.update(on=False)
+        launches = _tp_launches()
+    if mesh.get_local_rank("model") == 0:
+        torch.save(logits.cpu(), f"{tmp}/fsdp_{arm['phase']}_{i}.pt")
+    del logits, model, params
+    return {"held": held, "worked_out": _state_bytes(cfg, mesh, True),
+            "without_fsdp": _state_bytes(cfg, mesh, False),
+            "forward_ms": ms,
+            "forward_collective_ms": tensor_parallel.CLOCK["seconds"] * 1e3,
+            "launches": launches,
+            "max_memory_allocated_forward": (
+                torch.cuda.max_memory_allocated() if device == "cuda"
+                else 0)}
+
+
+def _fsdp_forward_gap(cfg, params, arm, device: str, seed: int, tmp: str,
+                      sync) -> dict:
+    """Rank 0: the one-process kernel-route forward of the whole batch
+    from the same initial parameters, against the FSDP ranks' logits
+    (each ``data`` rank's rows): the largest gap and |logit|."""
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree
+
+    model = build_model(dataclasses.replace(cfg, decode_kernel="pallas_paged"),
+                        device)
+    toks = _tp_tokens(seed, cfg.vocab, arm["shape"], device)
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        want, _ = model.forward(tree.tree_map(lambda t: t.detach(), params),
+                                toks)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+    n = TP_RANKS // 2
+    per = toks.shape[0] // n
+    gap = 0.0
+    finite = True
+    for i in range(n):
+        got = torch.load(f"{tmp}/fsdp_{arm['phase']}_{i}.pt").to(device)
+        finite = finite and bool(torch.isfinite(got).all())
+        gap = max(gap, (got - want[i * per:(i + 1) * per]).abs().max().item())
+        del got
+    scale = want.abs().max().item()
+    del want
+    return {"gap": gap, "scale": scale, "finite": finite,
+            "one_process_forward_ms": ms}
 
 
 def _tp_snapshot(state) -> dict:
@@ -5617,6 +5756,48 @@ def _tp_witness(paths, split_first, split_mu, one_first, one_mu, split_rows,
     return out
 
 
+def _fsdp_line(name: str, cfg, rs) -> dict:
+    """An FSDP arm's gates and fields: every rank's parameter and
+    optimizer bytes equal to those worked out from ``state_shardings(...,
+    fsdp=True)``; the kernel-route forward within ``TP_LOGIT_TOL`` of the
+    one-process forward's largest |logit| and each rank's launches
+    :func:`_tp_want`'s."""
+    want = _tp_want(cfg)
+    for r, res in enumerate(rs):
+        f = res["fsdp"]
+        if f["held"] != f["worked_out"]:
+            raise AssertionError(
+                f"{name}: rank {r} holds {f['held']} bytes of parameters "
+                f"and optimizer state, the FSDP shardings give "
+                f"{f['worked_out']}")
+        got = {k: f["launches"][k] for k in want}
+        if DEV == "cuda" and (got != want or f["launches"]["others"]):
+            raise AssertionError(f"{name}: rank {r}'s kernel-route forward "
+                                 f"launched {f['launches']}, expected {want}")
+    fwd = rs[0]["fsdp_forward"]
+    if not (fwd["finite"] and fwd["gap"] <= TP_LOGIT_TOL * fwd["scale"]):
+        raise AssertionError(
+            f"{name}: the FSDP kernel-route forward is {fwd['gap']:.3e} "
+            f"from the one-process forward, beyond {TP_LOGIT_TOL} of its "
+            f"largest |logit| {fwd['scale']:.3e} (finite: {fwd['finite']})")
+    f0 = rs[0]["fsdp"]
+    return {
+        "state_bytes_a_rank": {"fsdp": f0["worked_out"],
+                               "without_fsdp": f0["without_fsdp"],
+                               "held": [r["fsdp"]["held"] for r in rs]},
+        "kernel_forward": {
+            "route": "pallas_paged",
+            "rel_err": fwd["gap"] / fwd["scale"], "max_abs_err": fwd["gap"],
+            "max_abs_logit": fwd["scale"], "tol": TP_LOGIT_TOL,
+            "forward_ms": [r["fsdp"]["forward_ms"] for r in rs],
+            "collective_ms": [r["fsdp"]["forward_collective_ms"]
+                              for r in rs],
+            "one_process_forward_ms": fwd["one_process_forward_ms"],
+            "launches": [r["fsdp"]["launches"] for r in rs],
+            "max_memory_allocated": [
+                r["fsdp"]["max_memory_allocated_forward"] for r in rs]}}
+
+
 def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
                    serve=()) -> dict:
     """Tensor-parallel ZeRO-1 training (``train.step`` over a (1, 4) mesh,
@@ -5634,11 +5815,18 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
     first step and after a second step from the split's own state
     (:func:`_tp_witness`), and the moments after the last step are
     reported beside two one-process-against-one-process gaps.  One line
-    an arm.  Then the split serve arms' line (``serve``, in the same
-    spawn: :func:`_split_serve_rank`)."""
+    an arm.  With ``fsdp`` first the kernels of the arm's kernel-route
+    forward at one rank's shapes (its ``data`` rows, its ``model`` heads)
+    against their plain versions in bf16 and fp32
+    (:func:`_tp_local_kernels`).  Then the split serve arms' line
+    (``serve``, in the same spawn: :func:`_split_serve_rank`)."""
     import tempfile
 
     t_phase = time.perf_counter()
+    n_data, n_model = 2, TP_RANKS // 2          # the FSDP arms' mesh
+    local = {arm["phase"]: _tp_local_kernels(
+        arm["cfg"], (arm["shape"][0] // n_data, arm["shape"][1]), n_model,
+        seed) for arm in arms if arm.get("fsdp")}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         _spawn(_tp_train_rank, TP_RANKS, tmp, seed, DEV, arms, steps, serve)
@@ -5679,13 +5867,16 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
         if arm["ckpt"] and not r0["restore_bitwise"]:
             raise AssertionError(f"{name}: the gathered checkpoint did not "
                                  f"restore bitwise at one rank")
+        fsdp = _fsdp_line(name, cfg, rs) if arm.get("fsdp") else None
         if not all(math.isfinite(x) for x in losses[0]):
             raise AssertionError(f"{name}: non-finite loss {losses[0]}")
         out = {"phase": name, "gpu": gpu, "arch": cfg.arch,
                "family": cfg.family, "n_layers": cfg.n_layers,
                "dtype": cfg.dtype, "cut": arm["cut"],
-               "ranks": TP_RANKS, "mesh": [1, TP_RANKS], "backend": "gloo",
-               "route": "xla", "zero1": True, "batch": list(arm["shape"]),
+               "ranks": TP_RANKS,
+               "mesh": [n_data, n_model] if fsdp else [1, TP_RANKS],
+               "backend": "gloo", "route": "xla", "zero1": True,
+               "fsdp": fsdp is not None, "batch": list(arm["shape"]),
                "steps": steps, "losses": losses[0],
                "one_process_losses": one, "loss_rel_gap": gaps,
                "mu_rel_err": mu["rel_err"], "mu_worst_leaf": mu["leaf"],
@@ -5701,6 +5892,10 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
                                        for row in r0["one_process"]],
                "collective_ms": [[row["collective_ms"] for row in r["steps"]]
                                  for r in rs],
+               "grad_reduce_ms": [[row["grad_reduce_ms"]
+                                   for row in r["steps"]] for r in rs],
+               "collectives_a_step": [row["collectives"]
+                                      for row in r0["steps"]],
                "staged_collectives": [r["steps"][-1]["staged_collectives"]
                                       for r in rs],
                "staged_bytes": [r["steps"][-1]["staged_bytes"] for r in rs],
@@ -5711,6 +5906,8 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
                    "; parameters and first moments after step 1"
                    if wit else ""),
                "gather_s": [r["gather_s"] for r in rs]}
+        if fsdp is not None:
+            out.update(fsdp, local_kernels=local[name])
         if wit is not None:
             out["witness"] = dict(wit, last_moments={
                 "after": f"step {steps}", "rel_err": r0["mu_rel_err"],
@@ -5725,7 +5922,9 @@ def phase_train_tp(gpu: str, seed: int, arms, steps: int = 2,
             "timing": "host clock; each step starts after a barrier with "
                       "the collectives clocked (tensor_parallel.CLOCK: a "
                       "device sync before and after each, the host staging "
-                      "included); the ranks run at once on one card; "
+                      "included; the gradients' bucketed all-reduce over "
+                      "the batch ranks apart, in grad_reduce_ms); the ranks "
+                      "run at once on one card; "
                       "ranks_s and phase_s: the one spawn and the whole "
                       "phase, shared by the train_tp lines",
             "ranks_s": ranks_s})
@@ -5899,8 +6098,10 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
     phase_prefix(gpu, args.seed, cfg12, params12, cut=cut12)
     served["yi-9b"] = serve
     # Speculative decode and the adaptive policy at yi-9b's width.
-    served["yi-9b spec"] = phase_serve_spec(gpu, args.seed, serve["cfg"],
-                                            serve["params"], "serve_spec")
+    served["yi-9b spec"] = phase_serve_spec(
+        gpu, args.seed, cfg12, params12, "serve_spec",
+        cut="n_layers 48 -> 12: the run's 1200 s limit (the FSDP train arm "
+            "took the time)")
     served["yi-9b adaptive"] = phase_serve_adaptive(gpu, cfg12, params12,
                                                     cut=cut12)
     # Seeded top-p sampling, then crash safety and KV page integrity.
@@ -5932,7 +6133,10 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
     torch.cuda.empty_cache()
     mserve = phase_serve(gpu, args.seed,
                          dataclasses.replace(mamba2_13b.CONFIG, **paged),
-                         "serve_mamba2")
+                         "serve_mamba2", twins=(),
+                         cut="the eager twin: the run's 1200 s limit (the "
+                             "FSDP train arm took the time); olmoe and "
+                             "whisper keep theirs")
     served["mamba2-1.3b"] = mserve
     del mserve["params"]
     torch.cuda.empty_cache()
@@ -6072,6 +6276,8 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
     ssm_cut = ("n_layers {L} -> 12{g}: the run's 1200 s limit (each layer "
                "stages its gathered in_proj and conv outputs through the "
                "host, twice as many bytes in fp32)")
+    ssm_measured_cut = ("n_layers {L} -> 24{g}: the run's 1200 s limit (a "
+                        "proof run with the FSDP train arm took 1162.1 s)")
     vlm_cut = ("n_layers 100 -> {n} ({g} group(s) of 4 self layers and 1 "
                "cross layer): the weights once in this process and once "
                "over the ranks (~{gb} GB each), and the run's 1200 s limit; "
@@ -6091,20 +6297,25 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
          "measured": wsp, "cut": {"gate": None, "measured": None}},
         {"phase": "tp_forward_vlm", "shape": (2, 256),
          "gate": dataclasses.replace(vlm, n_layers=5, dtype="float32"),
-         "measured": dataclasses.replace(vlm, n_layers=10),
+         "measured": dataclasses.replace(vlm, n_layers=5),
          "cut": {"gate": vlm_cut.format(n=5, g=1, gb=26),
-                 "measured": vlm_cut.format(n=10, g=2, gb=21)}},
+                 "measured": vlm_cut.format(n=5, g=1, gb=13)
+                 + " (10 layers until a proof run with the FSDP train arm "
+                   "took 1100.3 s)"}},
         {"phase": "tp_forward_mamba2", "shape": (2, 256),
          "gate": dataclasses.replace(mb, n_layers=12, dtype="float32"),
-         "measured": mb,
-         "cut": {"gate": ssm_cut.format(L=48, g=""), "measured": None}},
+         "measured": dataclasses.replace(mb, n_layers=24),
+         "cut": {"gate": ssm_cut.format(L=48, g=""),
+                 "measured": ssm_measured_cut.format(L=48, g="")}},
         {"phase": "tp_forward_zamba2", "shape": (2, 256),
          "gate": dataclasses.replace(zb, n_layers=12, dtype="float32"),
-         "measured": zb,
+         "measured": dataclasses.replace(zb, n_layers=24),
          "cut": {"gate": ssm_cut.format(L=54, g=" (two groups of 6 "
                                               "Mamba-2 layers and the "
                                               "shared block)"),
-                 "measured": None}}],
+                 "measured": ssm_measured_cut.format(
+                     L=54, g=" (four groups of 6 Mamba-2 layers and the "
+                             "shared block)")}}],
         # The split cache at the depths the phi arms run.
         serve=[("split_serve.gate",
                 dataclasses.replace(phi35_moe.CONFIG, n_layers=2,
@@ -6136,13 +6347,30 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
          "cut": "n_layers 54 -> 6 (one group of 6 Mamba-2 layers and the "
                 "shared block): the run's 1200 s limit; only the first "
                 "moments gathered, no checkpoint (the CPU tests restore "
-                "mamba2's)"}],
+                "mamba2's)"},
+        # FSDP over data on a (2, 2) mesh of the same ranks: yi-9b's MLP
+        # and embedding leaves split over data and model, gathered on use.
+        {"phase": "train_fsdp", "shape": (4, 512), "ckpt": False,
+         "fsdp": True,
+         "cfg": dataclasses.replace(yi_9b.CONFIG, n_layers=2,
+                                    dtype="float32"),
+         "cut": "n_layers 48 -> 2: the fp32 state (~14 GB) once over the "
+                "ranks and once in rank 0's one-process steps, and the "
+                "run's 1200 s limit; only the first moments gathered, no "
+                "checkpoint (the CPU tests restore an FSDP checkpoint at "
+                "one process and onto another mesh)"}],
         serve=[("split_serve_yi.gate",
                 dataclasses.replace(yi_9b.CONFIG, n_layers=2,
                                     dtype="float32"))])
     served["split_serve_yi"] = {"launches": {
         **{k: 0 for k in counts()},
         "decode_dense": ttp["serve"]["decode_dense_launches"]}}
+    fsdp_fwd = next(line for line in ttp["lines"]
+                    if line["phase"] == "train_fsdp")["kernel_forward"]
+    served["train_fsdp"] = {"launches": {
+        **{k: 0 for k in counts()},
+        **{k: sum(row[k] for row in fsdp_fwd["launches"])
+           for k in ("flash_dense", "fused_norm")}}}
     torch.cuda.empty_cache()
     phase_dryrun(gpu, dry_dir, dry)
 

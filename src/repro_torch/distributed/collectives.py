@@ -17,19 +17,23 @@ reduction and int8-compressed gradient all-reduce with error feedback.
 **Gloo and the card.**  NCCL will not put two ranks on one device, so
 ranks that share a card run over gloo.  Under gloo every collective here
 copies a CUDA tensor to the host, runs there and copies the result back,
-explicitly; the arithmetic stays on the card.  ``STAGED`` counts such
-collectives and the bytes they moved each way.
+explicitly; the arithmetic stays on the card.  The host side is one
+page-locked buffer a process, grown to the largest collective staged so
+far and reused (:func:`_host`): the copies run at the bus's rate and no
+call pays for fresh host pages.  ``STAGED`` counts such collectives and
+the bytes they moved each way.
 
 **The record.**  Every collective the port issues goes through
-:func:`all_reduce` or :func:`all_gather` (``tensor_parallel``,
-``sp_decode``, the trainer and the optimizer call nothing else).  While a
-:func:`recording` context is open each call appends ``(kind, result
-bytes, group size)`` to it: the dry run's collective account
-(``launch.roofline.collective_record``).
+:func:`all_reduce`, :func:`all_gather` or :func:`reduce_scatter`
+(``tensor_parallel``, ``fsdp``, ``sp_decode``, the trainer and the
+optimizer call nothing else).  While a :func:`recording` context is
+open each call appends ``(kind, result bytes, group size)`` to it: the
+dry run's collective account (``launch.roofline.collective_record``).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.distributed as dist
@@ -39,13 +43,16 @@ from repro_torch.core.rinse import bucket_flush_schedule
 STAGED = {"collectives": 0, "bytes": 0}
 # The open recording's list, None when none is open.
 _RECORD: list | None = None
+# The process's page-locked staging buffer (bytes), None until needed.
+_PINNED: torch.Tensor | None = None
 
 
 @contextlib.contextmanager
 def recording():
     """Yield a list that collects ``(kind, result_bytes, group_size)`` of
     every collective issued inside the context (``kind`` as the
-    reference's HLO names it: ``"all-reduce"``, ``"all-gather"``)."""
+    reference's HLO names it: ``"all-reduce"``, ``"all-gather"``,
+    ``"reduce-scatter"``)."""
     global _RECORD
     outer, _RECORD = _RECORD, []
     try:
@@ -68,13 +75,32 @@ def _count(t: torch.Tensor) -> None:
     STAGED["bytes"] += t.numel() * t.element_size()
 
 
+def _host(*like: tuple) -> list[torch.Tensor]:
+    """Host tensors for one staged collective, one a ``(shape, dtype)`` in
+    ``like``, laid out in the process's page-locked buffer (grown when it
+    is too small).  They are valid until the next call, so a caller copies
+    its results to the card before it returns."""
+    global _PINNED
+    sizes = [math.prod(shape) * dtype.itemsize for shape, dtype in like]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + -(-n // 64) * 64)
+    if _PINNED is None or _PINNED.numel() < offsets[-1]:
+        _PINNED = None          # the old buffer goes before the new one
+        _PINNED = torch.empty(offsets[-1], dtype=torch.uint8,
+                              pin_memory=True)
+    return [_PINNED[o:o + n].view(dtype).view(shape)
+            for o, n, (shape, dtype) in zip(offsets, sizes, like)]
+
+
 def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM,
                group=None) -> torch.Tensor:
     """``t`` reduced over ``group``, in place; returns ``t``."""
     _note("all-reduce", t.numel() * t.element_size(), group)
     if _staged(t, group):
         _count(t)
-        host = t.cpu()
+        (host,) = _host((t.shape, t.dtype))
+        host.copy_(t)
         dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
@@ -88,14 +114,36 @@ def all_gather(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     _note("all-gather", n * t.numel() * t.element_size(), group)
     if _staged(t, group):
         _count(t)
-        host = t.detach().cpu().contiguous()
-        parts = [torch.empty_like(host) for _ in range(n)]
+        host, *parts = _host(*[(t.shape, t.dtype)] * (n + 1))
+        host.copy_(t.detach())
         dist.all_gather(parts, host, group=group)
         return [p.to(t.device) for p in parts]
     src = t.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return parts
+
+
+def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's block of ``t`` summed over ``group``: ``t`` split along
+    its first dimension into one block a rank (in rank order), each block
+    summed over the ranks, and this rank's sum returned (a new tensor)."""
+    n = dist.get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"reduce_scatter: {t.shape[0]} rows do not split "
+                         f"over {n} ranks")
+    src = t.detach().contiguous()
+    out_shape = (t.shape[0] // n, *t.shape[1:])
+    _note("reduce-scatter", src.numel() // n * src.element_size(), group)
+    if _staged(t, group):
+        _count(t)
+        host, out = _host((src.shape, src.dtype), (out_shape, src.dtype))
+        host.copy_(src)
+        dist.reduce_scatter_tensor(out, host, group=group)
+        return out.to(t.device)
+    out = torch.empty(out_shape, dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out
 
 
 def bucketed_all_reduce(grads: list[torch.Tensor], group=None,

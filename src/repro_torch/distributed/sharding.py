@@ -374,14 +374,16 @@ def unshard(local: torch.Tensor, sh: Sharding) -> torch.Tensor:
     return out
 
 
-def shard_params(params: Any, cfg: ModelConfig, mesh) -> Any:
+def shard_params(params: Any, cfg: ModelConfig, mesh,
+                 fsdp: bool = False) -> Any:
     """This rank's block of every leaf of a whole parameter tree (e.g.
     ``convert.from_jax``'s or a one-process ``init``'s), leaf by leaf:
-    each cut by its :func:`params_shardings` spec and copied out, so the
+    each cut by its :func:`params_shardings` spec (``fsdp``: the FSDP
+    rule's, ``data`` on the large leaves too) and copied out, so the
     whole leaf can be freed (a block along the first dimension is a
     contiguous view of the whole storage, which ``.contiguous()`` would
     keep)."""
-    shs = params_shardings(params, cfg, mesh)
+    shs = params_shardings(params, cfg, mesh, fsdp=fsdp)
 
     def cut(p, s):
         out = shard(p, s)
@@ -389,12 +391,16 @@ def shard_params(params: Any, cfg: ModelConfig, mesh) -> Any:
     return tree.tree_map(cut, params, shs)
 
 
-def without_axis(shardings: Any, axis: str) -> Any:
-    """The shardings with ``axis`` taken out of every spec: the blocks, on
-    the remaining axes, of tensors that are already this rank's block
-    along ``axis`` (ZeRO-1's data-axis block of a model-axis block)."""
-    def drop(s: Sharding) -> Sharding:
-        return Sharding(s.mesh, spec(*(
-            tuple(a for a in spec_axes(part) if a != axis)
-            for part in s.spec)))
-    return tree.tree_map(drop, shardings)
+def placer(cfg: ModelConfig, mesh, path: tuple, lead: tuple = (),
+           fsdp: bool = False):
+    """``place(key, full) -> this rank's block`` for the leaves under
+    ``path`` (list lengths ``lead`` above them, the axes the reference
+    stacks): the leaf cut by its spec as it is drawn, and copied out (a
+    block along the first dimension is a contiguous view that would keep
+    the whole leaf's storage alive)."""
+    def cut(key: str, full: torch.Tensor) -> torch.Tensor:
+        spec = _leaf_spec(path + (key,), lead, tuple(full.shape), cfg, mesh,
+                          fsdp)
+        out = shard(full, Sharding(mesh, spec))
+        return out if out is full else out.clone()
+    return cut

@@ -206,16 +206,9 @@ class ModelParallel:
 
     def place(self, path: tuple, lead: tuple = ()):
         """``place(key, full) -> this rank's block`` for the leaves under
-        ``path`` (list lengths ``lead`` above them, the axes the reference
-        stacks): the leaf cut by its ``param_spec`` as it is drawn, and
-        copied out (a block along the first dimension is a contiguous view
-        that would keep the whole leaf's storage alive)."""
-        def cut(key: str, full: torch.Tensor) -> torch.Tensor:
-            spec = sh._leaf_spec(path + (key,), lead, tuple(full.shape),
-                                 self.cfg, self.mesh, False)
-            out = sh.shard(full, sh.Sharding(self.mesh, spec))
-            return out if out is full else out.clone()
-        return cut
+        ``path`` (list lengths ``lead`` above them): ``sharding.placer``
+        under the rule without FSDP."""
+        return sh.placer(self.cfg, self.mesh, path, lead)
 
     def kv_heads(self, hq_local: int) -> torch.Tensor | slice:
         """The replicated K/V heads this rank's query heads read: global

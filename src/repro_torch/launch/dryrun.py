@@ -36,10 +36,15 @@ the optimizer moments their ZeRO-1 blocks), and ``train_step``,
 ``run_cell`` keeps the reference's rules, so the knobs equal the
 reference's cell for cell: the auto-fit ladder, ``_fits`` at the
 reference's 16 GiB, ``sharding.fsdp_needed`` at its default, and the
-multi-pod cells' reuse of the single-pod knobs.  A cell that waits on
-work the port has not done fails at once with ``NotImplementedError``
-naming its ROADMAP item (:func:`waits_on`); it never falls back to a
-one-rank run.
+multi-pod cells' reuse of the single-pod knobs.  A train cell with FSDP
+(the ``train_4k`` cells of yi-9b, granite-20b, qwen2.5-32b, phi3.5-moe,
+olmoe-1b-7b and llama-3.2-vision-90b) builds its model and state under
+``params_shardings(..., fsdp=True)`` and its step gathers each layer's
+leaves over ``data`` and reduce-scatters their gradients
+(``distributed.fsdp``): both appear in the collective record.  A cell
+that waits on work the port has not done fails at once with
+``NotImplementedError`` naming its ROADMAP item (:func:`waits_on`); it
+never falls back to a one-rank run.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-9b --shape decode_32k --mesh single
@@ -72,13 +77,12 @@ from repro_torch.launch import roofline
 from repro_torch.launch.mesh import axis_sizes, make_production_mesh
 from repro_torch.launch.specs import batch_specs
 from repro_torch.models import build_model, get_config, runnable_cells
-from repro_torch.models.registry import SPLIT_CACHE_FAMILIES, param_shapes
+from repro_torch.models.registry import (FSDP_FAMILIES, FSDP_FAMILIES_ITEM,
+                                         SPLIT_CACHE_FAMILIES, param_shapes)
 from repro_torch.utils import tree
 
 ARTIFACT_DIR = "artifacts/dryrun"
 
-FSDP_ITEM = ("FSDP execution over 'data' (gather on use, reduce-scattered "
-             "gradients): ROADMAP queue 1 item 1")
 CACHE_ITEM = ("the split cache path for mamba2/zamba2 (long_500k included), "
               "whisper and the VLM: ROADMAP queue 1 item 2")
 
@@ -293,8 +297,8 @@ def production_mesh(multi_pod: bool):
 
 def waits_on(cfg, shape, fsdp: bool) -> str | None:
     """The ROADMAP item a cell waits on, None when the port runs it."""
-    if fsdp:
-        return FSDP_ITEM
+    if fsdp and cfg.family not in FSDP_FAMILIES:
+        return FSDP_FAMILIES_ITEM
     if shape.kind != "train" and cfg.family not in SPLIT_CACHE_FAMILIES:
         return CACHE_ITEM
     return None
@@ -314,13 +318,14 @@ def _check(name: str, worked_out: int, held: int) -> int:
     return worked_out
 
 
-def _state_parts(cfg, mesh, state, zero1: bool) -> dict:
+def _state_parts(cfg, mesh, state, zero1: bool, fsdp: bool) -> dict:
     """The rank's parameter and optimizer bytes from ``local_shape`` under
-    ``params_shardings``/``opt_shardings``, held against ``state``."""
+    ``params_shardings``/``opt_shardings`` (``fsdp``: the FSDP rule's),
+    held against ``state``."""
     from repro_torch.train.step import state_shardings
 
     whole = param_shapes(cfg)
-    shs = state_shardings(cfg, mesh, zero1=zero1)
+    shs = state_shardings(cfg, mesh, zero1=zero1, fsdp=fsdp)
     pairs = list(zip(tree.leaves(whole), tree.leaves(shs["params"])))
     params = _block_bytes(pairs, lambda x: x.dtype)
     opt = 2 * _block_bytes(
@@ -361,16 +366,21 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     if item is not None:
         raise NotImplementedError(f"{cfg.arch} x {shape_name}: waits on "
                                   f"{item}")
+    if use_fsdp and shape.kind != "train":
+        raise NotImplementedError(
+            f"{cfg.arch} x {shape_name}: FSDP is the trainer's; the serving "
+            f"path holds its weights whole over 'data'")
     mesh = production_mesh(multi_pod)
     if shape.kind == "train":
         tcfg = TrainConfig(remat=RematPolicy(remat),
                            grad_reduce_dtype=grad_reduce_dtype,
                            microbatch=microbatch, zero1=zero1,
-                           batch_axes=tuple(sh.batch_axes(mesh)))
+                           batch_axes=tuple(sh.batch_axes(mesh)),
+                           fsdp=use_fsdp)
         train_step, model = make_train_step(cfg, tcfg, "meta", mesh)
         state = init_train_state(model, None, mesh, zero1=zero1)
         batch = batch_specs(cfg, shape)
-        parts = {**_state_parts(cfg, mesh, state, zero1),
+        parts = {**_state_parts(cfg, mesh, state, zero1, use_fsdp),
                  "inputs": _input_bytes(cfg, mesh, shape, batch)}
         rows = train_step_rows(batch, mesh, tcfg)
         arguments = tree.leaves(state) + rows

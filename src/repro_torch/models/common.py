@@ -89,6 +89,17 @@ def placer(tp, path: tuple, lead: tuple = ()):
     return _keep if tp is None else tp.place(path, lead)
 
 
+def fsdp_refuses_serving(*args, **kwargs):
+    """The cache entry points of a model built with FSDP: the gathers run
+    in ``forward`` and ``loss`` only, and serving holds its weights whole
+    over ``data`` (``sharding.fsdp_needed`` is false for every serve
+    cell)."""
+    raise NotImplementedError(
+        "a model built with fsdp=True trains and runs forward only; its "
+        "cache entry points would need the whole weights on every data "
+        "rank: build the serving model without fsdp")
+
+
 def single_rank(*args, **kwargs):
     """The cache entry points of a model split over ``model`` whose family
     has no split cache path yet (every family but dense and MoE)."""
@@ -1156,6 +1167,9 @@ class ModelApply:
     prefill: Any         # (params, cache, tokens, seg_lens, all_logits)
     decode_step: Any     # (params, cache, tokens, seg_lens)
     reset_slots: Any = None  # (cache, mask (b,) bool) -> cache, in place
+    # Under FSDP the ``distributed.fsdp.DataShards`` the model gathers its
+    # leaves with (which leaves split over ``data``); None otherwise.
+    data_shards: Any = None
     # The path of the self-attention K/V subtree ({"k", "v"}) in the cache:
     # the page pool of a paged cache, the leaves the page table addresses.
     # None: no KV (mamba2).

@@ -46,9 +46,17 @@ TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # split over ``model`` (the self K/V's sequence over ``model``, the batch
 # over the batch axes: ``models.transformer``).
 SPLIT_CACHE_FAMILIES = ("dense", "moe")
+# The families whose ``init``, ``forward`` and ``loss`` run under FSDP
+# over ``data`` (``distributed.fsdp``: ``models.transformer``).
+FSDP_FAMILIES = ("dense", "moe", "vlm")
+FSDP_FAMILIES_ITEM = ("FSDP over 'data' for the mamba2, zamba2 and whisper "
+                      "families: ROADMAP queue 1 item 3")
 
 
-def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
+def build_model(cfg: ModelConfig, device=None, mesh=None,
+                fsdp: bool = False,
+                grad_reduce_dtype: torch.dtype = torch.float32
+                ) -> cm.ModelApply:
     """The model for ``cfg`` on ``device`` (default: the CUDA card; raises
     without one unless ``device="cpu"`` is given).
 
@@ -57,13 +65,34 @@ def build_model(cfg: ModelConfig, device=None, mesh=None) -> cm.ModelApply:
     over ``model``: each rank holds its ``sharding.param_spec`` block of
     every leaf, and the collectives run inside the model code.  Every
     family (:data:`TENSOR_PARALLEL_FAMILIES`); the split model's cache
-    entry points refuse, since serving runs on one rank."""
+    entry points refuse, since serving runs on one rank.
+
+    ``fsdp`` (with a mesh, any ``model`` size) holds each rank's block of
+    every leaf under ``params_shardings(..., fsdp=True)``, ``data`` on
+    the large leaves too, and gathers them on use
+    (``distributed.fsdp``); the dense, MoE and VLM families
+    (:data:`FSDP_FAMILIES`), the others refuse by name; its gradients
+    are reduce-scattered in ``grad_reduce_dtype``.  The cache entry
+    points of such a model refuse."""
     if cfg.family not in _MODULES:
         raise ValueError(f"unknown family: {cfg.family}")
+    from repro_torch.distributed.fsdp import DataShards
     from repro_torch.distributed.tensor_parallel import model_parallel
     from repro_torch.launch.mesh import axis_sizes
 
     module = importlib.import_module(_MODULES[cfg.family])
+    if fsdp:
+        if mesh is None:
+            raise ValueError(f"{cfg.arch}: fsdp=True needs a mesh with a "
+                             f"'data' axis")
+        if cfg.family not in FSDP_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.arch}: the {cfg.family} family has no FSDP execution "
+                f"(it waits on {FSDP_FAMILIES_ITEM}); build it with "
+                f"fsdp=False")
+        return module.build(cfg, resolve_device(device),
+                            model_parallel(cfg, mesh),
+                            DataShards(cfg, mesh, grad_reduce_dtype))
     if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
         return module.build(cfg, resolve_device(device))
     if cfg.family not in TENSOR_PARALLEL_FAMILIES:

@@ -18,6 +18,15 @@ read after.
 ``forward`` walks the layers with no cache; the activation policy wraps
 each layer's body (a VLM: each group's span of self layers and its cross
 layer), as the reference's remat wraps its scan body.
+
+**FSDP** (``fs``, a ``distributed.fsdp.DataShards``): each rank holds its
+``(model, data)`` block of every leaf, and ``forward``/``loss`` gather a
+layer's (a VLM group's) leaves over ``data`` at the top of its body,
+inside the activation policy's region, and each top-level leaf (the
+embedding for the lookup, the logits' weight, ``vis_proj``, ``ln_f``)
+at its use; the code after a gather is the tensor-parallel code
+on the rank's ``model`` blocks.  The cache entry points refuse
+(``common.fsdp_refuses_serving``).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.remat import RematPolicy, apply_remat
 from repro_torch.device import torch_dtype
+from repro_torch.distributed.fsdp import gather
 from repro_torch.models import common as cm
 
 
@@ -51,13 +61,16 @@ def _layer_init(gen, cfg: ModelConfig, device, cross: bool = False,
     return p
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None):
+def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None, fs=None):
     """Random parameters from the reference's distributions (not its
     numbers: torch and JAX generators differ).  With ``tp`` (a
     ``ModelParallel``) every leaf is drawn whole, in the one-process
     order, and only this rank's block of it is kept: the parameters are
     the blocks of the one-process ``init``'s from the same generator
-    state, and no rank holds more than one whole leaf at a time."""
+    state, and no rank holds more than one whole leaf at a time.  With
+    ``fs`` (FSDP) the blocks are the FSDP rule's, split over ``data``
+    too."""
+    tp = fs if fs is not None else tp       # whose blocks the placers keep
     params = {"embed": cm.embed_init_params(
                   gen, cfg, device, place=cm.placer(tp, ("embed",))),
               "ln_f": cm.norm_init(cfg, device)}
@@ -116,31 +129,34 @@ def _cross_block(p, x, cfg: ModelConfig, positions, vis, cache, tp=None):
 
 
 def _stack_nocache(params, x, cfg: ModelConfig, positions, vis,
-                   remat: RematPolicy, density_mean=None, tp=None):
+                   remat: RematPolicy, density_mean=None, tp=None, fs=None):
     """The training stack: every layer over the whole block, no cache;
     -> (x, the MoE layers' summed aux loss).  A remat recompute calls
-    ``density_mean`` again (on every rank alike)."""
+    ``density_mean`` again (on every rank alike), and under FSDP gathers
+    the layer's leaves again."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.cross_attn_every:
-        def group_body(h, self_layers, cross_layer, vis):
+        def group_body(h, self_layers, cross_layer, vis, gi):
+            self_layers = gather(fs, self_layers, "self_layers", gi)
+            cross_layer = gather(fs, cross_layer, "cross_layers", gi)
             for lp in self_layers:       # the VLM family has no MoE
                 h = _self_block_aux(lp, h, cfg, positions, tp=tp)[0]
             return _cross_block(cross_layer, h, cfg, positions, vis, None,
                                 tp)
 
         body = apply_remat(group_body, remat)
-        for group, cross in zip(params["self_layers"],
-                                params["cross_layers"]):
-            x = body(x, group, cross, vis)
+        for gi, (group, cross) in enumerate(zip(params["self_layers"],
+                                                params["cross_layers"])):
+            x = body(x, group, cross, vis, gi)
         return x, aux
 
-    def layer_body(h, lp):
-        return _self_block_aux(lp, h, cfg, positions,
-                               density_mean=density_mean, tp=tp)
+    def layer_body(h, lp, i):
+        return _self_block_aux(gather(fs, lp, "layers", i), h, cfg,
+                               positions, density_mean=density_mean, tp=tp)
 
     body = apply_remat(layer_body, remat)
-    for lp in params["layers"]:
-        x, da = body(x, lp)
+    for i, lp in enumerate(params["layers"]):
+        x, da = body(x, lp, i)
         if da is not None:
             aux = aux + da
     return x, aux
@@ -276,16 +292,23 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
     return prefill(params, cache, tokens, cfg, seg_lens=seg_lens, tp=tp)
 
 
+def _embed_leaves(params, cfg: ModelConfig, fs, logits: bool) -> dict:
+    """The embedding leaf one use reads (``tok`` for the lookup; for the
+    logits ``tok`` when tied, else ``unembed``), gathered under FSDP."""
+    key = "tok" if not logits or cfg.tie_embeddings else "unembed"
+    return {key: gather(fs, params["embed"][key], "embed", key)}
+
+
 def _hidden(params, tokens, cfg: ModelConfig, vis, remat: RematPolicy,
-            density_mean, tp):
+            density_mean, tp, fs=None):
     """The final normed hidden states (b, s, d) and the aux loss."""
     s = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens, tp)
+    x = cm.embed(_embed_leaves(params, cfg, fs, False), tokens, tp)
     if cfg.cross_attn_every:
         if vis is None:
             raise ValueError("a VLM forward needs the vision tokens (vis=)")
         vis = vis.to(device=x.device, dtype=x.dtype)
-        w = params["vis_proj"]
+        w = gather(fs, params["vis_proj"], "vis_proj")
         if w.shape[1] != cfg.d_model:        # column-split over ``model``
             # Every rank's cross layers read the whole projected tokens.
             vis = tp.gather(tp.copy(vis) @ w, -1)
@@ -293,46 +316,56 @@ def _hidden(params, tokens, cfg: ModelConfig, vis, remat: RematPolicy,
             vis = vis @ w
     positions = torch.arange(s, device=tokens.device)[None, :]
     x, aux = _stack_nocache(params, x, cfg, positions, vis, remat,
-                            density_mean, tp)
-    return cm.apply_norm(params["ln_f"], x, cfg), aux
+                            density_mean, tp, fs)
+    return cm.apply_norm(gather(fs, params["ln_f"], "ln_f"), x, cfg), aux
 
 
 def forward(params, tokens, cfg: ModelConfig, vis=None,
             remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None,
-            tp=None):
+            tp=None, fs=None):
     """tokens (b, s) -> (logits (b, s, padded vocab), aux loss);
     ``density_mean``: see ``common._route``.  Under ``tp`` the logits are
     gathered whole on every rank, as the reference's forward returns
     them."""
-    x, aux = _hidden(params, tokens, cfg, vis, remat, density_mean, tp)
-    logits = cm.unembed(params["embed"], x, cfg, tp)
+    x, aux = _hidden(params, tokens, cfg, vis, remat, density_mean, tp, fs)
+    logits = cm.unembed(_embed_leaves(params, cfg, fs, True), x, cfg, tp)
     return cm.gather_vocab(logits, tp), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig,
             remat: RematPolicy = RematPolicy.SAVE_DOTS, density_mean=None,
-            tp=None):
+            tp=None, fs=None):
     """Mean CE + aux; under ``tp`` the vocab-parallel loss over this
     rank's logit columns (never gathered)."""
     x, aux = _hidden(params, batch["tokens"], cfg, batch.get("vis"), remat,
-                     density_mean, tp)
-    logits = cm.unembed(params["embed"], x, cfg, tp)
+                     density_mean, tp, fs)
+    logits = cm.unembed(_embed_leaves(params, cfg, fs, True), x, cfg, tp)
     ce = cm.cross_entropy(logits, batch["labels"], cfg.vocab, tp)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
+def build(cfg: ModelConfig, device: torch.device, tp=None,
+          fs=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
     tensor and expert parallel execution into ``init``, ``forward`` and
     ``loss`` (dense, MoE and VLM families), and for dense and MoE into
     the cache entry points (the split cache, :func:`init_cache`); the
-    VLM's cache entry points refuse (``common.single_rank``)."""
+    VLM's cache entry points refuse (``common.single_rank``).  ``fs`` (a
+    ``distributed.fsdp.DataShards``) binds FSDP into ``init``, ``forward``
+    and ``loss``; the cache entry points then refuse
+    (``common.fsdp_refuses_serving``)."""
     vlm = bool(cfg.cross_attn_every)
     entries = dict(
         config=cfg,
-        init=functools.partial(init, cfg=cfg, device=device, tp=tp),
-        forward=functools.partial(forward, cfg=cfg, tp=tp),
-        loss=functools.partial(loss_fn, cfg=cfg, tp=tp))
+        init=functools.partial(init, cfg=cfg, device=device, tp=tp, fs=fs),
+        forward=functools.partial(forward, cfg=cfg, tp=tp, fs=fs),
+        loss=functools.partial(loss_fn, cfg=cfg, tp=tp, fs=fs))
+    if fs is not None:
+        return cm.ModelApply(
+            **entries, init_cache=cm.fsdp_refuses_serving,
+            prefill=cm.fsdp_refuses_serving,
+            decode_step=cm.fsdp_refuses_serving,
+            fill_source=cm.fsdp_refuses_serving, data_shards=fs)
     if tp is not None and vlm:
         return cm.ModelApply(
             **entries, init_cache=cm.single_rank, prefill=cm.single_rank,

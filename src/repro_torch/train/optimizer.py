@@ -129,23 +129,29 @@ def global_norm(grads: list[torch.Tensor], split=None) -> torch.Tensor:
     squared from a transient fp32 copy, so a bf16 gradient tree is never
     held in fp32 whole.
 
-    ``split`` ``(flags, group)``: the flagged leaves are this rank's
-    blocks of leaves split over ``group`` (tensor parallel), the others
-    whole on every rank.  The norm is then the whole model's: the split
-    leaves' squares are summed over the group and the replicated leaves
-    counted once, so every rank clips alike."""
+    ``split`` ``(axes, groups)``: ``axes[i]`` the mesh axes leaf ``i`` is
+    this rank's block over (a tuple of names, empty for a leaf whole on
+    every rank: tensor parallel over ``model``, FSDP over ``data``, or
+    both), ``groups`` each axis's process group.  The norm is then the
+    whole model's: a split leaf's squares are summed over the groups of
+    the axes it names and a replicated leaf counted once, so every rank
+    clips alike."""
     def sq(gs):
         return sum((torch.sum(torch.square(g.float())) for g in gs),
                    torch.zeros((), device=grads[0].device))
 
     if split is None:
         return torch.sqrt(sq(grads))
-    flags, group = split
+    axes, groups = split
     from repro_torch.distributed.collectives import all_reduce
 
-    parts = all_reduce(sq(g for g, f in zip(grads, flags) if f),
-                       group=group)
-    return torch.sqrt(parts + sq(g for g, f in zip(grads, flags) if not f))
+    total = sq(g for g, a in zip(grads, axes) if not a)
+    for combo in sorted({tuple(a) for a in axes if a}):
+        part = sq(g for g, a in zip(grads, axes) if tuple(a) == combo)
+        for axis in combo:
+            part = all_reduce(part, group=groups[axis])
+        total = total + part
+    return torch.sqrt(total)
 
 
 def decay_mask(params: Any) -> list[bool]:
@@ -173,8 +179,10 @@ def apply_updates(
     ``shardings`` (the moments' tree, as for :func:`init_state`) makes it
     the ZeRO-1 update: every rank passes the same full gradients, updates
     its block of the moments and the parameter, and the parameter's blocks
-    are all-gathered back into each rank's full parameter.  ``split``:
-    see :func:`global_norm` (under tensor parallelism a rank's
+    are all-gathered back into each rank's full parameter.  A moment the
+    size of its parameter (an FSDP leaf, already this rank's ``data``
+    block) is updated whole, with no gather.  ``split``: see
+    :func:`global_norm` (under tensor parallelism or FSDP a rank's
     "parameters" are its blocks, and the clip reads the whole model's
     norm)."""
     state["count"].add_(1)

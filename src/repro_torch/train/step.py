@@ -47,6 +47,23 @@ of split leaves summed over ``model``, replicated leaves counted once),
 and ZeRO-1's moments are the ``data``-axis block of the rank's
 ``model``-axis block (``optimizer.opt_shardings``, the reference's rule:
 replicated over ``pod``).
+
+**FSDP** (``TrainConfig.fsdp``, ZeRO-3; the dense, MoE and VLM families).
+The model is built with ``fsdp=True``: each rank holds its block of every
+leaf under ``params_shardings(..., fsdp=True)`` (``data`` on the large
+leaves' largest free dimension, beside ``model``), and the model code
+gathers a layer's leaves over ``data`` where it uses them
+(``distributed.fsdp``).  The gather's backward reduce-scatters the
+gradient, so a data-split leaf's gradient comes out of the backward as
+this rank's block, already summed over ``data``: it is divided by the
+number of batch ranks and, with ``batch_axes`` ``("pod", "data")``,
+all-reduced over ``pod``, never through the bucketed all-reduce (which
+would multiply it by ``|data|``).  The other leaves are reduced as
+without FSDP.  With ``microbatch > 1`` each microbatch gathers again
+and the blocks accumulate.  The clip's norm sums a leaf's squares over
+the groups of the axes its spec names (``model``, ``data`` or both), and
+ZeRO-1's moments follow the parameter's block (``data`` being used,
+the reference's ``opt_shardings`` adds nothing): :func:`moment_shardings`.
 """
 from __future__ import annotations
 
@@ -83,6 +100,9 @@ class TrainConfig:
     # data ranks); the rows are the same on every `model` rank.  Any other
     # value is refused.
     batch_axes: tuple = ("data",)
+    # ZeRO-3: parameters split over `data` too, gathered on use, their
+    # gradients reduce-scattered (the dry run's knob of the same name).
+    fsdp: bool = False
 
 
 def batch_to_device(batch: dict, device) -> dict[str, torch.Tensor]:
@@ -107,17 +127,27 @@ class _DataParallel:
     a global batch, and the gradient and metric reductions over the
     axis's group."""
 
-    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                 fsdp_split=None):
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.n = _batch_ranks(tcfg, mesh)
         if len(tcfg.batch_axes) == 1:
             self.rank = mesh.get_local_rank("data")
             self.group = mesh.get_group("data")
+            self.pod = None
         else:                   # ("pod", "data"): rank pod * |data| + data
             flat = mesh["pod", "data"]._flatten()
             self.rank = flat.get_local_rank()
             self.group = flat.get_group()
-        self.moments = None     # the moments' shardings, made on first use
+            self.pod = mesh.get_group("pod")
+        # Under FSDP, which leaves (``tree.leaves`` order) are split over
+        # ``data``: their gradients arrive summed over it.
+        self.fsdp_split = fsdp_split
+        # The moments' shardings, made here and not in the step: the rules
+        # read the whole model's shapes (``param_shapes``), whose tensors
+        # would count in a step's live bytes (``launch.dryrun``).
+        self.moments = (moment_shardings(cfg, mesh, fsdp=tcfg.fsdp)
+                        if tcfg.zero1 else None)
         self.last = {"payload_bytes": 0, "seconds": 0.0}
 
     def rows(self, batch: dict) -> dict:
@@ -135,21 +165,30 @@ class _DataParallel:
                                       ) / self.n
 
     def grads(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
-        """The ranks' mean of each gradient.  ``self.last``: the bytes
-        this rank put into the collectives (``payload_bytes``) and their
-        host-clock ``seconds``."""
+        """The ranks' mean of each gradient.  A data-split leaf's (FSDP)
+        is already summed over ``data`` by the gather's backward: only
+        divided, and summed over ``pod`` where the batch spans it.
+        ``self.last``: the bytes this rank put into the collectives
+        (``payload_bytes``) and their host-clock ``seconds``."""
         t0 = time.perf_counter()
-        out = [g / self.n for g in
-               collectives.bucketed_all_reduce(grads, self.group)]
-        self.last = {"payload_bytes": sum(g.numel() * g.element_size()
-                                          for g in grads),
+        split = self.fsdp_split or [False] * len(grads)
+        out, sent = list(grads), 0
+        for mine, group in ((False, self.group), (True, self.pod)):
+            idx = [i for i, f in enumerate(split) if f == mine]
+            if not idx:
+                continue
+            if group is None:   # data-split, no pod: summed already
+                for i in idx:
+                    out[i] = grads[i] / self.n
+                continue
+            part = [grads[i] for i in idx]
+            for i, g in zip(idx, collectives.bucketed_all_reduce(part,
+                                                                 group)):
+                out[i] = g / self.n
+            sent += sum(g.numel() * g.element_size() for g in part)
+        self.last = {"payload_bytes": sent,
                      "seconds": time.perf_counter() - t0}
         return out
-
-    def moment_shardings(self):
-        if self.tcfg.zero1 and self.moments is None:
-            self.moments = moment_shardings(self.cfg, self.mesh)
-        return self.moments
 
 
 def _batch_ranks(tcfg: TrainConfig, mesh) -> int:
@@ -177,15 +216,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
     model)`` DeviceMesh) makes it data parallel over ``data`` and tensor
     and expert parallel over ``model``: every rank passes the same global
     batch and a state from :func:`init_train_state` with the same
-    ``mesh`` and ``zero1``."""
+    ``mesh``, ``zero1`` and ``fsdp``."""
     # The plain route: see the module docstring.
-    model = build_model(dataclasses.replace(cfg, decode_kernel="xla"),
-                        device, mesh)
-    device = resolve_device(device)
     reduce_dtype = getattr(torch, tcfg.grad_reduce_dtype)
-    dp = (_DataParallel(cfg, tcfg, mesh)
+    model = build_model(dataclasses.replace(cfg, decode_kernel="xla"),
+                        device, mesh, fsdp=tcfg.fsdp,
+                        grad_reduce_dtype=reduce_dtype)
+    device = resolve_device(device)
+    dp = (_DataParallel(cfg, tcfg, mesh, model.data_shards
+                        and model.data_shards.split_flags())
           if _batch_ranks(tcfg, mesh) > 1 else None)
-    split = _model_split(cfg, mesh)
+    split = _norm_split(cfg, mesh, tcfg.fsdp)
     # The MoE aux loss reads the whole batch's per-expert fractions.
     moe = ({"density_mean": dp.mean}
            if dp is not None and cfg.n_experts else {})
@@ -205,7 +246,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None,
             loss, grads, metrics = local_grads(params, leaves, batch)
         stats = opt.apply_updates(
             params, grads, state["opt"], tcfg.adamw,
-            shardings=dp.moment_shardings() if dp else None, split=split)
+            shardings=dp.moments if dp else None, split=split)
         return state, {"loss": loss, **metrics, **stats}
 
     def local_grads(params, leaves, batch):
@@ -248,53 +289,73 @@ def init_train_state(model, generator: torch.Generator, mesh=None,
     """Random parameters (requiring grad) and a fresh optimizer state; with
     ``mesh`` and ``zero1`` the moments are this rank's blocks.  Every rank
     draws the same parameters from the same generator seed (a model built
-    with a ``model > 1`` mesh keeps this rank's block of each)."""
+    with a ``model > 1`` mesh or with FSDP keeps this rank's block of
+    each)."""
     params = model.init(generator)
     for p in tree.leaves(params):
         p.requires_grad_(True)
-    moments = (moment_shardings(model.config, mesh)
+    moments = (moment_shardings(model.config, mesh,
+                                fsdp=model.data_shards is not None)
                if mesh is not None and zero1 else None)
     return {"params": params, "opt": opt.init_state(params, moments)}
 
 
-def _model_split(cfg: ModelConfig, mesh):
-    """``(flags, group)`` for ``optimizer.global_norm`` under a ``model``
-    axis of more than one rank: which leaves (``tree.leaves`` order) are
-    split over it; None otherwise."""
-    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+def _norm_split(cfg: ModelConfig, mesh, fsdp: bool):
+    """``(axes, groups)`` for ``optimizer.global_norm``: the axes of more
+    than one rank among ``model`` and ``data`` (``data`` under FSDP) each
+    leaf (``tree.leaves`` order) is split over, and their groups; None
+    when no leaf is split."""
+    if mesh is None:
         return None
-    flags = [any("model" in sh.spec_axes(part) for part in s.spec)
-             for s in tree.leaves(state_shardings(cfg, mesh)["params"])]
-    return flags, mesh.get_group("model")
+    sizes = axis_sizes(mesh)
+    over = [a for a in ("data", "model")
+            if sizes.get(a, 1) > 1 and (a == "model" or fsdp)]
+    if not over:
+        return None
+    axes = [tuple(a for a in over
+                  if any(a in sh.spec_axes(part) for part in s.spec))
+            for s in tree.leaves(state_shardings(cfg, mesh,
+                                                 fsdp=fsdp)["params"])]
+    return axes, {a: mesh.get_group(a) for a in over}
 
 
-def moment_shardings(cfg: ModelConfig, mesh):
-    """ZeRO-1's moments as the optimizer holds them: the ``data``-axis
-    block (:func:`state_shardings`) of a parameter that is already this
-    rank's ``model``-axis block."""
-    return sh.without_axis(
-        state_shardings(cfg, mesh, zero1=True)["opt"]["mu"], "model")
+def moment_shardings(cfg: ModelConfig, mesh, fsdp: bool = False):
+    """ZeRO-1's moments as the optimizer holds them: each moment's block
+    (:func:`state_shardings`) of the parameter block this rank holds, its
+    spec without the axes the parameter's names (``model``; under FSDP
+    also ``data``, where the moment is then the parameter's own block)."""
+    shs = state_shardings(cfg, mesh, zero1=True, fsdp=fsdp)
+
+    def own(p: sh.Sharding, m: sh.Sharding) -> sh.Sharding:
+        held = {a for part in p.spec for a in sh.spec_axes(part)} | {"model"}
+        return sh.Sharding(m.mesh, sh.spec(*(
+            tuple(a for a in sh.spec_axes(part) if a not in held)
+            for part in m.spec)))
+    return tree.tree_map(own, shs["params"], shs["opt"]["mu"])
 
 
 def state_shardings(cfg: ModelConfig, mesh, params_shape=None,
-                    zero1: bool = False) -> dict[str, Any]:
+                    zero1: bool = False, fsdp: bool = False
+                    ) -> dict[str, Any]:
     """``{"params": ..., "opt": ...}`` trees of ``Sharding`` for a train
     state: each leaf's block of the whole model's (what a checkpoint
     gathers and restores).  ``params_shape["params"]`` is the parameter
     tree, or anything with its leaves' whole shapes; by default the
     config's (``models.registry.param_shapes``).  Under a ``model`` axis
-    of more than one rank a rank's own state holds blocks, so it is not
-    accepted here."""
+    of more than one rank, or FSDP, a rank's own state holds blocks, so it
+    is not accepted here.  ``fsdp``: the FSDP rule's parameter blocks
+    (``params_shardings(..., fsdp=True)``) and the moments' beside them."""
     if params_shape is None:
         params_shape = {"params": param_shapes(cfg)}
-    elif axis_sizes(mesh).get("model", 1) > 1 and any(
+    elif (axis_sizes(mesh).get("model", 1) > 1 or fsdp) and any(
             tuple(a.shape) != tuple(b.shape) for a, b in zip(
                 tree.leaves(params_shape["params"]),
                 tree.leaves(param_shapes(cfg)))):
         raise ValueError("state_shardings: the parameter tree holds blocks "
-                         "of a model-parallel rank; pass the whole shapes "
-                         "(or none)")
-    pshard = sh.params_shardings(params_shape["params"], cfg, mesh)
+                         "of a model-parallel or FSDP rank; pass the whole "
+                         "shapes (or none)")
+    pshard = sh.params_shardings(params_shape["params"], cfg, mesh,
+                                 fsdp=fsdp)
     oshard = opt.opt_shardings(pshard, params_shape["params"], mesh,
                                zero1=zero1)
     return {"params": pshard, "opt": oshard}

@@ -131,11 +131,13 @@ def _dp2(rank, world, inputs, tmp) -> dict:
     return out
 
 
-def _tp_forward(cfg, params_np, mesh, toks, kernel="xla", src=None):
+def _tp_forward(cfg, params_np, mesh, toks, kernel="xla", src=None,
+                fsdp=False):
     """This rank's rows of ``toks`` (split over ``data``), and of the
     source ``src`` (whisper's frames or the VLM's vision tokens) where
     given, through the split model built from the whole bridged
-    parameters; the logits."""
+    parameters (``fsdp``: their FSDP blocks, gathered on use); the
+    logits."""
     import dataclasses
 
     from repro_torch import convert
@@ -144,29 +146,34 @@ def _tp_forward(cfg, params_np, mesh, toks, kernel="xla", src=None):
 
     cfg = dataclasses.replace(cfg, decode_kernel=kernel)
     params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
-                             mesh)
+                             mesh, fsdp=fsdp)
     n, i = mesh.size(0), mesh.get_local_rank("data")
     rows = slice(i * toks.shape[0] // n, (i + 1) * toks.shape[0] // n)
     source = {}
     if src is not None:
         source["frames" if cfg.family == "encdec" else "vis"] = _t(src[rows])
     with torch.no_grad():
-        logits, _ = build_model(cfg, "cpu", mesh).forward(
+        logits, _ = build_model(cfg, "cpu", mesh, fsdp=fsdp).forward(
             params, _t(toks[rows]), **source)
     return logits
 
 
-def _tp_train(cfg, params_np, mesh, case, tmp, name) -> dict:
+def _tp_train(cfg, params_np, mesh, case, tmp, name, **over) -> dict:
     """``case["steps"]`` ZeRO-1 steps through ``loop.run`` over ``mesh``
-    (a checkpoint at the end); the losses, grad norms and the gathered
-    state."""
+    (a checkpoint at the end), ``case["tcfg"]`` with ``over`` replaced
+    (``fsdp``, ``microbatch``, ``batch_axes``); the losses, grad norms,
+    the gathered state and this rank's parameter and moment blocks."""
+    import dataclasses
+
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import loop as train_loop
     from repro_torch.train.step import make_train_step
+    from repro_torch.utils import tree
 
-    train_step, _ = make_train_step(cfg, case["tcfg"], "cpu", mesh)
-    state, shard = _tp_state(cfg, params_np, mesh)
+    tcfg = dataclasses.replace(case["tcfg"], **over)
+    train_step, _ = make_train_step(cfg, tcfg, "cpu", mesh)
+    state, shard = _tp_state(cfg, params_np, mesh, tcfg.fsdp)
     norms = []
     ck = os.path.join(tmp, f"{name}_ckpt")
     state, report = train_loop.run(
@@ -179,12 +186,14 @@ def _tp_train(cfg, params_np, mesh, case, tmp, name) -> dict:
         on_step=lambda step, m: norms.append(float(m["grad_norm"])))
     return {f"{name}_losses": report.losses, f"{name}_norms": norms,
             f"{name}_full": ckpt.gather_state(state, shard),
-            f"{name}_ckpt": ck}
+            f"{name}_ckpt": ck,
+            f"{name}_shapes": [tuple(t.shape) for t in tree.leaves(
+                {"params": state["params"], "mu": state["opt"]["mu"]})]}
 
 
-def _tp_state(cfg, params_np, mesh):
+def _tp_state(cfg, params_np, mesh, fsdp=False):
     """A ZeRO-1 train state holding this rank's blocks of the bridged
-    parameters, and the state's shardings."""
+    parameters (``fsdp``: the FSDP rule's), and the state's shardings."""
     from repro_torch import convert
     from repro_torch.distributed import sharding as sh
     from repro_torch.train import optimizer as opt
@@ -192,12 +201,13 @@ def _tp_state(cfg, params_np, mesh):
     from repro_torch.utils import tree
 
     params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
-                             mesh)
+                             mesh, fsdp=fsdp)
     for p in tree.leaves(params):
         p.requires_grad_(True)
     state = {"params": params,
-             "opt": opt.init_state(params, moment_shardings(cfg, mesh))}
-    return state, state_shardings(cfg, mesh, zero1=True)
+             "opt": opt.init_state(params, moment_shardings(cfg, mesh,
+                                                            fsdp=fsdp))}
+    return state, state_shardings(cfg, mesh, zero1=True, fsdp=fsdp)
 
 
 def _tp(rank, world, inputs, tmp) -> dict:
@@ -350,14 +360,87 @@ def _tp(rank, world, inputs, tmp) -> dict:
     whole = [_t(g) for g in inputs["norm_leaves"]]
     blocks = [sh.shard(g, s) for g, s in zip(whole, tree.leaves(
         state_shardings(yi, mesh14)["params"]))]
-    split = ([tuple(b.shape) != tuple(g.shape)
-              for b, g in zip(blocks, whole)], mesh14.get_group("model"))
+    split = ([("model",) if tuple(b.shape) != tuple(g.shape) else ()
+              for b, g in zip(blocks, whole)],
+             {"model": mesh14.get_group("model")})
     out["norm"] = float(opt.global_norm(blocks, split))
     tensor_parallel.CLOCK.update(on=True, seconds=0.0)
     _tp_forward(phi, params["phi3.5-moe-42b-a6.6b"], mesh14,
                 inputs["phi_toks"])
     out["clock_s"] = tensor_parallel.CLOCK["seconds"]
     tensor_parallel.CLOCK.update(on=False)
+    out.update(_fsdp_cases(inputs, params, meshes, tmp))
+    return out
+
+
+def _fsdp_cases(inputs, params, meshes, tmp) -> dict:
+    """FSDP over ``data`` (``inputs["fsdp"]``): each train case's ZeRO-1
+    steps (the widened dense, MoE and VLM SMOKEs) on its mesh, each
+    variant's init and a kernel-route forward, the FSDP norm of whole
+    tensors' blocks, and the dense (2, 2) checkpoint restored onto
+    (1, 4) without FSDP."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import (_norm_split, init_train_state,
+                                        make_train_step, state_shardings)
+    from repro_torch.utils import tree
+
+    fs = inputs["fsdp"]
+    meshes = {**meshes, (4, 1): make_local_mesh(4, 1),
+              "pod": make_local_mesh(2, 1, pod=2)}
+    out = {"fsdp_coords_41": tuple(meshes[(4, 1)].get_coordinate())}
+
+    def cfg_of(name):
+        arch, over = fs["variants"][name]
+        return dataclasses.replace(get_config(arch, smoke=True), **over)
+
+    for name in fs["variants"]:
+        cfg = cfg_of(name)
+        for shape in ((2, 2), (4, 1)):
+            model = build_model(cfg, "cpu", meshes[shape], fsdp=True)
+            out[f"fsdp_init_{name}_{shape}"] = model.init(
+                torch.Generator().manual_seed(7))
+            refused = []
+            for entry in ("init_cache", "prefill", "decode_step"):
+                try:
+                    getattr(model, entry)(None, None, None)
+                except NotImplementedError:
+                    refused.append(entry)
+            out[f"fsdp_serve_refused_{name}_{shape}"] = refused
+    for key, case in fs["train"].items():
+        over = dict(case["over"], fsdp=True)
+        if case["mesh"] == "pod":
+            over["batch_axes"] = ("pod", "data")
+        out.update(_tp_train(cfg_of(case["variant"]),
+                             params[case["variant"]], meshes[case["mesh"]],
+                             inputs["train"], tmp, key,
+                             **over))
+    name = fs["forward"]["variant"]
+    out["fsdp_kernel_route"] = _tp_forward(
+        cfg_of(name), params[name], meshes[(2, 2)], fs["forward"]["toks"],
+        kernel="pallas_paged", fsdp=True)
+    # The FSDP norm: this rank's blocks of whole tensors shaped like the
+    # variant's leaves, split over ``data`` and ``model``.
+    cfg, mesh = cfg_of(name), meshes[(2, 2)]
+    whole = [_t(g) for g in fs["norm_leaves"]]
+    blocks = [sh.shard(g, s) for g, s in zip(whole, tree.leaves(
+        state_shardings(cfg, mesh, fsdp=True)["params"]))]
+    out["fsdp_norm"] = float(opt.global_norm(
+        blocks, _norm_split(cfg, mesh, True)))
+    # The (2, 2) FSDP checkpoint onto (1, 4) without FSDP.
+    mesh14 = meshes[(1, 4)]
+    tcfg = inputs["train"]["tcfg"]
+    _, model14 = make_train_step(cfg, tcfg, "cpu", mesh14)
+    template = init_train_state(model14, torch.Generator().manual_seed(1),
+                                mesh14, zero1=True)
+    out["fsdp_restored_14"] = ckpt.restore(
+        out[f"{fs['reshard']}_ckpt"], template=template,
+        shardings=state_shardings(cfg, mesh14, zero1=True))[::-1]
     return out
 
 

@@ -21,7 +21,12 @@ and ``models.registry.runnable_cells`` held against the JAX package's.
   blocks, worked out from its PartitionSpecs and the mesh's axis sizes.
 * One multi-pod train cell (minicpm-2b SMOKE, ``(pod, data, model)``) in
   a subprocess.
+* One FSDP train cell (olmoe-1b-7b at full width, 2 layers) in a
+  subprocess: its parameter and optimizer bytes are the reference's
+  ``param_spec(..., fsdp=True)``/``opt_shardings`` blocks, and its step
+  records all-gathers over ``data`` and reduce-scatters.
 """
+import dataclasses
 import json
 import math
 import os
@@ -58,6 +63,11 @@ from repro_torch.models import get_config as tconfig  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KINDS = ("train_4k", "prefill_32k", "decode_32k")
+# Run a script and fail if jax or the reference package was imported.
+_RUN_NO_JAX_SCRIPT = (
+    "import sys; exec(sys.argv[1]); "
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'repro')); assert not bad, bad")
 # Run a module as ``__main__`` and fail if jax or the reference package
 # was imported on the way.
 _RUN_NO_JAX = (
@@ -210,6 +220,103 @@ def test_multi_pod_train_cell(multi_record):
     assert parts["inputs"] == 2 * rows * TSHAPES["train_4k"].seq_len * 4
 
 
+_FSDP_CELL_SCRIPT = """
+import dataclasses, json, traceback, weakref
+import torch
+from repro_torch.distributed import collectives, fsdp
+from repro_torch.launch import dryrun
+from repro_torch.models import get_config
+cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2)
+mesh = dryrun.production_mesh(False)
+data = mesh.get_group("data")
+by_group = {"all-gather": {}, "reduce-scatter": {}}
+for kind, name in (("all-gather", "all_gather"),
+                   ("reduce-scatter", "reduce_scatter")):
+    def wrap(fn, kind=kind):
+        def call(t, group=None, **kw):
+            axis = "data" if group is data else "other"
+            by_group[kind][axis] = by_group[kind].get(axis, 0) + 1
+            return fn(t, group, **kw)
+        return call
+    setattr(collectives, name, wrap(getattr(collectives, name)))
+# The bytes of the weights a layer body gathers: made in all, and live
+# at once (each storage until it is freed).
+layer = {"calls": 0, "made": 0, "live": 0, "peak": 0}
+def free(nbytes):
+    layer["live"] -= nbytes
+def gather(x, group, dim, inner=fsdp._gather):
+    out = inner(x, group, dim)
+    if any(f.name in ("layer_body", "group_body")
+           for f in traceback.extract_stack()):
+        st = out.untyped_storage()
+        layer["calls"] += 1
+        layer["made"] += st.nbytes()
+        layer["live"] += st.nbytes()
+        layer["peak"] = max(layer["peak"], layer["live"])
+        weakref.finalize(st, free, st.nbytes())
+    return out
+fsdp._gather = gather
+_, _, _, step, arguments, parts = dryrun.build_cell(
+    "olmoe-1b-7b", "train_4k", multi_pod=False, remat="recompute",
+    microbatch=4, zero1=True, fsdp=True, cfg=cfg)
+counted = dryrun.count_step(step, arguments)
+print(json.dumps({"parts": parts, "by_group": by_group,
+                  "colls": counted["colls"], "layer_gathers": layer}))
+"""
+
+
+def test_fsdp_train_cell_runs_on_meta():
+    """olmoe-1b-7b x train_4k x single at full width and 2 layers with
+    FSDP: the rank's parameter and optimizer bytes equal the reference's
+    ``param_spec(..., fsdp=True)`` and ZeRO-1 ``opt_shardings`` blocks on
+    the 16 x 16 mesh, the step runs on meta, and its collective record
+    holds all-gathers over ``data`` and reduce-scatters over it.  Under
+    ``recompute`` each microbatch gathers every layer's weights twice (in
+    the forward and again in the backward's recompute) and no more than
+    one layer's gathered weights are live at once: none is kept from the
+    forward to the backward."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _RUN_NO_JAX_SCRIPT,
+                        _FSDP_CELL_SCRIPT], capture_output=True, text=True,
+                       timeout=600, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    rcfg = dataclasses.replace(rconfig("olmoe-1b-7b"), n_layers=2)
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    sizes = {"data": 16, "model": 16}
+    state = rspecs.input_specs("olmoe-1b-7b", "train_4k", cfg=rcfg)["state"]
+
+    def pspec(path, x):
+        return rsh.param_spec(rsh._path_str(path), tuple(x.shape), rcfg,
+                              mesh, fsdp=True)
+
+    params = _tree_blocks(state["params"], pspec, sizes)
+    pshard = jax.tree_util.tree_map_with_path(
+        lambda path, x: NamedSharding(mesh, P(*pspec(path, x))),
+        state["params"])
+    mu = ropt.opt_shardings(pshard, state["params"], mesh, zero1=True)["mu"]
+    moments = sum(_block_bytes(tuple(x.shape), s.spec, sizes, 4)
+                  for x, s in zip(jax.tree_util.tree_leaves(state["params"]),
+                                  jax.tree_util.tree_leaves(mu)))
+    whole = _tree_blocks(state["params"], lambda path, x: rsh.param_spec(
+        rsh._path_str(path), tuple(x.shape), rcfg, mesh), sizes)
+    assert got["parts"]["params"] == params < whole
+    assert got["parts"]["opt"] == 2 * moments + 4
+    per_kind = got["colls"]["per_kind"]
+    assert got["by_group"]["all-gather"].get("data", 0) > 0
+    assert got["by_group"]["reduce-scatter"] == {
+        "data": per_kind["reduce-scatter"]["count"]}
+    assert per_kind["reduce-scatter"]["count"] > 0
+    layer = got["layer_gathers"]
+    microbatches, gathers_a_layer = 4, 2
+    one_layer = layer["made"] / (microbatches * gathers_a_layer
+                                 * rcfg.n_layers)
+    assert layer["calls"] % (microbatches * gathers_a_layer
+                             * rcfg.n_layers) == 0
+    assert 0 < layer["peak"] <= one_layer
+    assert layer["live"] == 0
+
+
 _COLLECTIVE_SCRIPT = """
 import json, sys
 import torch, torch.distributed as dist
@@ -355,23 +462,25 @@ def test_eval_shape_state_is_meta_and_cached():
 
 
 @pytest.mark.parametrize("arch, shape, item", [
-    ("yi-9b", "train_4k", "item 1"),
-    ("llama-3.2-vision-90b", "train_4k", "item 1"),
+    ("mamba2-1.3b", "prefill_32k", "item 2"),
+    ("whisper-small", "decode_32k", "item 2"),
     ("mamba2-1.3b", "decode_32k", "item 2"),
     ("zamba2-2.7b", "long_500k", "item 2"),
     ("whisper-small", "prefill_32k", "item 2"),
     ("llama-3.2-vision-90b", "decode_32k", "item 2"),
 ])
 def test_waiting_cells_fail_at_once_naming_their_item(arch, shape, item):
-    """A cell that waits on FSDP or another family's split cache path
-    raises before anything is built (no process group is made)."""
+    """A cell that waits on another family's split cache path raises
+    before anything is built (no process group is made)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         tdry.build_cell(arch, shape, multi_pod=False, zero1=True)
     assert not torch.distributed.is_initialized()
 
 
 def test_waiting_cells_are_the_complement_of_this_slice():
-    """The 16 cells of this slice run; the other 16 runnable cells wait."""
+    """22 cells run: the 16 of the slice before FSDP and the six FSDP
+    ``train_4k`` cells; the other 10 runnable cells wait on the split
+    cache path."""
     runs = []
     for arch, shape in runnable_cells():
         cfg = tconfig(arch)
@@ -381,7 +490,10 @@ def test_waiting_cells_are_the_complement_of_this_slice():
             runs.append((arch, shape))
     assert sorted(runs) == sorted(
         [(a, "train_4k") for a in ("minicpm-2b", "mamba2-1.3b",
-                                   "zamba2-2.7b", "whisper-small")]
+                                   "zamba2-2.7b", "whisper-small", "yi-9b",
+                                   "granite-20b", "qwen2.5-32b",
+                                   "phi3.5-moe-42b-a6.6b", "olmoe-1b-7b",
+                                   "llama-3.2-vision-90b")]
         + [(a, s) for a in ("yi-9b", "granite-20b", "minicpm-2b",
                             "qwen2.5-32b", "phi3.5-moe-42b-a6.6b",
                             "olmoe-1b-7b")

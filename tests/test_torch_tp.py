@@ -59,6 +59,18 @@ tree, whose ``jax.make_mesh`` rejects a one-device mesh).
 * (i) the trainer's ``("pod", "data")`` batch axes: yi-9b SMOKE on a
   (2, 2, 1) ``(pod, data, model)`` mesh, two ZeRO-1 steps against the
   port's one process.
+* (j) FSDP over ``data`` (``distributed.fsdp``) on widened SMOKEs
+  (``FSDP_VARIANTS``: the SMOKE widths put every leaf under
+  ``_add_fsdp``'s 1 MiB line, these put the MLP or expert leaves and the
+  embedding over it and the attention leaves under it): two ZeRO-1 steps
+  of the dense variant on (2, 2), on (4, 1), on (pod, data, model) =
+  (2, 2, 1) and with ``microbatch`` 2, of the MoE and the VLM variants on
+  (2, 2), each against the reference's one-device steps, equal on every
+  rank, each rank holding its FSDP blocks of the parameters and moments;
+  each rank's FSDP ``init``; the kernel route's forward; the FSDP norm;
+  the gathered (2, 2) checkpoint restored at one process and onto (1, 4)
+  without FSDP, bitwise; the cache entry points and the families without
+  FSDP refused by name.
 
 Every multi-rank case runs in one spawn of four ranks for the whole file
 (``tests/dist_workers.py``: JAX-free ranks, a ``file://`` store under tmp,
@@ -114,7 +126,27 @@ SSM_VARIANTS = {MB_HEADS: (MB, {"d_model": 48}),
                 MB_CONV: (MB, {"ssm_state": 3, "ssm_groups": 1}),
                 MB_ROWS: (MB, {"d_model": 45, "ssm_headdim": 15,
                                "ssm_state": 3, "ssm_groups": 1})}
-VARIANTS = {WH_DH: (WH, {"n_heads": 6, "n_kv_heads": 6}), **SSM_VARIANTS}
+# FSDP: the dense and VLM SMOKEs with d_ff and vocab 8192 (their MLP and
+# embedding leaves 524288 elements: over ``_add_fsdp``'s 1 MiB line, the
+# attention leaves under it), the MoE SMOKE with d_ff 512 (its expert
+# leaves 2 x 8 x 64 x 512 stacked).
+YI_W, OLMOE_W = "yi-9b/wide", "olmoe-1b-7b/wide"
+VLM_W = "llama-3.2-vision-90b/wide"
+FSDP_VARIANTS = {YI_W: (YI, {"d_ff": 8192, "vocab": 8192}),
+                 OLMOE_W: (OLMOE, {"d_ff": 512, "vocab": 8192}),
+                 VLM_W: (VLM, {"d_ff": 8192, "vocab": 8192})}
+VARIANTS = {WH_DH: (WH, {"n_heads": 6, "n_kv_heads": 6}), **SSM_VARIANTS,
+            **FSDP_VARIANTS}
+# The FSDP train cases: variant, mesh ((data, model), or "pod" for
+# (pod, data, model) = (2, 2, 1)) and the TrainConfig fields replaced.
+FSDP_TRAIN = {
+    "fsdp_yi_22": dict(variant=YI_W, mesh=(2, 2), over={}),
+    "fsdp_yi_41": dict(variant=YI_W, mesh=(4, 1), over={}),
+    "fsdp_yi_pod": dict(variant=YI_W, mesh="pod", over={}),
+    "fsdp_yi_mb2": dict(variant=YI_W, mesh=(2, 2), over={"microbatch": 2}),
+    "fsdp_olmoe_22": dict(variant=OLMOE_W, mesh=(2, 2), over={}),
+    "fsdp_vlm_22": dict(variant=VLM_W, mesh=(2, 2), over={}),
+}
 SHAPES = [(1, 4), (2, 2)]
 ADAMW = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 STEPS = 2
@@ -165,7 +197,7 @@ def _inputs():
     return {
         "params": {a: pickle.dumps(_ref_params(a))
                    for a in (PHI, YI, MINI, WH, WH_DH, VLM, MB, ZB,
-                             *SSM_VARIANTS, QWEN, OLMOE)},
+                             *SSM_VARIANTS, QWEN, OLMOE, *FSDP_VARIANTS)},
         # The reference test's tokens (PRNGKey(1), 4 x 16).
         "phi_toks": np.asarray(jax.random.randint(
             jax.random.PRNGKey(1), (4, 16), 0, vocab), np.int32),
@@ -187,7 +219,19 @@ def _inputs():
                                  (4, 16)).astype(np.int32),
         "ssm_variants": SSM_VARIANTS,
         "split_serve": _split_cases(),
+        **_fsdp_inputs(),
     }
+
+
+@functools.lru_cache(maxsize=None)
+def _fsdp_inputs():
+    rng = np.random.default_rng(32)
+    toks = rng.integers(0, _pcfg(YI_W).vocab, (4, 16)).astype(np.int32)
+    return {"fsdp_toks": toks, "fsdp": {
+        "variants": FSDP_VARIANTS, "train": FSDP_TRAIN, "reshard":
+        "fsdp_yi_22", "forward": {"variant": YI_W, "toks": toks},
+        "norm_leaves": [rng.standard_normal(tuple(p.shape)).astype(
+            np.float32) for p in tree.leaves(_one_process_params(YI_W))]}}
 
 
 # The split cache cases: ``max_len`` 32 puts 8 positions in a rank's
@@ -239,10 +283,11 @@ class _At:
         return list(self.coord)
 
 
-def _blocks(params, cfg, shape, coord):
-    """Rank ``coord``'s block of every leaf of a whole tree."""
+def _blocks(params, cfg, shape, coord, fsdp=False):
+    """Rank ``coord``'s block of every leaf of a whole tree (``fsdp``: under
+    the FSDP rule)."""
     shs = tsh.params_shardings(params, cfg, MeshShape(("data", "model"),
-                                                      shape))
+                                                      shape), fsdp=fsdp)
     return [tsh.shard(p, tsh.Sharding(_At(shape, coord), s.spec))
             for p, s in zip(tree.leaves(params), tree.leaves(shs))]
 
@@ -766,3 +811,143 @@ def test_state_shardings_refuse_a_ranks_blocks():
     assert [s.spec for s in tree.leaves(tstep.state_shardings(
         cfg, mesh)["params"])] == [s.spec for s in tree.leaves(
             tstep.state_shardings(cfg, mesh, {"params": params})["params"])]
+
+
+# ---------------------------------------------------------------------------
+# (j) FSDP over ``data``
+# ---------------------------------------------------------------------------
+
+def _fsdp_specs(name, shape=(2, 2)):
+    cfg = _pcfg(name)
+    return [s.spec for s in tree.leaves(tsh.params_shardings(
+        _one_process_params(name), cfg,
+        MeshShape(("data", "model"), shape), fsdp=True))]
+
+
+@pytest.mark.parametrize("name", list(FSDP_VARIANTS))
+def test_fsdp_variants_split_some_leaves_over_data(name):
+    """Each widened variant has leaves split over ``data`` (the MLP or
+    expert leaves, the embedding), leaves held whole over it (attention,
+    norms), and leaves split over both ``data`` and ``model``."""
+    axes = [{a for part in spec for a in tsh.spec_axes(part)}
+            for spec in _fsdp_specs(name)]
+    assert any("data" in a for a in axes)
+    assert any("data" not in a for a in axes)
+    assert any({"data", "model"} <= a for a in axes)
+
+
+@pytest.mark.parametrize("name", list(FSDP_VARIANTS))
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_fsdp_init_keeps_the_rule_blocks(ranks, name, shape):
+    """Each rank's FSDP ``init`` keeps exactly its block of the one-process
+    ``init``'s leaves under ``params_shardings(..., fsdp=True)``, bitwise:
+    no rank holds a data-split leaf whole."""
+    cfg = _pcfg(name)
+    whole = tbuild(cfg, "cpu").init(torch.Generator().manual_seed(7))
+    for out in ranks[1]:
+        coord = (out["coords"][(2, 2)] if shape == (2, 2)
+                 else out["fsdp_coords_41"])
+        got = tree.leaves(out[f"fsdp_init_{name}_{shape}"])
+        want = _blocks(whole, cfg, shape, coord, fsdp=True)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+    assert sum(a.numel() * shape[0] * shape[1] == b.numel()
+               for a, b in zip(tree.leaves(
+                   ranks[1][0][f"fsdp_init_{name}_{shape}"]),
+                   tree.leaves(whole))) > 0
+
+
+@pytest.mark.parametrize("name", list(FSDP_TRAIN))
+def test_fsdp_train_step_matches_the_reference(ranks, name):
+    """Two ZeRO-1 FSDP steps against the reference's one-device steps and
+    the port's one process (losses, parameters, moments, grad norms),
+    equal on every rank; each rank's first moments and parameters are its
+    blocks under ``state_shardings(..., fsdp=True)``."""
+    case = FSDP_TRAIN[name]
+    _check_train(ranks[1], name, case["variant"])
+    cfg = _pcfg(case["variant"])
+    if case["mesh"] == "pod":
+        mesh = MeshShape(("pod", "data", "model"), (2, 2, 1))
+    else:
+        mesh = MeshShape(("data", "model"), case["mesh"])
+    shs = tstep.state_shardings(cfg, mesh, zero1=True, fsdp=True)
+    whole = [tuple(p.shape) for p in tree.leaves(_one_process_params(
+        case["variant"]))]
+    want = [tsh.local_shape(w, s) for w, s in zip(
+        whole, tree.leaves(shs["opt"]["mu"]))]
+    want += [tsh.local_shape(w, s) for w, s in zip(
+        whole, tree.leaves(shs["params"]))]
+    for out in ranks[1]:
+        assert out[f"{name}_shapes"] == want
+    assert any(a != b for a, b in zip(want, whole))
+
+
+def test_fsdp_forward_on_the_kernel_route(ranks):
+    """The dense variant's FSDP forward on (2, 2) through the kernel
+    route's wrappers (flash and the fused norm; their plain versions on
+    the CPU), each rank its ``data`` rows, against the JAX one-device
+    forward and the port's one process."""
+    _check_logits(ranks[1], "fsdp_kernel_route", (2, 2), YI_W, "fsdp_toks",
+                  kernel="pallas_paged")
+
+
+def test_fsdp_global_norm(ranks):
+    """The FSDP norm of this rank's blocks (squares summed over ``data``,
+    ``model`` or both, as each leaf's spec names them) is the whole
+    tree's on every rank."""
+    leaves = _fsdp_inputs()["fsdp"]["norm_leaves"]
+    want = float(topt.global_norm([torch.from_numpy(g) for g in leaves]))
+    for out in ranks[1]:
+        assert abs(out["fsdp_norm"] - want) <= 1e-6 * want, (
+            out["fsdp_norm"], want)
+
+
+def test_fsdp_checkpoint_restores_at_one_process(ranks):
+    """The (2, 2) FSDP checkpoint (gathered over ``data`` and ``model``,
+    written by rank 0) restores at one process, bitwise the gathered
+    state."""
+    outs = ranks[1]
+    restored, step = ckpt.restore(outs[0]["fsdp_yi_22_ckpt"],
+                                  template=_port_state(YI_W))
+    assert step == STEPS
+    for (p, a), b in zip(tree.leaves_with_paths(restored),
+                         tree.leaves(outs[0]["fsdp_yi_22_full"])):
+        assert torch.equal(a.detach(), b), tree.path_str(p)
+
+
+def test_fsdp_checkpoint_reshards_onto_another_mesh(ranks):
+    """The (2, 2) FSDP checkpoint restored onto (1, 4) without FSDP: each
+    rank holds its blocks of the gathered state, bitwise."""
+    outs = ranks[1]
+    full = outs[0]["fsdp_yi_22_full"]
+    shs = tstep.state_shardings(_pcfg(YI_W),
+                                MeshShape(("data", "model"), (1, 4)),
+                                zero1=True)
+    for out in outs:
+        step, restored = out["fsdp_restored_14"]
+        assert step == STEPS
+        at = _At((1, 4), out["coords"][(1, 4)])
+        for (p, got), want, s in zip(tree.leaves_with_paths(restored),
+                                     tree.leaves(full), tree.leaves(shs)):
+            want = tsh.shard(want, tsh.Sharding(at, s.spec))
+            assert torch.equal(got.detach(), want), tree.path_str(p)
+
+
+@pytest.mark.parametrize("name", list(FSDP_VARIANTS))
+def test_fsdp_model_refuses_serving(ranks, name):
+    """A model built with FSDP refuses its cache entry points."""
+    for out in ranks[1]:
+        for shape in ((2, 2), (4, 1)):
+            assert out[f"fsdp_serve_refused_{name}_{shape}"] == [
+                "init_cache", "prefill", "decode_step"]
+
+
+@pytest.mark.parametrize("arch", [MB, ZB, WH])
+def test_fsdp_refused_by_name_for_the_other_families(arch):
+    """mamba2, zamba2 and whisper have no FSDP execution: asked for it,
+    ``build_model`` raises naming the ROADMAP item, never building an
+    unsplit model."""
+    mesh = MeshShape(("data", "model"), (2, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+        tbuild(tconfig(arch, smoke=True), "cpu", mesh, fsdp=True)
