@@ -110,11 +110,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    flash 16 x waves, decode 16 x steps, fused norm 33 x (waves + steps), 0
    plain calls), the first 16 with the graph off and under pallas_gather
    with bitwise-equal streams, a trace of one decode chunk (graph on and
-   off) and one admission wave; then granite-20b (52 layers, d 6144, 48
-   query heads over one KV head: the decode kernel's group of 48, GELU
-   MLP; 20.3 B parameters) and minicpm-2b (40 layers, 36 heads of 64,
-   tied embeddings, vocab 122753 -> 122880) at their published configs,
-   the same 48 requests with the graph on, launch counts and the planned
+   off) and one admission wave; then granite-20b (d 6144, 48 query heads
+   over one KV head: the decode kernel's group of 48, GELU MLP; 13 of
+   its 52 layers) and minicpm-2b (36 heads of 64, tied embeddings, vocab
+   122753 -> 122880; 10 of its 40 layers) at their published widths, the
+   same 48 requests with the graph on, launch counts and the planned
    split count checked;
 13. olmoe end to end at full width (4 layers, fp32): kernel route against
    plain route under dense and under sorted dispatch (there with a
@@ -263,9 +263,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (1 group of 4 self layers and 1 cross layer, fp32 and bf16), 2 x
    256 tokens, vision tokens 2 x 1600 x 8192 from the seed (16/2 heads of
    128 a rank, ``vis_proj`` split by columns and gathered; flash causal
-   and over the 1600 vision keys, RMS at d 8192); mamba2-1.3b (fp32 at 12
-   of 48 layers, bf16 at 24) and zamba2-2.7b (fp32 at 12 of 54, bf16 at
-   24), 2 x 256 tokens (16 and 20 SSM heads of 64 a rank, the SSD scan on
+   and over the 1600 vision keys, RMS at d 8192); mamba2-1.3b (fp32 and
+   bf16 at 12 of 48 layers) and zamba2-2.7b (fp32 and bf16 at 12 of 54),
+   2 x 256 tokens (16 and 20 SSM heads of 64 a rank, the SSD scan on
    them with the one group they read, state 128 and 64; zamba2's shared
    block 8/8 heads of 80 through flash); each kernel first held
    to its plain version at a rank's shapes (bf16 and fp32); each fp32
@@ -301,25 +301,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    first held to their plain versions at a rank's shapes in bf16 and
    fp32) within 2e-3 of the one-process forward's largest |logit|, 2
    flash and 5 norm launches a rank; collectives by kind a step;
-30. ``split_serve`` (phi3.5-moe-42b-a6.6b, in ``tp_forward``'s spawn, at
-   its arms' depths: fp32 2 layers gated, bf16 8 reported) and
-   ``split_serve_yi`` (yi-9b, in ``train_tp``'s spawn, fp32 2 layers
-   gated): the split cache over 4 ranks (``init_cache``/``prefill``/
-   ``decode_step`` of a model built over a (1, 4) mesh: each rank a
-   quarter of the sequence of every KV head, the partials merged by a
-   log-sum-exp all-reduce over ``model``), a 2 x 256 prompt (crossing two
-   ranks' blocks of a 512-position cache) and 4 greedy decode steps on the
-   ``xla`` and ``pallas_gather`` routes, against rank 0's one-process
-   prefill and decode steps on the same weights and route: fp32 within
-   2e-3 of the largest |logit| at every step with greedy tokens equal,
-   bf16 reported; on ``pallas_gather`` the dense decode kernel's launches
-   (one a layer a decode step a rank, the rank's block), counted into the
-   kernels line;
+30. ``split_serve`` (in ``tp_forward``'s spawn: phi3.5-moe-42b-a6.6b at
+   its arms' depths, fp32 2 layers gated and bf16 8 reported; fp32 and
+   gated, mamba2-1.3b at 12 of 48 layers, zamba2-2.7b at 12 of 54,
+   whisper-small at full depth, llama-3.2-vision-90b at 5 of 100) and
+   ``split_serve_yi`` (in ``train_tp``'s spawn, fp32 gated: yi-9b at 2
+   layers; zamba2-2.7b at 6 layers with ``long_context`` over the (2, 2)
+   mesh, batch 1, a 2304-token prompt over a 4096-position cache, 2048
+   positions a ``data`` rank): the split cache over 4 ranks
+   (``init_cache``, given the source for the whole batch, ``prefill``
+   and ``decode_step`` of a model built over the arm's mesh: each rank
+   its ``cache_spec`` block of every leaf, the self K/V's sequence
+   block (over ``model``, or ``data`` under ``long_context``) merged by
+   a log-sum-exp all-reduce, the SSM state and conv window by heads and
+   channels, the cross K/V by heads), a 2 x 256 prompt (crossing two
+   ranks' blocks of a 512-position cache) and 4 greedy decode steps on
+   the ``xla`` and ``pallas_gather`` routes, against rank 0's one-process
+   steps on the same weights, source and route: fp32 within 2e-3 of the
+   largest |logit| at every step with greedy tokens equal, bf16
+   reported; each rank's launches equal to ``_serve_want``'s (the dense
+   decode kernel once a self- and cross-attention layer a decode step,
+   flash once an encoder and cross layer, the SSD scan once a Mamba-2
+   layer a prefill, the norms), counted into the kernels line;
 31. ``dryrun``: ``python -m repro_torch.launch.dryrun`` for olmoe-1b-7b x
-   decode_32k over the 16 x 16 mesh and minicpm-2b x train_4k over the
-   2 x 16 x 16 mesh (256 and 512 ranks of a fake process group on meta
-   tensors, in subprocesses started with the script and read at its end;
-   no card), each record's roofline and memory; ``dryrun_account``: the
+   decode_32k and zamba2-2.7b x long_500k over the 16 x 16 mesh and
+   minicpm-2b x train_4k over the 2 x 16 x 16 mesh (256 and 512 ranks
+   of a fake process group on meta tensors, in subprocesses started with
+   the script and read at its end; no card), each record's roofline and
+   memory; ``dryrun_account``: the
    dry run's counting function over ``train_minicpm``'s step (minicpm-2b
    at full depth, 4 x 2048, bf16, one rank) once on meta tensors and once
    on the card's model and state: FLOPs equal, the argument bytes equal
@@ -3728,10 +3737,12 @@ def _dryrun_account(gpu: str, cfg, tcfg, train_step, state, batch,
 
 # The production dry-run cells run in subprocesses beside the card phases
 # (a fake process group is process-wide; they use no card).  yi-9b's
-# train cell runs with FSDP at its default (on).
+# train cell runs with FSDP at its default (on); zamba2's long_500k cell
+# splits its one sequence over data.
 DRYRUN_CELLS = (("olmoe-1b-7b", "decode_32k", "single"),
                 ("minicpm-2b", "train_4k", "multi"),
-                ("yi-9b", "train_4k", "single"))
+                ("yi-9b", "train_4k", "single"),
+                ("zamba2-2.7b", "long_500k", "single"))
 DRYRUN_TIMEOUT_S = 900
 
 
@@ -4818,13 +4829,32 @@ SERVE_MAX_LEN = 512          # 128 positions a rank: the prompt spans two
 SERVE_ROUTES = ("xla", "pallas_gather")
 
 
-def _serve_steps(model, params, toks, sync) -> tuple[list, dict]:
-    """Prefill ``toks`` into a fresh cache, then SERVE_STEPS greedy decode
-    steps, each fed its own argmax -> (each step's logits, ms)."""
+def serve_arm(name: str, cfg, cut=None, mesh=(1, TP_RANKS),
+              long_context: bool = False, prompt=SERVE_PROMPT,
+              max_len: int = SERVE_MAX_LEN) -> dict:
+    """A split serve arm: the line's key ``name``, the config, its depth
+    cut, the (data, model) mesh of the spawn's ranks, whether the model is
+    built with ``long_context`` (the sequence over ``data``), the prompt
+    (rows, tokens) and the cache's ``max_len``."""
+    return {"name": name, "cfg": cfg, "cut": cut, "mesh": tuple(mesh),
+            "long_context": long_context, "prompt": tuple(prompt),
+            "max_len": max_len}
+
+
+def _serve_steps(model, params, toks, sync, max_len: int,
+                 src: dict) -> tuple[list, dict]:
+    """A fresh cache of ``max_len`` (the source, where the family has one,
+    written by ``init_cache``), ``toks`` prefilled, then SERVE_STEPS
+    greedy decode steps, each fed its own argmax -> (each step's logits,
+    ms: the cache's making and each call)."""
     ms = []
     with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
         cache = model.init_cache(params, batch=toks.shape[0],
-                                 max_len=SERVE_MAX_LEN)
+                                 max_len=max_len, **src)
+        sync()
+        init_ms = (time.perf_counter() - t0) * 1e3
         logits = []
         nxt = toks
         for i in range(1 + SERVE_STEPS):
@@ -4836,49 +4866,85 @@ def _serve_steps(model, params, toks, sync) -> tuple[list, dict]:
             ms.append((time.perf_counter() - t0) * 1e3)
             logits.append(out)
             nxt = out.argmax(-1).to(torch.int32)
-    return logits, {"prefill_ms": ms[0], "decode_ms": ms[1:]}
+    return logits, {"init_cache_ms": init_ms, "prefill_ms": ms[0],
+                    "decode_ms": ms[1:]}
 
 
 def _serve_want(cfg, route: str) -> dict:
-    """A rank's launches over the split prefill and SERVE_STEPS decode
-    steps: none on "xla"; on "pallas_gather" the dense decode kernel once
-    a layer a decode step (the rank's block), the norm once a norm a call,
-    three grouped GEMMs an MoE layer a call, no flash (the prefill's
-    partials are plain) and no plain call."""
-    if route == "xla":
-        return {k: 0 for k in counts()}
+    """A rank's launches over ``init_cache`` (whisper's encoder runs
+    there), the split prefill and SERVE_STEPS decode steps.  On "xla" no
+    launch, and the SSD scan's plain version once a Mamba-2 layer in the
+    prefill (the route's scan).  On "pallas_gather", no plain call: the
+    SSD scan once a Mamba-2 layer in the prefill (a decode step's
+    recurrence is torch); the dense decode kernel once a self-attention
+    layer a decode step (the partials of the rank's sequence block) and
+    once a cross-attention layer a decode step (the rank's heads of the
+    source); flash once a cross-attention layer in the prefill and once
+    an encoder layer (the self prefill's partials are plain); the norm
+    once a norm a call (whisper's encoder: 2 a layer and the final one,
+    once); three grouped GEMMs an MoE layer a call."""
     L, calls = cfg.n_layers, 1 + SERVE_STEPS
-    return {**{k: 0 for k in counts()},
-            "decode_dense": L * SERVE_STEPS,
-            "fused_norm": (2 * L + 1) * calls,
+    out = {k: 0 for k in counts()}
+    mamba = L if cfg.family in ("ssm", "hybrid") else 0
+    if route == "xla":
+        return {**out, "plain": mamba}
+    if cfg.family in ("ssm", "hybrid"):
+        attn = L // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+        self_l, cross_l, enc = attn, 0, 0
+        norms = L + 2 * attn + 1
+    elif cfg.family == "encdec":
+        self_l, cross_l, enc = L, L, cfg.enc_layers
+        norms = 3 * L + 1
+    elif cfg.cross_attn_every:
+        cross_l = L // cfg.cross_attn_every
+        self_l, enc = L - cross_l, 0
+        norms = 2 * L + 1
+    else:
+        self_l, cross_l, enc = L, 0, 0
+        norms = 2 * L + 1
+    return {**out, "ssd": mamba,
+            "decode_dense": (self_l + cross_l) * SERVE_STEPS,
+            "flash_dense": cross_l + enc,
+            "fused_norm": norms * calls + (2 * enc + 1 if enc else 0),
             "grouped_matmul": (3 * L if cfg.n_experts else 0) * calls}
 
 
-def _split_serve_rank(rank: int, mesh, cfg, device: str, seed: int,
-                      sync) -> dict:
-    """One rank of a split serve arm: the model built over ``mesh`` on
-    each of SERVE_ROUTES (the same blocks of the weights, drawn from the
-    seed), its prefill and decode steps with the counters and
-    ``collectives.STAGED`` zeroed just before and read just after; rank 0
-    then runs the one-process model on the same weights and route and
-    compares each step's logits."""
+def _split_serve_rank(rank: int, meshes: dict, arm: dict, device: str,
+                      seed: int, sync) -> dict:
+    """One rank of a split serve arm (:func:`serve_arm`): the model built
+    over the arm's mesh (``long_context`` where the arm asks) on each of
+    SERVE_ROUTES (the same blocks of the weights, drawn from the seed),
+    its ``init_cache`` (given the source for the whole batch), prefill
+    and decode steps with the counters and ``collectives.STAGED`` zeroed
+    just before and read just after; rank 0 then runs the one-process
+    model on the same weights, source and route and compares each step's
+    logits."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives
     from repro_torch.models import build_model
 
+    cfg, mesh = arm["cfg"], meshes[arm["mesh"]]
+    long = arm["long_context"]
     base = dataclasses.replace(cfg, cache_layout="contiguous")
     seeded = lambda: torch.Generator(device=device).manual_seed(seed + 103)
-    params = build_model(base, device, mesh).init(seeded())
-    toks = _tp_tokens(seed + 7, cfg.vocab, SERVE_PROMPT, device)
+    params = build_model(base, device, mesh, long_context=long).init(
+        seeded())
+    toks = _tp_tokens(seed + 7, cfg.vocab, arm["prompt"], device)
+    src = _tp_source(cfg, seed, arm["prompt"][0], device)
+    n = mesh.size(0)
+    rows = (slice(0, len(toks)) if len(toks) % n else slice(
+        mesh.get_local_rank("data") * len(toks) // n,
+        (mesh.get_local_rank("data") + 1) * len(toks) // n))
     out, split = {}, {}
     for route in SERVE_ROUTES:
         model = build_model(dataclasses.replace(base, decode_kernel=route),
-                            device, mesh)
+                            device, mesh, long_context=long)
         dist.barrier()
         reset_counts()
         collectives.STAGED.update(collectives=0, bytes=0)
-        logits, ms = _serve_steps(model, params, toks, sync)
+        logits, ms = _serve_steps(model, params, toks[rows], sync,
+                                  arm["max_len"], src)
         launches = counts()
         want = _serve_want(cfg, route)
         if device == "cuda" and launches != want:
@@ -4897,10 +4963,11 @@ def _split_serve_rank(rank: int, mesh, cfg, device: str, seed: int,
             model = build_model(dataclasses.replace(base,
                                                     decode_kernel=route),
                                 device)
-            logits, ms = _serve_steps(model, one, toks, sync)
+            logits, ms = _serve_steps(model, one, toks, sync,
+                                      arm["max_len"], src)
             steps = []
             for a, b in zip(split[route], logits):
-                b = b.float()
+                b = b[rows].float()
                 gap = (a - b).abs().max().item()
                 scale = b.abs().max().item()
                 steps.append({"max_abs_err": gap, "max_abs_logit": scale,
@@ -4910,7 +4977,7 @@ def _split_serve_rank(rank: int, mesh, cfg, device: str, seed: int,
                               "finite": bool(torch.isfinite(a).all())})
             out[route].update(one_process=ms, steps=steps)
         del one
-    del split
+    del split, src
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -4922,25 +4989,33 @@ def _serve_line(gpu: str, phase: str, arms, res, spawn: str) -> dict:
     """The split serve arms' line from every rank's results: the fp32
     ones gated (TP_LOGIT_TOL of the largest |logit| at every step,
     greedy tokens equal), the bf16 ones reported; the ranks' logits
-    equal (checksums of their bits)."""
+    equal (checksums of their bits) where every rank holds the same rows
+    (rank 0's one-process comparison covers its rows)."""
     out = {"phase": phase, "gpu": gpu, "ranks": TP_RANKS,
-           "mesh": [1, TP_RANKS], "backend": "gloo", "spawn": spawn,
-           "prompt": list(SERVE_PROMPT), "decode_steps": SERVE_STEPS,
-           "max_len": SERVE_MAX_LEN,
-           "positions_a_rank": SERVE_MAX_LEN // TP_RANKS, "arms": []}
-    decode_dense = 0
-    for name, cfg in arms:
+           "backend": "gloo", "spawn": spawn,
+           "decode_steps": SERVE_STEPS, "arms": []}
+    for a in arms:
+        cfg, name = a["cfg"], a["name"]
         rows = [r[name] for r in res]
-        arm = {"arch": cfg.arch, "family": cfg.family,
+        seq_ranks = a["mesh"][0] if a["long_context"] else a["mesh"][1]
+        arm = {"name": name, "arch": cfg.arch, "family": cfg.family,
                "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-               "gated": cfg.dtype == "float32",
+               "mesh": list(a["mesh"]), "long_context": a["long_context"],
+               "prompt": list(a["prompt"]), "max_len": a["max_len"],
+               "positions_a_rank": a["max_len"] // seq_ranks,
+               "source": _tp_source_shape(cfg, a["prompt"][0]) or None,
+               "cut": a["cut"], "gated": cfg.dtype == "float32",
                "tol": (f"{TP_LOGIT_TOL} of the largest |logit| at every "
                        f"step, greedy tokens equal"
                        if cfg.dtype == "float32" else None),
                "routes": {}}
+        # Ranks with the same rows hold the same logits: every rank of a
+        # (1, n) mesh, of a long_context arm (one row), of a data group.
+        same = (rows if a["mesh"][0] == 1 or a["long_context"]
+                else rows[:a["mesh"][1]])
         for route in SERVE_ROUTES:
             if any(r[route]["logits_checksum"]
-                   != rows[0][route]["logits_checksum"] for r in rows):
+                   != same[0][route]["logits_checksum"] for r in same):
                 raise AssertionError(f"{phase} {name} {route}: the ranks' "
                                      f"logits differ")
             steps = rows[0][route]["steps"]
@@ -4954,11 +5029,10 @@ def _serve_line(gpu: str, phase: str, arms, res, spawn: str) -> dict:
                                      f"steps {steps} are not within "
                                      f"{TP_LOGIT_TOL} of the one process "
                                      f"with equal greedy tokens")
-            decode_dense += sum(r[route]["launches"]["decode_dense"]
-                                for r in rows)
             arm["routes"][route] = {
                 "steps": steps,
                 "max_rel_err": max(st["rel_err"] for st in steps),
+                "init_cache_ms": [r[route]["init_cache_ms"] for r in rows],
                 "prefill_ms": [r[route]["prefill_ms"] for r in rows],
                 "decode_ms": [r[route]["decode_ms"] for r in rows],
                 "one_process": rows[0][route]["one_process"],
@@ -4968,7 +5042,12 @@ def _serve_line(gpu: str, phase: str, arms, res, spawn: str) -> dict:
                 "launches": [r[route]["launches"] for r in rows],
                 "expected": _serve_want(cfg, route)}
         out["arms"].append(arm)
-    out["decode_dense_launches"] = decode_dense
+    # Every rank's launches over every arm and route, by kernel.
+    out["launches"] = {k: sum(r[a["name"]][route]["launches"][k]
+                              for a in arms for r in res
+                              for route in SERVE_ROUTES)
+                       for k in ("decode_dense", "flash_dense",
+                                 "fused_norm", "ssd", "grouped_matmul")}
     out["timing"] = ("host clock around each synchronised call, the "
                      "collectives staged through the host (gloo); "
                      "one_process: rank 0's one-process calls")
@@ -4984,7 +5063,7 @@ def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
     with the collectives clocked (every kernel counter,
     ``collectives.STAGED`` and the clock zeroed just before it, read just
     after).  Rank 0 keeps the gathered logits for the parent.  Then each
-    split serve arm ``(name, cfg)`` (:func:`_split_serve_rank`)."""
+    split serve arm (:func:`serve_arm`, :func:`_split_serve_rank`)."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives, tensor_parallel
@@ -5038,9 +5117,9 @@ def _tp_fwd_rank(rank: int, world: int, tmp: str, seed: int, device: str,
             if device == "cuda":
                 torch.cuda.empty_cache()
             dist.barrier()
-        for name, cfg in serve:
-            res[name] = _split_serve_rank(rank, mesh, cfg, device, seed,
-                                          sync)
+        for arm in serve:
+            res[arm["name"]] = _split_serve_rank(
+                rank, {(1, world): mesh}, arm, device, seed, sync)
         torch.save(res, f"{tmp}/tpf_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -5365,7 +5444,7 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
     gathered state).  With ``witness`` the parameters and first moments
     are also gathered after the first step, and rank 0 takes two more
     one-process runs (:func:`_tp_witness`).  Then each split serve arm
-    ``(name, cfg)`` (:func:`_split_serve_rank`)."""
+    (:func:`serve_arm`, :func:`_split_serve_rank`) on its mesh."""
     import torch.distributed as dist
 
     from repro_torch.core.remat import RematPolicy
@@ -5526,9 +5605,10 @@ def _tp_train_rank(rank: int, world: int, tmp: str, seed: int, device: str,
                 if device == "cuda":
                     torch.cuda.empty_cache()
             dist.barrier()
-        for name, cfg in serve:
-            out[name] = _split_serve_rank(rank, mesh, cfg, device, seed,
-                                          sync)
+        for arm in serve:
+            out[arm["name"]] = _split_serve_rank(
+                rank, {(1, world): mesh, (2, world // 2): mesh22}, arm,
+                device, seed, sync)
         torch.save(out, f"{tmp}/tpt_rank{rank}.pt")
         dist.barrier()
     finally:
@@ -6148,11 +6228,17 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
     torch.cuda.empty_cache()
     # The last two dense configs: granite's MQA (48 query heads over one
     # KV head) and GELU MLP, minicpm's tied embeddings and 36 heads of 64.
-    for mod, name in ((granite_20b, "serve_granite"),
-                      (minicpm_2b, "serve_minicpm")):
-        dserve = phase_serve(gpu, args.seed,
-                             dataclasses.replace(mod.CONFIG, **paged), name,
-                             twins=(), trace=False)
+    for mod, name, depth in ((granite_20b, "serve_granite", 13),
+                             (minicpm_2b, "serve_minicpm", 10)):
+        L = mod.CONFIG.n_layers
+        dserve = phase_serve(
+            gpu, args.seed,
+            dataclasses.replace(mod.CONFIG, n_layers=depth, **paged), name,
+            twins=(), trace=False,
+            cut=(f"n_layers {L} -> {depth}: the run's 1200 s limit (the "
+                 f"split serve arms of mamba2, zamba2, whisper and the VLM "
+                 f"took the time; its gates, launch counts and the planned "
+                 f"split count, follow the depth)"))
         served[mod.CONFIG.arch] = dserve
         del dserve["params"]
         torch.cuda.empty_cache()
@@ -6276,8 +6362,9 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
     ssm_cut = ("n_layers {L} -> 12{g}: the run's 1200 s limit (each layer "
                "stages its gathered in_proj and conv outputs through the "
                "host, twice as many bytes in fp32)")
-    ssm_measured_cut = ("n_layers {L} -> 24{g}: the run's 1200 s limit (a "
-                        "proof run with the FSDP train arm took 1162.1 s)")
+    ssm_measured_cut = ("n_layers {L} -> 12{g}: the run's 1200 s limit (48 "
+                        "/ 54 -> 24 once a proof run with the FSDP train arm "
+                        "took 1162.1 s; 24 -> 12 for the split serve arms)")
     vlm_cut = ("n_layers 100 -> {n} ({g} group(s) of 4 self layers and 1 "
                "cross layer): the weights once in this process and once "
                "over the ranks (~{gb} GB each), and the run's 1200 s limit; "
@@ -6304,29 +6391,43 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
                    "took 1100.3 s)"}},
         {"phase": "tp_forward_mamba2", "shape": (2, 256),
          "gate": dataclasses.replace(mb, n_layers=12, dtype="float32"),
-         "measured": dataclasses.replace(mb, n_layers=24),
+         "measured": dataclasses.replace(mb, n_layers=12),
          "cut": {"gate": ssm_cut.format(L=48, g=""),
                  "measured": ssm_measured_cut.format(L=48, g="")}},
         {"phase": "tp_forward_zamba2", "shape": (2, 256),
          "gate": dataclasses.replace(zb, n_layers=12, dtype="float32"),
-         "measured": dataclasses.replace(zb, n_layers=24),
+         "measured": dataclasses.replace(zb, n_layers=12),
          "cut": {"gate": ssm_cut.format(L=54, g=" (two groups of 6 "
                                               "Mamba-2 layers and the "
                                               "shared block)"),
                  "measured": ssm_measured_cut.format(
-                     L=54, g=" (four groups of 6 Mamba-2 layers and the "
+                     L=54, g=" (two groups of 6 Mamba-2 layers and the "
                              "shared block)")}}],
-        # The split cache at the depths the phi arms run.
-        serve=[("split_serve.gate",
-                dataclasses.replace(phi35_moe.CONFIG, n_layers=2,
-                                    dtype="float32")),
-               ("split_serve.measured",
-                dataclasses.replace(phi35_moe.CONFIG, n_layers=8))])
+        # The split cache at the depths the phi arms run, then every
+        # other family's in fp32 (gated): the SSM state by heads and the
+        # conv window by channels, zamba2's and the decoders' self K/V by
+        # sequence, whisper's and the VLM's cross K/V by heads.
+        serve=[serve_arm("split_serve.gate", dataclasses.replace(
+                   phi35_moe.CONFIG, n_layers=2, dtype="float32")),
+               serve_arm("split_serve.measured", dataclasses.replace(
+                   phi35_moe.CONFIG, n_layers=8)),
+               serve_arm("split_serve.mamba2", dataclasses.replace(
+                   mamba2_13b.CONFIG, n_layers=12, dtype="float32"),
+                   cut=ssm_cut.format(L=48, g="")),
+               serve_arm("split_serve.zamba2", dataclasses.replace(
+                   zamba2_27b.CONFIG, n_layers=12, dtype="float32"),
+                   cut=ssm_cut.format(L=54, g=" (two groups of 6 Mamba-2 "
+                                              "layers and the shared "
+                                              "block)")),
+               serve_arm("split_serve.whisper", dataclasses.replace(
+                   whisper_small.CONFIG, dtype="float32")),
+               serve_arm("split_serve.vlm", dataclasses.replace(
+                   llama32_vision_90b.CONFIG, n_layers=5, dtype="float32"),
+                   cut=vlm_cut.format(n=5, g=1, gb=26))])
     served["tp_forward"] = {"launches": {
         **{k: 0 for k in counts()}, **tpf["total_launches"]}}
     served["split_serve"] = {"launches": {
-        **{k: 0 for k in counts()},
-        "decode_dense": tpf["serve"]["decode_dense_launches"]}}
+        **{k: 0 for k in counts()}, **tpf["serve"]["launches"]}}
     torch.cuda.empty_cache()
     ttp = phase_train_tp(gpu, args.seed, [
         {"phase": "train_tp", "shape": (4, 512), "ckpt": False,
@@ -6359,12 +6460,20 @@ def _main_phases(args, gpu: str, dry, dry_dir: str) -> int:
                 "run's 1200 s limit; only the first moments gathered, no "
                 "checkpoint (the CPU tests restore an FSDP checkpoint at "
                 "one process and onto another mesh)"}],
-        serve=[("split_serve_yi.gate",
-                dataclasses.replace(yi_9b.CONFIG, n_layers=2,
-                                    dtype="float32"))])
+        serve=[serve_arm("split_serve_yi.gate", dataclasses.replace(
+                   yi_9b.CONFIG, n_layers=2, dtype="float32")),
+               # long_500k's schedule: one sequence over data (2048
+               # positions a rank), the KV heads and SSM heads over model;
+               # the 2304-token prompt crosses the data blocks.
+               serve_arm("split_serve_yi.zamba2_long", dataclasses.replace(
+                   zamba2_27b.CONFIG, n_layers=6, dtype="float32"),
+                   cut="n_layers 54 -> 6 (one group of 6 Mamba-2 layers "
+                       "and the shared block), 524288 -> 4096 positions: "
+                       "the run's 1200 s limit",
+                   mesh=(2, TP_RANKS // 2), long_context=True,
+                   prompt=(1, 2304), max_len=4096)])
     served["split_serve_yi"] = {"launches": {
-        **{k: 0 for k in counts()},
-        "decode_dense": ttp["serve"]["decode_dense_launches"]}}
+        **{k: 0 for k in counts()}, **ttp["serve"]["launches"]}}
     fsdp_fwd = next(line for line in ttp["lines"]
                     if line["phase"] == "train_fsdp")["kernel_forward"]
     served["train_fsdp"] = {"launches": {

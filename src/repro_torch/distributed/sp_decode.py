@@ -9,9 +9,10 @@ shard with the split-KV decode kernel
 on the card, its plain version on the CPU), and the partial (acc, max,
 sum) triples merge with the same log-sum-exp combine the kernel's splits
 use.  This makes decode bandwidth scale with the number of ranks — the
-STREAM policy executed fleet-wide.  The split cache of the dense and MoE
-models runs the same schedule over ``model`` (``local_partials`` and
-``merge_partials`` from ``models.common._attn_split_cached``).
+STREAM policy executed fleet-wide.  A split model's cache runs the same
+schedule (``local_partials`` and ``merge_partials`` from
+``models.common._attn_split_cached``): over ``model``, or over ``data``
+under ``long_context``, the model's long_500k schedule.
 """
 from __future__ import annotations
 

@@ -47,8 +47,14 @@ after the gathers runs whole on every rank (every head, the whole norm,
 ``out_proj`` with no reduce): that code is replicated, so nothing in it
 is copied, and only the split conv's input enters through a *copy*.
 
-A split model's self-attention cache (dense and MoE) holds this rank's
-block of the sequence: see ``models.common._attn_split_cached``.
+A split model's cache holds this rank's ``sharding.cache_spec`` block of
+every leaf (:meth:`ModelParallel.cache_block`): its rows of the batch,
+the self K/V's block of the sequence, the SSM state's heads and the conv
+window's channels where they split over ``model``, the cross K/V's KV
+heads.  The self K/V's sequence splits over ``model``, or with
+``long_context`` (a batch the batch axes do not split: long_500k's one
+sequence) over ``data``, the KV heads then over ``model``; see
+``models.common._attn_split_cached``.
 
 Every collective goes through ``distributed.collectives``: under gloo a
 CUDA tensor is copied to the host and back, explicitly, and counted in
@@ -131,25 +137,27 @@ class _Gather(torch.autograd.Function):
 
 
 class ModelParallel:
-    """This rank's place on the ``model`` axis of a ``(data, model)`` mesh
-    and the sharding rule's picks for ``cfg``, computed locally from the
-    config and the mesh's shape.
+    """This rank's place on the ``model`` and ``data`` axes of a ``(data,
+    model)`` or ``(pod, data, model)`` mesh and the sharding rule's picks
+    for ``cfg``, computed locally from the config and the mesh's shape.
 
-    ``q_split``/``kv_split`` name how attention splits (``"heads"``,
-    ``"dh"`` or None for replicated), the rule's ``_attn_dims`` and
-    ``_kv_dims``.  The model code reads local head, ``d_ff``, vocab and
-    expert counts from its leaves' shapes; this object gives the group,
-    this rank's index and the collectives."""
+    The model code reads local head, ``d_ff``, vocab and expert counts
+    from its leaves' shapes; this object gives the groups, this rank's
+    indices and the collectives.  ``long_context``: the serving cache's
+    self K/V splits its sequence over ``data`` (and its KV heads over
+    ``model``), ``sharding.cache_spec(..., long_context=True)``; the
+    model then needs this object even where ``model`` has one rank, and
+    every pick over a one-rank ``model`` is "not split"."""
 
-    def __init__(self, cfg: ModelConfig, mesh):
+    def __init__(self, cfg: ModelConfig, mesh, long_context: bool = False):
         self.cfg, self.mesh = cfg, mesh
+        self.long_context = long_context
         self.size = axis_sizes(mesh)["model"]
         self.rank = mesh.get_local_rank("model")
         self.group = mesh.get_group("model")
-        qh, qd = sh._attn_dims(cfg, cfg.n_heads, self.size)
-        kh, kd = sh._kv_dims(cfg, self.size)
-        self.q_split = "heads" if qh else "dh" if qd else None
-        self.kv_split = "heads" if kh else "dh" if kd else None
+        self.data_size = axis_sizes(mesh)["data"]
+        self.data_rank = mesh.get_local_rank("data")
+        self.data_group = mesh.get_group("data")
         if cfg.ssm_state:
             self._ssm_picks(cfg)
 
@@ -165,13 +173,14 @@ class ModelParallel:
         def split(leaf: str, shape: tuple) -> bool:
             spec = sh.param_spec(f"layers/mamba/{leaf}", shape, cfg,
                                  self.mesh)
-            return "model" in spec
+            return self.size > 1 and "model" in spec
 
         self.in_proj_split = split(
             "in_proj", (cfg.d_model, 2 * di + 2 * g * ds + cfg.ssm_heads))
         self.conv_split = split("conv_w", (cfg.ssm_conv, di + 2 * g * ds))
         self.ssm_rows_split = split("norm_w", (di,))
-        self.ssm_heads_split = cfg.ssm_heads % self.size == 0
+        self.ssm_heads_split = (self.size > 1
+                                and cfg.ssm_heads % self.size == 0)
 
     # -- the collectives ---------------------------------------------------
 
@@ -192,17 +201,62 @@ class ModelParallel:
 
     # -- placement ---------------------------------------------------------
 
-    def cache_block(self, batch: int, max_len: int) -> tuple[int, ...]:
-        """This rank's block ``(L, b, S, hkv, dh)`` of a self-attention
-        cache leaf of the one-process shape ``(L, batch, max_len, hkv,
-        dh)`` under ``sharding.cache_spec`` (the batch over the batch
-        axes, the sequence over ``model``), through
-        ``sharding.local_shape``; the sink position is not in it."""
-        cfg = self.cfg
-        full = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-        spec = sh.cache_spec(cfg, self.mesh, batch)(
-            "layers/k", torch.empty(full, device="meta"))
-        return sh.local_shape(full, sh.Sharding(self.mesh, spec))
+    @property
+    def seq_rank(self) -> int:
+        """This rank's index along the axis the self K/V's sequence splits
+        over (``data`` under ``long_context``, else ``model``)."""
+        return self.data_rank if self.long_context else self.rank
+
+    @property
+    def seq_group(self):
+        """The group the self-attention partials merge over."""
+        return self.data_group if self.long_context else self.group
+
+    def cache_block(self, path: str, shape: tuple, batch: int
+                    ) -> tuple[int, ...]:
+        """This rank's block of the cache leaf ``path`` whose one-process
+        shape is ``shape`` (a self K/V ring's without its sink), for a
+        global ``batch``, under ``sharding.cache_spec(...,
+        long_context=)``, through ``sharding.local_shape``.  Raises for
+        ``long_context`` with a batch the batch axes split: the rule
+        would put ``model`` on both the sequence and the heads."""
+        if self.long_context and sh._batch_rule(self.mesh, batch):
+            raise ValueError(
+                f"long_context splits the sequence over 'data': batch "
+                f"{batch} splits over the batch axes of {axis_sizes(self.mesh)}"
+                f" (long_500k's batch is 1)")
+        spec = sh.cache_spec(self.cfg, self.mesh, batch,
+                             self.long_context)(
+            path, torch.empty(shape, device="meta"))
+        return sh.local_shape(shape, sh.Sharding(self.mesh, spec))
+
+    def ring_block(self, path: str, lead: tuple, batch: int, max_len: int,
+                   heads: int, dh: int) -> tuple[int, ...]:
+        """This rank's self K/V ring ``(*lead, b, S_l + 1, h, dh)``: its
+        :meth:`cache_block` of ``(*lead, batch, max_len, heads, dh)`` and
+        the block's own sink position."""
+        *rest, s_l, h, d = self.cache_block(
+            path, (*lead, batch, max_len, heads, dh), batch)
+        return (*rest, s_l + 1, h, d)
+
+    def cache_rows(self, batch: int) -> int:
+        """This rank's rows of a global ``batch`` (the cache's and the
+        tokens' batch rule, ``sharding.batch_spec``)."""
+        spec = sh.batch_spec(self.cfg, self.mesh, batch)["tokens"]
+        return sh.local_shape((batch, 1), sh.Sharding(self.mesh, spec))[0]
+
+    def source_rows(self, src: torch.Tensor, rows: int) -> torch.Tensor:
+        """This rank's ``rows`` rows of a fixed source (whisper's frames,
+        the VLM's vision tokens), given for the global batch or already
+        as this rank's rows."""
+        if src.shape[0] == rows:
+            return src
+        spec = sh.batch_spec(self.cfg, self.mesh, src.shape[0])["vis"]
+        out = sh.shard(src, sh.Sharding(self.mesh, spec))
+        if out.shape[0] != rows:
+            raise ValueError(f"a source of {src.shape[0]} rows does not "
+                             f"give this rank's {rows}")
+        return out
 
     def place(self, path: tuple, lead: tuple = ()):
         """``place(key, full) -> this rank's block`` for the leaves under
@@ -234,9 +288,13 @@ class ModelParallel:
         return torch.tensor(want)
 
 
-def model_parallel(cfg: ModelConfig, mesh) -> ModelParallel | None:
+def model_parallel(cfg: ModelConfig, mesh,
+                   long_context: bool = False) -> ModelParallel | None:
     """The context for ``mesh``'s ``model`` axis, None when it has one
-    rank (or there is no mesh)."""
-    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+    rank (or there is no mesh) unless ``long_context`` asks for the
+    ``data`` axis too."""
+    if mesh is None:
         return None
-    return ModelParallel(cfg, mesh)
+    if not long_context and axis_sizes(mesh).get("model", 1) == 1:
+        return None
+    return ModelParallel(cfg, mesh, long_context)

@@ -75,16 +75,13 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import axis_sizes, make_production_mesh
-from repro_torch.launch.specs import batch_specs
+from repro_torch.launch.specs import batch_specs, cache_shape
 from repro_torch.models import build_model, get_config, runnable_cells
 from repro_torch.models.registry import (FSDP_FAMILIES, FSDP_FAMILIES_ITEM,
-                                         SPLIT_CACHE_FAMILIES, param_shapes)
+                                         param_shapes)
 from repro_torch.utils import tree
 
 ARTIFACT_DIR = "artifacts/dryrun"
-
-CACHE_ITEM = ("the split cache path for mamba2/zamba2 (long_500k included), "
-              "whisper and the VLM: ROADMAP queue 1 item 2")
 
 
 def plan_model_policies(cfg, shape, plan_cache=None,
@@ -296,11 +293,11 @@ def production_mesh(multi_pod: bool):
 
 
 def waits_on(cfg, shape, fsdp: bool) -> str | None:
-    """The ROADMAP item a cell waits on, None when the port runs it."""
+    """The ROADMAP item a cell waits on, None when the port runs it: a
+    train cell asked for FSDP of a family without it (no cell at the
+    rules' defaults)."""
     if fsdp and cfg.family not in FSDP_FAMILIES:
         return FSDP_FAMILIES_ITEM
-    if shape.kind != "train" and cfg.family not in SPLIT_CACHE_FAMILIES:
-        return CACHE_ITEM
     return None
 
 
@@ -388,31 +385,25 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         def step():
             return train_step(state, batch)
         return cfg, shape, mesh, step, arguments, parts
-    model = build_model(cfg, "meta", mesh)
+    long = shape_name == "long_500k"
+    model = build_model(cfg, "meta", mesh, long_context=long)
     params = model.init(None)
+    # The one-process cache on meta and the source it took (the global
+    # batch's frames or vision tokens), as ``specs.cache_shape`` makes it.
+    whole, source = cache_shape(build_model(cfg, "meta"), cfg,
+                                shape.global_batch, shape.seq_len)
     cache = model.init_cache(params, batch=shape.global_batch,
-                             max_len=shape.seq_len)
+                             max_len=shape.seq_len, **source)
     b = cache["lengths"].shape[0]
     s = shape.seq_len if shape.kind == "prefill" else 1
     tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
-    kv = cache["layers"]
-    public = kv["k"][:, :, :-1]
-    sink = kv["k"][:, :, -1:]
     parts = {
         "params": _check("parameter", _block_bytes(
             zip(tree.leaves(param_shapes(cfg)),
                 tree.leaves(sh.params_shardings(param_shapes(cfg), cfg,
                                                 mesh))),
             lambda x: x.dtype), tree.tree_bytes(params)),
-        "cache": _check("cache", 2 * _block_bytes(
-            [(torch.empty((cfg.n_layers, shape.global_batch, shape.seq_len,
-                           cfg.n_kv_heads, cfg.head_dim_), device="meta"),
-              sh.Sharding(mesh, sh.cache_spec(cfg, mesh, shape.global_batch)(
-                  "layers/k", public)))],
-            lambda x: torch_dtype(cfg.dtype)),
-            2 * public.numel() * public.element_size()),
-        "cache_sink": 2 * sink.numel() * sink.element_size(),
-        "cache_lengths": cache["lengths"].numel() * 4,
+        **_cache_parts(cfg, mesh, shape.global_batch, long, whole, cache),
         "inputs": _check("input", _block_bytes(
             [(torch.empty((shape.global_batch, s), dtype=torch.int32,
                           device="meta"),
@@ -426,6 +417,44 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     def step():
         return entry(params, cache, tokens)
     return cfg, shape, mesh, step, arguments, parts
+
+
+def _self_kv(path: str) -> bool:
+    """A self-attention K/V ring's leaf (it carries a sink position on its
+    sequence dim, ``models.common``); the cross K/V carry none."""
+    return (path.endswith("/k") or path.endswith("/v")) and "cross" not in path
+
+
+def _cache_parts(cfg, mesh, batch: int, long_context: bool, whole,
+                 cache) -> dict:
+    """The rank's cache bytes by part: ``cache`` the ``cache_spec`` blocks
+    of every leaf but the cursors, worked out from the one-process
+    ``whole`` cache's shapes (the rings' sinks taken off) under
+    ``sharding.local_shape`` and held leaf by leaf against the rank's
+    ``cache``; ``cache_sink`` the rank's sink positions;
+    ``cache_lengths`` its cursors (its rows; the reference's are
+    replicated)."""
+    spec_of = sh.cache_spec(cfg, mesh, batch, long_context=long_context)
+    rank = dict((tree.path_str(p), x)
+                for p, x in tree.leaves_with_paths(cache))
+    blocks = sinks = 0
+    for path, x in tree.leaves_with_paths(whole):
+        p = tree.path_str(path)
+        if p == "lengths":
+            continue
+        public, held = list(x.shape), list(rank[p].shape)
+        if _self_kv(p):
+            public[-3] -= 1
+            held[-3] -= 1
+            sinks += (math.prod(rank[p].shape) - math.prod(held)) * \
+                rank[p].element_size()
+        pub = torch.empty(public, device="meta")
+        n = math.prod(sh.local_shape(tuple(public), sh.Sharding(
+            mesh, spec_of(p, pub)))) * x.element_size()
+        blocks += _check(f"cache {p}", n,
+                         math.prod(held) * rank[p].element_size())
+    return {"cache": blocks, "cache_sink": sinks,
+            "cache_lengths": cache["lengths"].numel() * 4}
 
 
 def train_step_rows(batch: dict, mesh, tcfg) -> list[torch.Tensor]:
@@ -472,16 +501,31 @@ def _prior_knobs(arch: str, shape_name: str, out_dir: str) -> dict | None:
     return None
 
 
+def rank_rows(shape_name: str, multi_pod: bool) -> int:
+    """A rank's rows of the cell's global batch (over the batch axes)."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    sizes = axis_sizes(mesh)
+    return SHAPES[shape_name].global_batch // math.prod(
+        sizes[a] for a in sh.batch_axes(mesh))
+
+
 def cell_knobs(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                tag: str = "", smoke: bool = False, **knobs) -> dict:
     """The reference's first-rung knobs of a cell: the multi-pod reuse of
     the single-pod record's, FSDP resolved at its default on the 16 x 16
-    mesh, and the train cells' recompute/mb4 baseline."""
+    mesh, and the train cells' recompute/mb4 baseline.  A reused
+    microbatch count is capped at the rank's rows: the single-pod cell's
+    16 microbatches of 16 rows a rank leave a multi-pod rank's 8 rows
+    none (the reference's GSPMD pads a 16-row microbatch over 32 ranks;
+    a rank of the port holds whole rows)."""
     shape_kind = SHAPES[shape_name].kind
     if multi_pod and not tag:
         prior = _prior_knobs(arch, shape_name, out_dir)
         if prior:
             knobs = dict(knobs, **prior)
+            if shape_kind == "train":
+                knobs["microbatch"] = min(knobs.get("microbatch", 1),
+                                          rank_rows(shape_name, True))
     if "fsdp" not in knobs or knobs["fsdp"] == "auto":
         knobs = dict(knobs, fsdp=sh.fsdp_needed(
             get_config(arch, smoke=smoke), make_production_mesh(),
@@ -509,8 +553,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                        **knobs)
     ladder = [dict(knobs)]
     if auto_fit and shape_kind == "train":
-        step_knobs = dict(knobs, remat="recompute",
-                          microbatch=max(16, knobs.get("microbatch", 1)))
+        step_knobs = dict(knobs, remat="recompute", microbatch=min(
+            max(16, knobs.get("microbatch", 1)),
+            rank_rows(shape_name, multi_pod)))
         if step_knobs not in ladder:
             ladder.append(step_knobs)
 

@@ -100,20 +100,20 @@ def fsdp_refuses_serving(*args, **kwargs):
         "rank: build the serving model without fsdp")
 
 
-def single_rank(*args, **kwargs):
-    """The cache entry points of a model split over ``model`` whose family
-    has no split cache path yet (every family but dense and MoE)."""
-    raise NotImplementedError(
-        "this family's cache entry points run on one rank: the split cache "
-        "path for mamba2/zamba2, whisper and the VLM is ROADMAP queue 1 "
-        "item 2; build the model without a mesh whose 'model' axis is "
-        "larger than 1")
+def refuse_split_paged(cfg: ModelConfig, tp) -> None:
+    """A split model's (``tp``) cache is contiguous: the paged layout (and
+    its page table) stays on one rank, as ``ServeEngine`` takes no
+    mesh."""
+    if tp is not None and cfg.cache_layout == "paged":
+        raise NotImplementedError(
+            "the paged cache layout runs on one rank (ServeEngine takes "
+            "no mesh); a split model takes cache_layout='contiguous'")
 
 
-def norm_init(cfg: ModelConfig, device) -> Params:
-    p = {"w": torch.ones(cfg.d_model, device=device)}
+def norm_init(cfg: ModelConfig, device, place=_keep) -> Params:
+    p = {"w": place("w", torch.ones(cfg.d_model, device=device))}
     if cfg.norm_kind == "layer":
-        p["b"] = torch.zeros(cfg.d_model, device=device)
+        p["b"] = place("b", torch.zeros(cfg.d_model, device=device))
     return p
 
 
@@ -537,20 +537,17 @@ def apply_attn(
 
     RoPE applies to self-attention only (``use_rope`` and no ``kv_src``);
     cross-attention is never causal.  ``tp`` (a ``ModelParallel``): this
-    rank's block of the weights, see :func:`_attn_split`, and with a self
-    cache this rank's sequence block of it, see
-    :func:`_attn_split_cached`."""
+    rank's block of the weights, see :func:`_attn_split`; with a self
+    cache this rank's block of it, see :func:`_attn_split_cached`, with a
+    cross cache this rank's, see :func:`_attn_split_cross`."""
     if tp is not None:
-        if cache is not None:
-            if "lengths" not in cache or kv_src is not None:
-                raise NotImplementedError(
-                    "tensor-parallel attention over a cache takes a self "
-                    "cache only (the cross caches' split path is ROADMAP "
-                    "queue 1 item 2)")
-            return _attn_split_cached(p, x, cfg, positions, cache, seg_lens,
-                                      tp)
-        return _attn_split(p, x, cfg, positions, seg_lens, tp, kv_src,
-                           causal, use_rope)
+        if cache is None:
+            return _attn_split(p, x, cfg, positions, seg_lens, tp, kv_src,
+                               causal, use_rope)
+        if "lengths" not in cache:
+            return _attn_split_cross(p, x, cfg, cache, seg_lens, tp)
+        return _attn_split_cached(p, x, cfg, positions, cache, seg_lens, tp,
+                                  use_rope and kv_src is None)
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     cross_cached = cache is not None and "lengths" not in cache
@@ -712,52 +709,68 @@ def _sdpa_partials(q, k, v, q_offset, kv_len):
 
 
 def _attn_split_cached(p: Params, x, cfg: ModelConfig, positions, cache,
-                       seg_lens, tp):
+                       seg_lens, tp, use_rope: bool = True):
     """Self-attention over a split cache on this rank's block of the
-    weights: the cache ring holds this rank's sequence block ``[start,
-    start + S_l)`` (``start = rank * S_l``) of every KV head, for this
-    rank's batch rows (``sharding.cache_spec``).
+    weights.  The cache ring holds this rank's block ``[start, start +
+    S_l)`` of the sequence (``start = tp.seq_rank * S_l``) for this rank's
+    batch rows (``sharding.cache_spec``), in one of two schedules:
 
-    q, k and v are projected on this rank's block of the weights and
-    gathered over ``model`` to every head (and the whole ``dh``, where the
-    rule splits ``dh``; replicated K/V weights give every KV head
-    already), then rotated.  Each new K/V row is written by the rank whose
-    block holds its position and goes to the sink on every other rank
-    (:func:`append_kv` with ``start``), with no host sync.  Every query
-    head attends over this rank's block (partials with the causal offsets
-    moved into block coordinates), and the partials merge by the
-    log-sum-exp all-reduce over ``model``
-    (``distributed.sp_decode.merge_partials``), the schedule of
-    ``sp_decode`` over ``model`` instead of ``data``.  On a kernel route a
-    decode step's partials come from the dense split-KV decode kernel on
-    the block (``sp_decode.local_partials``).  The rank's heads (or
-    ``dh`` slice) of the merged output go into its rows of ``wo``, whose
-    partial sums leave through a *reduce*."""
+    * sequence over ``model`` (every KV head in the ring): q, k and v are
+      projected on this rank's block of the weights and gathered over
+      ``model`` to every head (and the whole ``dh``, where the rule
+      splits ``dh``; replicated K/V weights give every KV head already),
+      and every query head attends over the block;
+    * ``long_context``, sequence over ``data``: where heads split over
+      ``model`` each rank keeps its own, with no gather: its query heads
+      over its KV heads in the ring (the ring holds this rank's KV heads
+      where they split; where the K/V weights are replicated it holds
+      every KV head and the query heads read theirs,
+      ``ModelParallel.kv_heads``).  A ``dh`` split gathers as above.
+
+    q and k are rotated where ``use_rope`` (whisper's decoder is not).
+    Each new K/V row is written by the rank whose block holds its
+    position and goes to the sink on every other rank (:func:`append_kv`
+    with ``start``), with no host sync.  The partials of the block (the
+    causal offsets moved into block coordinates) merge by the
+    log-sum-exp all-reduce over the sequence's group
+    (``distributed.sp_decode.merge_partials``: the schedule of
+    ``sp_decode``).  On a kernel route a decode step's partials come from
+    the dense split-KV decode kernel on the block
+    (``sp_decode.local_partials``).  The rank's heads (or ``dh`` slice)
+    of the merged output go into its rows of ``wo``, whose partial sums
+    leave through a *reduce*."""
     from repro_torch.distributed import sp_decode
 
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    keep = tp.long_context and p["wq"].shape[1] != hq    # local heads
 
     def proj(w, bias, heads):
         h, dl = w.shape[1:]
         y = (x @ w.reshape(d, h * dl)).reshape(b, s, h, dl)
         if bias is not None:
             y = y + bias
-        if h != heads:                                  # heads split
+        if h != heads and not keep:                     # heads split
             y = tp.gather(y, 2)
         elif dl != dh:                                  # dh split
             y = tp.gather(y, 3)
         return y
 
-    q = rope(proj(p["wq"], p.get("bq"), hq), positions, cfg.rope_theta)
-    k = rope(proj(p["wk"], p.get("bk"), hkv), positions, cfg.rope_theta)
+    q = proj(p["wq"], p.get("bq"), hq)
+    k = proj(p["wk"], p.get("bk"), hkv)
     v = proj(p["wv"], p.get("bv"), hkv)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     lengths = cache["lengths"]
     s_l = cache["k"].shape[1] - 1
-    start = tp.rank * s_l
+    start = tp.seq_rank * s_l
     append_kv(cache["k"], k, lengths, seg_lens, start)
     append_kv(cache["v"], v, lengths, seg_lens, start)
     kc, vc = cache["k"][:, :-1], cache["v"][:, :-1]    # public ring view
+    if keep and kc.shape[2] == hkv:                    # replicated K/V
+        heads = tp.kv_heads(q.shape[2])
+        kc, vc = kc[:, :, heads], vc[:, :, heads]
     kv_len = lengths + (s if seg_lens is None else seg_lens)
     if cfg.decode_kernel != "xla" and s == 1:
         acc, m, l = sp_decode.local_partials(
@@ -767,15 +780,57 @@ def _attn_split_cached(p: Params, x, cfg: ModelConfig, positions, cache,
     else:
         acc, m, l = _sdpa_partials(q, kc, vc, lengths - start,
                                    kv_len - start)
-    out = sp_decode.merge_partials(acc, m, l, tp.group).to(x.dtype)
+    out = sp_decode.merge_partials(acc, m, l, tp.seq_group).to(x.dtype)
+    return _split_out(p, out, cfg, tp, keep)
+
+
+def _split_out(p: Params, out, cfg: ModelConfig, tp, keep: bool):
+    """``out`` (b, s, h, dh') through this rank's rows of ``wo``: its
+    heads or ``dh`` slice of every head are taken unless ``keep`` (``out``
+    is this rank's heads already), and the partial sums leave through a
+    *reduce* where ``wo`` is split."""
+    b, s = out.shape[:2]
+    hq, dh = cfg.n_heads, cfg.head_dim_
     wo = p["wo"]
     hl, dl = wo.shape[:2]
-    if hl != hq:
+    if hl != hq and not keep:
         out = out.narrow(2, tp.rank * hl, hl)
     elif dl != dh:
         out = out.narrow(3, tp.rank * dl, dl)
-    y = out.reshape(b, s, hl * dl) @ wo.reshape(hl * dl, d)
+    y = out.reshape(b, s, hl * dl) @ wo.reshape(hl * dl, wo.shape[-1])
     return tp.reduce(y) if (hl, dl) != (hq, dh) else y
+
+
+def _attn_split_cross(p: Params, x, cfg: ModelConfig, cache, seg_lens, tp):
+    """Cross-attention over a split cross cache on this rank's block of
+    the weights.  The cache holds this rank's batch rows of the fixed
+    source's K/V and, where the rule splits the KV heads over ``model``,
+    its KV heads (``sharding.cache_spec``), as ``fill_source`` wrote them:
+
+    * heads split: q on this rank's heads over its KV heads, no merge;
+    * replicated K/V: q on this rank's heads over the KV heads they read
+      (``ModelParallel.kv_heads``) of every KV head the cache holds;
+    * ``dh`` split: q gathered over ``dh`` to every head, attention over
+      the whole cache, then this rank's ``dh`` slice into ``wo``, as
+      :func:`_attn_split` does.
+
+    The kernel routes run the flash kernel on an s > 1 block and the
+    dense decode kernel on a step (:func:`_source_attention`), at the
+    rank's heads; ``wo``'s partial sums leave through a *reduce*."""
+    b, s, d = x.shape
+    wq = p["wq"]
+    hl, dl = wq.shape[1:]
+    q = (x @ wq.reshape(d, hl * dl)).reshape(b, s, hl, dl)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    kc, vc = cache["k"], cache["v"]
+    if dl != cfg.head_dim_:                             # dh split
+        q = tp.gather(q, 3)
+    elif hl != cfg.n_heads and kc.shape[2] == cfg.n_kv_heads:
+        heads = tp.kv_heads(hl)                         # replicated K/V
+        kc, vc = kc[:, :, heads], vc[:, :, heads]
+    out = _source_attention(q, kc, vc, cfg, False, seg_lens)
+    return _split_out(p, out, cfg, tp, keep=dl == cfg.head_dim_)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ every layer over the whole block from a zero state, the reference's
 training use of ``ssd_chunked``.
 
 Tensor parallel over a mesh's ``model`` axis (``build(cfg, device, tp)``,
-``init``/``forward``/``loss`` only; the cache entry points refuse):
+every entry point):
 
 * **Storage follows the rule.**  Each rank holds exactly its
   ``sharding.param_spec`` block of every leaf: a contiguous block of
@@ -38,6 +38,13 @@ Tensor parallel over a mesh's ``model`` axis (``build(cfg, device, tp)``,
   ``out_proj`` whole.  The picks (split or replicated ``in_proj``, conv
   and ``d_inner``, heads or whole) are ``ModelParallel``'s, read from
   the rule.
+* **The cache is the rank's ``sharding.cache_spec`` block**: its batch
+  rows, the SSM state of its heads where the heads split (else every
+  head), the conv window of its channels where the conv splits (else
+  every channel).  The heads rule and the conv's width rule are the
+  ones the compute's picks read, so the block a rank scans and
+  convolves is the block it holds.  Under ``long_context`` (batch 1)
+  the rows are the one row on every ``data`` rank.
 """
 from __future__ import annotations
 
@@ -131,8 +138,10 @@ def apply_mamba(p, x, cfg: ModelConfig, state=None, conv_prev=None,
     dt == 0 is the identity (decay exp(0) = 1, zero input), so padding and
     parked slots (seg_lens == 0) never touch the SSM state.
 
-    Under ``tp`` (a ``ModelParallel``; no cache) the block runs on this
-    rank's blocks of the leaves (the module docstring) and y is whole.
+    Under ``tp`` (a ``ModelParallel``) the block runs on this rank's
+    blocks of the leaves (the module docstring) and y is whole; ``state``
+    is this rank's heads where they split and ``conv_prev`` its channels
+    where the conv splits (the cache's blocks), and both come back so.
     Where ``d_inner`` splits, everything after ``zall`` is split code
     (this rank's heads, or its ``d_inner`` rows), so each replicated
     tensor or leaf that enters it goes through a *copy* and each rank's
@@ -160,7 +169,8 @@ def apply_mamba(p, x, cfg: ModelConfig, state=None, conv_prev=None,
         n = p["conv_w"].shape[1]
         src = xbc if split else tp.copy(xbc)
         xbc, new_conv = _causal_conv(src.narrow(-1, tp.rank * n, n),
-                                     p["conv_w"], p["conv_b"])
+                                     p["conv_w"], p["conv_b"], conv_prev,
+                                     seg_lens=seg_lens)
         xbc = enter(tp.gather(F.silu(xbc), -1))
     else:
         xbc, new_conv = _causal_conv(xbc, enter(p["conv_w"]),
@@ -214,12 +224,15 @@ def _scan(xs, dt, A, B, C, D, cfg: ModelConfig, state=None):
     return scan(xs, dt, A, B, C, D, chunk=chunk, init_state=state)
 
 
-def mamba_layer(lp, x, cfg: ModelConfig, cache, i: int, seg_lens=None):
+def mamba_layer(lp, x, cfg: ModelConfig, cache, i: int, seg_lens=None,
+                tp=None):
     """One pre-norm Mamba-2 residual layer over the cache's layer ``i``:
-    its SSM state and conv window are read, then overwritten in place."""
+    its SSM state and conv window (this rank's blocks under ``tp``) are
+    read, then overwritten in place."""
     y, (st, cv) = apply_mamba(lp["mamba"], cm.apply_norm(lp["ln"], x, cfg),
                               cfg, state=cache["ssm"][i],
-                              conv_prev=cache["conv"][i], seg_lens=seg_lens)
+                              conv_prev=cache["conv"][i], seg_lens=seg_lens,
+                              tp=tp)
     cache["ssm"][i].copy_(st)
     cache["conv"][i].copy_(cv)
     return x + y
@@ -251,47 +264,61 @@ def init(gen: torch.Generator, cfg: ModelConfig, device, tp=None):
     }
 
 
-def recurrent_buffers(cfg: ModelConfig, batch: int, device) -> cm.Params:
+def recurrent_buffers(cfg: ModelConfig, batch: int, device,
+                      tp=None) -> cm.Params:
     """Zeroed (L, b, h, ds, dh) fp32 SSM state and (L, b, width - 1, ch)
-    conv windows in the model dtype."""
+    conv windows in the model dtype, plus the (b,) cursors; under ``tp``
+    this rank's ``cache_spec`` blocks of them for a global ``batch``."""
     h, ds, dh = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
     conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     L = cfg.n_layers
+    ssm = (L, batch, h, ds, dh)
+    conv = (L, batch, cfg.ssm_conv - 1, conv_ch)
+    rows = batch
+    if tp is not None:
+        ssm = tp.cache_block("ssm", ssm, batch)
+        conv = tp.cache_block("conv", conv, batch)
+        rows = tp.cache_rows(batch)
     return {
-        "ssm": torch.zeros((L, batch, h, ds, dh), dtype=torch.float32,
-                           device=device),
-        "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_ch),
-                            dtype=torch_dtype(cfg.dtype), device=device),
+        "ssm": torch.zeros(ssm, dtype=torch.float32, device=device),
+        "conv": torch.zeros(conv, dtype=torch_dtype(cfg.dtype),
+                            device=device),
+        "lengths": torch.zeros(rows, dtype=torch.int32, device=device),
     }
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
-               n_pages=None, *, device):
+               n_pages=None, *, device, tp=None):
     """``max_len`` and ``n_pages`` are accepted for serve-engine API
-    uniformity; the decode state is O(1) per slot, so nothing is paged."""
+    uniformity; the decode state is O(1) per slot, so nothing is paged.
+    Split (``tp``): this rank's block of the one-process cache for a
+    global ``batch`` (the module docstring)."""
     del params, max_len, n_pages
-    cache = recurrent_buffers(cfg, batch, device)
-    cache["lengths"] = torch.zeros(batch, dtype=torch.int32, device=device)
-    return cache
+    return recurrent_buffers(cfg, batch, device, tp)
 
 
 def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
-            all_logits=False):
+            all_logits=False, tp=None):
+    """Split (``tp``): ``tokens`` and ``seg_lens`` are this rank's batch
+    rows, the cache its block (:func:`init_cache`), and the logits come
+    back whole on every rank."""
     s = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens)
+    x = cm.embed(params["embed"], tokens, tp)
     for i, lp in enumerate(params["layers"]):
-        x = mamba_layer(lp, x, cfg, cache, i, seg_lens=seg_lens)
+        x = mamba_layer(lp, x, cfg, cache, i, seg_lens=seg_lens, tp=tp)
     x = cm.apply_norm(params["ln_f"], x, cfg)
     out = x if all_logits else cm.last_valid_slice(x, seg_lens)
     new_cache = dict(cache)
     new_cache["lengths"] = (
         cache["lengths"] + (s if seg_lens is None else seg_lens)
     ).to(torch.int32)
-    return cm.unembed(params["embed"], out, cfg), new_cache
+    return cm.gather_vocab(cm.unembed(params["embed"], out, cfg, tp),
+                           tp), new_cache
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
-    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
+def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
+                tp=None):
+    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens, tp=tp)
 
 
 def mamba_block(lp, h, cfg: ModelConfig, tp=None):
@@ -332,23 +359,17 @@ def loss_fn(params, batch, cfg: ModelConfig,
 
 def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
-    tensor parallel execution into ``init``, ``forward`` and ``loss``; the
-    cache entry points then refuse."""
-    if tp is not None:
-        return cm.ModelApply(
-            config=cfg,
-            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
-            forward=functools.partial(forward, cfg=cfg, tp=tp),
-            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
-            init_cache=cm.single_rank, prefill=cm.single_rank,
-            decode_step=cm.single_rank)
+    tensor parallel execution into every entry point: ``init``,
+    ``forward`` and ``loss``, and the cache entry points on this rank's
+    block of the cache (:func:`init_cache`)."""
     return cm.ModelApply(
         config=cfg,
-        init=functools.partial(init, cfg=cfg, device=device),
-        forward=functools.partial(forward, cfg=cfg),
-        loss=functools.partial(loss_fn, cfg=cfg),
-        init_cache=functools.partial(init_cache, cfg=cfg, device=device),
-        prefill=functools.partial(prefill, cfg=cfg),
-        decode_step=functools.partial(decode_step, cfg=cfg),
+        init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+        forward=functools.partial(forward, cfg=cfg, tp=tp),
+        loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
+        init_cache=functools.partial(init_cache, cfg=cfg, device=device,
+                                     tp=tp),
+        prefill=functools.partial(prefill, cfg=cfg, tp=tp),
+        decode_step=functools.partial(decode_step, cfg=cfg, tp=tp),
         reset_slots=cm.reset_recurrent,
     )

@@ -39,13 +39,11 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-# The families whose forward and loss run split over a mesh's ``model``
-# axis (``distributed.tensor_parallel``): every family.
+# The families whose every entry point runs split over a mesh's ``model``
+# axis (``distributed.tensor_parallel``): ``init``, ``forward``, ``loss``
+# and the cache entry points on the rank's ``sharding.cache_spec`` block
+# of the cache.  Every family.
 TENSOR_PARALLEL_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-# The families whose ``init_cache``/``prefill``/``decode_step`` also run
-# split over ``model`` (the self K/V's sequence over ``model``, the batch
-# over the batch axes: ``models.transformer``).
-SPLIT_CACHE_FAMILIES = ("dense", "moe")
 # The families whose ``init``, ``forward`` and ``loss`` run under FSDP
 # over ``data`` (``distributed.fsdp``: ``models.transformer``).
 FSDP_FAMILIES = ("dense", "moe", "vlm")
@@ -55,8 +53,8 @@ FSDP_FAMILIES_ITEM = ("FSDP over 'data' for the mamba2, zamba2 and whisper "
 
 def build_model(cfg: ModelConfig, device=None, mesh=None,
                 fsdp: bool = False,
-                grad_reduce_dtype: torch.dtype = torch.float32
-                ) -> cm.ModelApply:
+                grad_reduce_dtype: torch.dtype = torch.float32,
+                long_context: bool = False) -> cm.ModelApply:
     """The model for ``cfg`` on ``device`` (default: the CUDA card; raises
     without one unless ``device="cpu"`` is given).
 
@@ -64,8 +62,12 @@ def build_model(cfg: ModelConfig, device=None, mesh=None,
     makes ``init``, ``forward`` and ``loss`` tensor and expert parallel
     over ``model``: each rank holds its ``sharding.param_spec`` block of
     every leaf, and the collectives run inside the model code.  Every
-    family (:data:`TENSOR_PARALLEL_FAMILIES`); the split model's cache
-    entry points refuse, since serving runs on one rank.
+    family (:data:`TENSOR_PARALLEL_FAMILIES`), the cache entry points
+    included: a rank's cache is its ``sharding.cache_spec`` block (its
+    batch rows, the self K/V's sequence block over ``model``).
+    ``long_context`` (with a mesh, any ``model`` size): the cache's
+    sequence over ``data`` instead, the KV heads over ``model``, for a
+    batch the batch axes do not split (long_500k's one sequence).
 
     ``fsdp`` (with a mesh, any ``model`` size) holds each rank's block of
     every leaf under ``params_shardings(..., fsdp=True)``, ``data`` on
@@ -93,6 +95,12 @@ def build_model(cfg: ModelConfig, device=None, mesh=None,
         return module.build(cfg, resolve_device(device),
                             model_parallel(cfg, mesh),
                             DataShards(cfg, mesh, grad_reduce_dtype))
+    if long_context:
+        if mesh is None:
+            raise ValueError(f"{cfg.arch}: long_context=True needs a mesh "
+                             f"with a 'data' axis")
+        return module.build(cfg, resolve_device(device),
+                            model_parallel(cfg, mesh, long_context=True))
     if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
         return module.build(cfg, resolve_device(device))
     if cfg.family not in TENSOR_PARALLEL_FAMILIES:

@@ -49,10 +49,12 @@ def _layer_init(gen, cfg: ModelConfig, device, cross: bool = False,
     def kw(sub):
         return {"place": cm.placer(tp, path + (sub,), lead)}
 
+    # Norms too: FSDP splits a stack of them over ``data`` where it is
+    # large enough (the VLM's (g, span, d) self-layer norms).
     p = {
-        "ln1": cm.norm_init(cfg, device),
+        "ln1": cm.norm_init(cfg, device, **kw("ln1")),
         "attn": cm.attn_init(gen, cfg, device, **kw("attn")),
-        "ln2": cm.norm_init(cfg, device),
+        "ln2": cm.norm_init(cfg, device, **kw("ln2")),
     }
     if cfg.family == "moe" and not cross:
         p["moe"] = cm.moe_init(gen, cfg, device, **kw("moe"))
@@ -168,7 +170,7 @@ def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
     stacked cache, written in place).  ``cache["lengths"]`` is the (b,)
     ragged cursor shared by every layer.  A VLM runs its groups: ``span``
     self layers over the (g, span) pool, then the group's cross layer over
-    its fixed-source K/V.  ``tp``: the split cache (dense and MoE)."""
+    its fixed-source K/V.  ``tp``: the split cache (:func:`init_cache`)."""
     lengths = cache["lengths"]
     pages = cache.get("pages")
 
@@ -185,10 +187,10 @@ def _stack_cached(params, x, cfg: ModelConfig, positions, cache,
             for j, lp in enumerate(group):
                 x = _self_block(lp, x, cfg, positions,
                                 self_kv(layers["self"], gi, j),
-                                seg_lens=seg_lens)
+                                seg_lens=seg_lens, tp=tp)
             x = _cross_block(params["cross_layers"][gi], x, cfg, positions,
                              cache["vis"], {"k": cross["k"][gi],
-                                            "v": cross["v"][gi]})
+                                            "v": cross["v"][gi]}, tp)
     else:
         for i, lp in enumerate(params["layers"]):
             x = _self_block(lp, x, cfg, positions,
@@ -209,27 +211,28 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
     (g, span), and ``vis`` (b, n_vis, d) gives its cross K/V
     (g, b, n_vis, hkv, dh) and the projected ``"vis"`` leaf.
 
-    Split (``tp``, dense and MoE): this rank's ``sharding.cache_spec``
-    block of the one-process cache for a global ``batch``, read through
-    ``sharding.local_shape``: its rows of the batch (over the batch axes)
-    and its block of ``max_len`` (over ``model``), every KV head, plus the
-    block's own sink position.  The paged layout stays on one rank."""
+    Split (``tp``): this rank's ``sharding.cache_spec`` block of every
+    leaf of the one-process cache for a global ``batch``, read through
+    ``sharding.local_shape``: its rows of the batch (over the batch axes);
+    the self K/V's block of ``max_len`` (over ``model``, or under
+    ``long_context`` over ``data`` with the KV heads over ``model``),
+    plus the block's own sink position; the cross K/V's KV heads where
+    the rule splits them; ``"vis"`` its rows.  ``vis`` the global batch's
+    or this rank's rows.  The paged layout stays on one rank."""
+    cm.refuse_split_paged(cfg, tp)
     hkv, dh = cfg.n_kv_heads, cfg.head_dim_
     dt = torch_dtype(cfg.dtype)
     lead = _groups(cfg) if cfg.cross_attn_every else (cfg.n_layers,)
-    if tp is not None:
-        if cfg.cache_layout == "paged":
-            raise NotImplementedError(
-                "the paged cache layout runs on one rank (ServeEngine takes "
-                "no mesh); a split model takes cache_layout='contiguous'")
-        _, batch, max_len, _, _ = tp.cache_block(batch, max_len)
-    cache = {"lengths": torch.zeros(batch, dtype=torch.int32, device=device)}
+    path = "layers/self/k" if cfg.cross_attn_every else "layers/k"
+    rows = batch if tp is None else tp.cache_rows(batch)
+    cache = {"lengths": torch.zeros(rows, dtype=torch.int32, device=device)}
     if cfg.cache_layout == "paged":
         kv, pages = cm.paged_kv_buffers(lead, batch, max_len, cfg, n_pages,
                                         device=device)
         cache["pages"] = pages
     else:
-        shape = (*lead, batch, max_len + 1, hkv, dh)
+        shape = ((*lead, batch, max_len + 1, hkv, dh) if tp is None else
+                 tp.ring_block(path, lead, batch, max_len, hkv, dh))
         kv = {"k": torch.zeros(shape, dtype=dt, device=device),
               "v": torch.zeros(shape, dtype=dt, device=device)}
     if not cfg.cross_attn_every:
@@ -237,36 +240,51 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
         return cache
     if vis is None:
         raise ValueError("a VLM cache needs the vision tokens (vis=)")
-    g = lead[0]
     t = vis.shape[1]
-    shape = (g, batch, t, hkv, dh)
+    shape = (lead[0], batch, t, hkv, dh)
+    if tp is not None:
+        shape = tp.cache_block("layers/cross/k", shape, batch)
     cache["layers"] = {
         "self": kv,
         "cross": {"k": torch.empty(shape, dtype=dt, device=device),
                   "v": torch.empty(shape, dtype=dt, device=device)}}
-    cache["vis"] = torch.empty((batch, t, cfg.d_model), dtype=dt,
+    cache["vis"] = torch.empty((rows, t, cfg.d_model), dtype=dt,
                                device=device)
-    fill_source(params, cache, cfg, vis=vis)
+    fill_source(params, cache, cfg, vis=vis, tp=tp)
     return cache
 
 
-def fill_source(params, cache, cfg: ModelConfig, vis):
+def fill_source(params, cache, cfg: ModelConfig, vis, tp=None):
     """Write the VLM's fixed-source leaves in place: ``"vis"`` = vis @
     vis_proj and each cross layer's K/V (plus the QKV bias when
-    ``cfg.qkv_bias``), the reference's init_cache arithmetic."""
+    ``cfg.qkv_bias``), the reference's init_cache arithmetic.  Split
+    (``tp``): this rank's rows of ``vis`` (the global batch's or its
+    own); the column-split ``vis_proj``'s output gathered whole, as the
+    forward does; each cross layer's K/V on this rank's block of
+    ``wk``/``wv`` (its KV heads, or every head where K/V are
+    replicated), gathered over ``dh`` where the rule splits it."""
     dt = torch_dtype(cfg.dtype)
-    d, hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim_
+    d = cfg.d_model
     visp = cache["vis"]
-    visp.copy_(vis.to(device=visp.device, dtype=dt) @ params["vis_proj"])
+    if tp is not None:
+        vis = tp.source_rows(vis, visp.shape[0])
+    w = params["vis_proj"]
+    out = vis.to(device=visp.device, dtype=dt) @ w
+    if w.shape[1] != d:                      # column-split over ``model``
+        out = tp.gather(out, -1)
+    visp.copy_(out)
     b, t = visp.shape[:2]
     cross = cache["layers"]["cross"]
     for gi, lp in enumerate(params["cross_layers"]):
         a = lp["attn"]
         for key in ("k", "v"):
-            kv = (visp @ a["w" + key].reshape(d, hkv * dh)).reshape(
-                b, t, hkv, dh)
+            w = a["w" + key]
+            h, dl = w.shape[1:]
+            kv = (visp @ w.reshape(d, h * dl)).reshape(b, t, h, dl)
             if cfg.qkv_bias:
                 kv = kv + a["b" + key]
+            if dl != cfg.head_dim_:                     # dh split
+                kv = tp.gather(kv, 3)
             cross[key][gi].copy_(kv)
 
 
@@ -347,13 +365,12 @@ def loss_fn(params, batch, cfg: ModelConfig,
 def build(cfg: ModelConfig, device: torch.device, tp=None,
           fs=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
-    tensor and expert parallel execution into ``init``, ``forward`` and
-    ``loss`` (dense, MoE and VLM families), and for dense and MoE into
-    the cache entry points (the split cache, :func:`init_cache`); the
-    VLM's cache entry points refuse (``common.single_rank``).  ``fs`` (a
-    ``distributed.fsdp.DataShards``) binds FSDP into ``init``, ``forward``
-    and ``loss``; the cache entry points then refuse
-    (``common.fsdp_refuses_serving``)."""
+    tensor and expert parallel execution into every entry point:
+    ``init``, ``forward`` and ``loss``, and the cache entry points on
+    this rank's block of the cache (:func:`init_cache`,
+    :func:`fill_source`).  ``fs`` (a ``distributed.fsdp.DataShards``)
+    binds FSDP into ``init``, ``forward`` and ``loss``; the cache entry
+    points then refuse (``common.fsdp_refuses_serving``)."""
     vlm = bool(cfg.cross_attn_every)
     entries = dict(
         config=cfg,
@@ -366,10 +383,6 @@ def build(cfg: ModelConfig, device: torch.device, tp=None,
             prefill=cm.fsdp_refuses_serving,
             decode_step=cm.fsdp_refuses_serving,
             fill_source=cm.fsdp_refuses_serving, data_shards=fs)
-    if tp is not None and vlm:
-        return cm.ModelApply(
-            **entries, init_cache=cm.single_rank, prefill=cm.single_rank,
-            decode_step=cm.single_rank, fill_source=cm.single_rank)
     return cm.ModelApply(
         **entries,
         init_cache=functools.partial(init_cache, cfg=cfg, device=device,
@@ -378,5 +391,6 @@ def build(cfg: ModelConfig, device: torch.device, tp=None,
         decode_step=functools.partial(decode_step, cfg=cfg, tp=tp),
         reset_slots=cm.reset_lengths,
         kv_pool=("layers", "self") if vlm else ("layers",),
-        fill_source=functools.partial(fill_source, cfg=cfg) if vlm else None,
+        fill_source=(functools.partial(fill_source, cfg=cfg, tp=tp)
+                     if vlm else None),
     )

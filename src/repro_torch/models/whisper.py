@@ -17,6 +17,15 @@ reference's) and every step only reads, and the ragged cursors.
 ``forward`` encodes the frames and runs the decoder over the whole block
 with no cache, cross-attending to the encoder states; the activation
 policy wraps each encoder and each decoder layer.
+
+Split over ``model`` (``build(cfg, device, tp)``, every entry point): the
+encoder, the decoder's unrotated self-attention and its cross-attention
+split by heads or ``dh`` (``models.common``), the MLP by ``d_ff``, the
+embedding and logits by vocabulary.  The cache is the rank's
+``sharding.cache_spec`` block: the self K/V its batch rows and block of
+the sequence (every head), the cross K/V its batch rows and, where the
+rule splits them, its KV heads, which ``fill_source`` writes from the
+split encoder's states (gathered over ``dh`` under a ``dh`` split).
 """
 from __future__ import annotations
 
@@ -106,25 +115,30 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
 
 
 def _dec_block(lp, h, cfg: ModelConfig, positions, self_cache, cross_cache,
-               seg_lens=None):
+               seg_lens=None, tp=None):
     h = h + cm.apply_attn(lp["self_attn"], cm.apply_norm(lp["ln1"], h, cfg),
                           cfg, positions, self_cache, seg_lens=seg_lens,
-                          use_rope=False)
+                          use_rope=False, tp=tp)
     h = h + cm.apply_attn(lp["cross_attn"], cm.apply_norm(lp["ln2"], h, cfg),
                           cfg, positions, cross_cache, seg_lens=seg_lens,
-                          causal=False, use_rope=False)
-    return h + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln3"], h, cfg), cfg)
+                          causal=False, use_rope=False, tp=tp)
+    return h + cm.apply_mlp(lp["mlp"], cm.apply_norm(lp["ln3"], h, cfg), cfg,
+                            tp=tp)
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
-               n_pages=None, *, device, vis=None, frames=None):
+               n_pages=None, *, device, vis=None, frames=None, tp=None):
     """Self KV as transformer.init_cache's ((L, ...) ring or pool) and the
     cross K/V (L, batch, enc_seq, hkv, dh) of ``frames`` (``vis`` doubles
-    as the frames argument, as in the reference)."""
+    as the frames argument, as in the reference).  Split (``tp``): this
+    rank's block of the one-process cache for a global ``batch`` (the
+    module docstring), ``frames`` the global batch's or this rank's rows;
+    the paged layout stays on one rank."""
     frames = frames if frames is not None else vis
     if frames is None:
         raise ValueError("a whisper cache needs the encoder frames "
                          "(frames=)")
+    cm.refuse_split_paged(cfg, tp)
     L, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
     dt = torch_dtype(cfg.dtype)
     cache = {}
@@ -132,44 +146,62 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
         self_kv, pages = cm.paged_kv_buffers((L,), batch, max_len, cfg,
                                              n_pages, device=device)
     else:
-        shape = (L, batch, max_len + 1, hkv, dh)
+        shape = ((L, batch, max_len + 1, hkv, dh) if tp is None else
+                 tp.ring_block("self/k", (L,), batch, max_len, hkv, dh))
         self_kv = {"k": torch.zeros(shape, dtype=dt, device=device),
                    "v": torch.zeros(shape, dtype=dt, device=device)}
         pages = None
-    shape = (L, batch, frames.shape[1], hkv, dh)
+    cross = (L, batch, frames.shape[1], hkv, dh)
+    rows = batch
+    if tp is not None:
+        cross = tp.cache_block("cross/k", cross, batch)
+        rows = tp.cache_rows(batch)
     cache["self"] = self_kv
-    cache["cross"] = {"k": torch.empty(shape, dtype=dt, device=device),
-                      "v": torch.empty(shape, dtype=dt, device=device)}
-    cache["lengths"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    cache["cross"] = {"k": torch.empty(cross, dtype=dt, device=device),
+                      "v": torch.empty(cross, dtype=dt, device=device)}
+    cache["lengths"] = torch.zeros(rows, dtype=torch.int32, device=device)
     if pages is not None:
         cache["pages"] = pages
-    fill_source(params, cache, cfg, frames=frames)
+    fill_source(params, cache, cfg, frames=frames, tp=tp)
     return cache
 
 
-def fill_source(params, cache, cfg: ModelConfig, vis=None, frames=None):
+def fill_source(params, cache, cfg: ModelConfig, vis=None, frames=None,
+                tp=None):
     """Run the encoder over ``frames`` and write each decoder layer's cross
-    K/V (no bias) into the cache's buffers, in place."""
+    K/V (no bias) into the cache's buffers, in place.  Split (``tp``): the
+    split encoder over this rank's rows of the frames (the global batch's
+    or its own) and each layer's K/V on this rank's block of ``wk``/``wv``
+    (its KV heads, or every head where K/V are replicated), gathered over
+    ``dh`` where the rule splits it."""
     frames = frames if frames is not None else vis
     cross = cache["cross"]
-    enc = encode(params, frames.to(cross["k"].device), cfg)
+    if tp is not None:
+        frames = tp.source_rows(frames, cross["k"].shape[1])
+    enc = encode(params, frames.to(cross["k"].device), cfg, tp=tp)
     b, t, d = enc.shape
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim_
     for i, lp in enumerate(params["dec_layers"]):
         for key in ("k", "v"):
-            w = lp["cross_attn"]["w" + key].reshape(d, hkv * dh)
-            cross[key][i].copy_((enc @ w).reshape(b, t, hkv, dh))
+            w = lp["cross_attn"]["w" + key]
+            h, dl = w.shape[1:]
+            kv = (enc @ w.reshape(d, h * dl)).reshape(b, t, h, dl)
+            if dl != cfg.head_dim_:                     # dh split
+                kv = tp.gather(kv, 3)
+            cross[key][i].copy_(kv)
 
 
 def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
-            all_logits=False):
+            all_logits=False, tp=None):
+    """Split (``tp``): ``tokens`` and ``seg_lens`` are this rank's batch
+    rows, the cache its block (:func:`init_cache`), and the logits come
+    back whole on every rank."""
     s = tokens.shape[1]
     lengths = cache["lengths"]
     pages = cache.get("pages")
     positions = (lengths[:, None]
                  + torch.arange(s, device=tokens.device)[None, :])
     # Per-slot learned position rows, clamped at the table's edge.
-    x = cm.embed(params["embed"], tokens) + params["dec_pos"][
+    x = cm.embed(params["embed"], tokens, tp) + params["dec_pos"][
         positions.long().clamp(0, MAX_DEC_POS - 1)]
     self_kv, cross = cache["self"], cache["cross"]
     for i, lp in enumerate(params["dec_layers"]):
@@ -178,17 +210,19 @@ def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
             sc["pages"] = pages
         x = _dec_block(lp, x, cfg, positions, sc,
                        {"k": cross["k"][i], "v": cross["v"][i]},
-                       seg_lens=seg_lens)
+                       seg_lens=seg_lens, tp=tp)
     x = cm.apply_norm(params["ln_f"], x, cfg)
     out = x if all_logits else cm.last_valid_slice(x, seg_lens)
     new_cache = dict(cache)
     new_cache["lengths"] = (
         lengths + (s if seg_lens is None else seg_lens)).to(torch.int32)
-    return cm.unembed(params["embed"], out, cfg), new_cache
+    return cm.gather_vocab(cm.unembed(params["embed"], out, cfg, tp),
+                           tp), new_cache
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
-    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
+def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
+                tp=None):
+    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens, tp=tp)
 
 
 def _train_dec_block(lp, h, enc_out, cfg: ModelConfig, positions, tp=None):
@@ -243,25 +277,19 @@ def loss_fn(params, batch, cfg: ModelConfig,
 
 def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
-    tensor parallel execution into ``init``, ``forward`` and ``loss``; the
-    cache entry points then refuse."""
-    if tp is not None:
-        return cm.ModelApply(
-            config=cfg,
-            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
-            forward=functools.partial(forward, cfg=cfg, tp=tp),
-            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
-            init_cache=cm.single_rank, prefill=cm.single_rank,
-            decode_step=cm.single_rank, fill_source=cm.single_rank)
+    tensor parallel execution into every entry point: ``init``,
+    ``forward`` and ``loss``, and the cache entry points on this rank's
+    block of the cache (:func:`init_cache`, :func:`fill_source`)."""
     return cm.ModelApply(
         config=cfg,
-        init=functools.partial(init, cfg=cfg, device=device),
-        forward=functools.partial(forward, cfg=cfg),
-        loss=functools.partial(loss_fn, cfg=cfg),
-        init_cache=functools.partial(init_cache, cfg=cfg, device=device),
-        prefill=functools.partial(prefill, cfg=cfg),
-        decode_step=functools.partial(decode_step, cfg=cfg),
+        init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+        forward=functools.partial(forward, cfg=cfg, tp=tp),
+        loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
+        init_cache=functools.partial(init_cache, cfg=cfg, device=device,
+                                     tp=tp),
+        prefill=functools.partial(prefill, cfg=cfg, tp=tp),
+        decode_step=functools.partial(decode_step, cfg=cfg, tp=tp),
         reset_slots=cm.reset_lengths,
         kv_pool=("self",),
-        fill_source=functools.partial(fill_source, cfg=cfg),
+        fill_source=functools.partial(fill_source, cfg=cfg, tp=tp),
     )

@@ -13,13 +13,18 @@ arithmetic: group i runs layers i*k .. i*k + k - 1, then the shared block
 over KV cache i.  ``forward`` runs the same groups with no cache, the
 activation policy wrapping each group's body.
 
-Tensor parallel over a mesh's ``model`` axis (``build(cfg, device, tp)``;
-``init``/``forward``/``loss``, the cache entry points refuse): the Mamba-2
-layers as ``models.mamba2`` splits them (each rank holds its
-``sharding.param_spec`` block of every leaf and scans its SSM heads), the
-shared block as the dense transformer's (``models.common``'s split
-attention by heads, ``dh`` or replicated K/V, and the column/row-split
-MLP), the embedding, logits and loss vocab-parallel.
+Tensor parallel over a mesh's ``model`` axis (``build(cfg, device, tp)``,
+every entry point): the Mamba-2 layers as ``models.mamba2`` splits them
+(each rank holds its ``sharding.param_spec`` block of every leaf and
+scans its SSM heads), the shared block as the dense transformer's
+(``models.common``'s split attention by heads, ``dh`` or replicated K/V,
+and the column/row-split MLP), the embedding, logits and loss
+vocab-parallel.  The split cache is the rank's ``sharding.cache_spec``
+block: the Mamba-2 layers' as ``models.mamba2``'s, and each group's K/V
+``kv`` its batch rows and block of the sequence over ``model``, every KV
+head; under ``long_context`` (long_500k's one sequence) its block of the
+sequence over ``data`` and its KV heads over ``model``
+(``models.common._attn_split_cached``).
 """
 from __future__ import annotations
 
@@ -66,17 +71,24 @@ def _shared_block(p, x, cfg: ModelConfig, positions, cache, seg_lens=None,
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
-               n_pages=None, *, device):
+               n_pages=None, *, device, tp=None):
+    """The Mamba-2 layers' state (``mamba2.recurrent_buffers``) and the
+    shared block's (g, ...) K/V: a contiguous ring or a paged pool.  Split
+    (``tp``): this rank's block of the one-process cache for a global
+    ``batch`` (the module docstring); the paged layout stays on one
+    rank."""
     del params
+    cm.refuse_split_paged(cfg, tp)
     g = cfg.n_layers // cfg.shared_attn_every
-    cache = mb.recurrent_buffers(cfg, batch, device)
-    cache["lengths"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    cache = mb.recurrent_buffers(cfg, batch, device, tp)
     if cfg.cache_layout == "paged":
         kv, pages = cm.paged_kv_buffers((g,), batch, max_len, cfg, n_pages,
                                         device=device)
         cache["pages"] = pages
     else:
-        shape = (g, batch, max_len + 1, cfg.n_kv_heads, cfg.head_dim_)
+        hkv, dh = cfg.n_kv_heads, cfg.head_dim_
+        shape = ((g, batch, max_len + 1, hkv, dh) if tp is None else
+                 tp.ring_block("kv/k", (g,), batch, max_len, hkv, dh))
         dt = torch_dtype(cfg.dtype)
         kv = {"k": torch.zeros(shape, dtype=dt, device=device),
               "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -85,10 +97,13 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
-            all_logits=False):
+            all_logits=False, tp=None):
+    """Split (``tp``): ``tokens`` and ``seg_lens`` are this rank's batch
+    rows, the cache its block (:func:`init_cache`), and the logits come
+    back whole on every rank."""
     s = tokens.shape[1]
     k = cfg.shared_attn_every
-    x = cm.embed(params["embed"], tokens)
+    x = cm.embed(params["embed"], tokens, tp)
     lengths = cache["lengths"]
     pages = cache.get("pages")
     positions = (lengths[:, None]
@@ -96,23 +111,25 @@ def prefill(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
     for gi in range(cfg.n_layers // k):
         for i in range(gi * k, gi * k + k):
             x = mb.mamba_layer(params["layers"][i], x, cfg, cache, i,
-                               seg_lens=seg_lens)
+                               seg_lens=seg_lens, tp=tp)
         kv = {"k": cache["kv"]["k"][gi], "v": cache["kv"]["v"][gi],
               "lengths": lengths}
         if pages is not None:
             kv["pages"] = pages
         x = _shared_block(params["shared"], x, cfg, positions, kv,
-                          seg_lens=seg_lens)
+                          seg_lens=seg_lens, tp=tp)
     x = cm.apply_norm(params["ln_f"], x, cfg)
     out = x if all_logits else cm.last_valid_slice(x, seg_lens)
     new_cache = dict(cache)
     new_cache["lengths"] = (
         lengths + (s if seg_lens is None else seg_lens)).to(torch.int32)
-    return cm.unembed(params["embed"], out, cfg), new_cache
+    return cm.gather_vocab(cm.unembed(params["embed"], out, cfg, tp),
+                           tp), new_cache
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None):
-    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens)
+def decode_step(params, cache, tokens, cfg: ModelConfig, seg_lens=None,
+                tp=None):
+    return prefill(params, cache, tokens, cfg, seg_lens=seg_lens, tp=tp)
 
 
 def _logits(params, tokens, cfg: ModelConfig, remat: RematPolicy, tp):
@@ -155,24 +172,18 @@ def loss_fn(params, batch, cfg: ModelConfig,
 
 def build(cfg: ModelConfig, device: torch.device, tp=None) -> cm.ModelApply:
     """``tp`` (a ``distributed.tensor_parallel.ModelParallel``) binds
-    tensor parallel execution into ``init``, ``forward`` and ``loss``; the
-    cache entry points then refuse."""
-    if tp is not None:
-        return cm.ModelApply(
-            config=cfg,
-            init=functools.partial(init, cfg=cfg, device=device, tp=tp),
-            forward=functools.partial(forward, cfg=cfg, tp=tp),
-            loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
-            init_cache=cm.single_rank, prefill=cm.single_rank,
-            decode_step=cm.single_rank)
+    tensor parallel execution into every entry point: ``init``,
+    ``forward`` and ``loss``, and the cache entry points on this rank's
+    block of the cache (:func:`init_cache`)."""
     return cm.ModelApply(
         config=cfg,
-        init=functools.partial(init, cfg=cfg, device=device),
-        forward=functools.partial(forward, cfg=cfg),
-        loss=functools.partial(loss_fn, cfg=cfg),
-        init_cache=functools.partial(init_cache, cfg=cfg, device=device),
-        prefill=functools.partial(prefill, cfg=cfg),
-        decode_step=functools.partial(decode_step, cfg=cfg),
+        init=functools.partial(init, cfg=cfg, device=device, tp=tp),
+        forward=functools.partial(forward, cfg=cfg, tp=tp),
+        loss=functools.partial(loss_fn, cfg=cfg, tp=tp),
+        init_cache=functools.partial(init_cache, cfg=cfg, device=device,
+                                     tp=tp),
+        prefill=functools.partial(prefill, cfg=cfg, tp=tp),
+        decode_step=functools.partial(decode_step, cfg=cfg, tp=tp),
         reset_slots=cm.reset_recurrent,
         kv_pool=("kv",),
     )

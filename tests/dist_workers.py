@@ -283,15 +283,6 @@ def _tp(rank, world, inputs, tmp) -> dict:
                          inputs["train"], tmp, "whisper"))
     out.update(_tp_train(vlm, params["llama-3.2-vision-90b"], meshes[(1, 4)],
                          inputs["train"], tmp, "vlm"))
-    for name, m in (("whisper", whisper), ("vlm", vlm)):
-        split = build_model(m, "cpu", meshes[(1, 4)])
-        refused = []
-        for entry in ("init_cache", "prefill", "decode_step", "fill_source"):
-            try:
-                getattr(split, entry)(None, None, None)
-            except NotImplementedError:
-                refused.append(entry)
-        out[f"{name}_serve_refused"] = refused
     # The recurrent families: mamba2 and zamba2 on both meshes, the
     # variants (every SSM head on every rank; a replicated conv; a whole
     # ``d_inner``) at (1, 4), the kernel route once each; a ZeRO-1 train
@@ -320,15 +311,6 @@ def _tp(rank, world, inputs, tmp) -> dict:
     out.update(_tp_train(dataclasses.replace(ssm[arch], **over),
                          params[rows], meshes[(1, 4)], inputs["train"], tmp,
                          "mamba2_rows"))
-    for arch, cfg in ssm.items():
-        split = build_model(cfg, "cpu", meshes[(1, 4)])
-        refused = []
-        for entry in ("init_cache", "prefill", "decode_step"):
-            try:
-                getattr(split, entry)(None, None, None)
-            except NotImplementedError:
-                refused.append(entry)
-        out[f"{arch}_serve_refused"] = refused
     # (b) yi-9b SMOKE on (2, 2) with ZeRO-1, and (e) its checkpoint
     # restored onto (1, 4).
     yi = get_config("yi-9b", smoke=True)
@@ -349,8 +331,8 @@ def _tp(rank, world, inputs, tmp) -> dict:
                     mesh14).init_cache(None, batch=4, max_len=32)
     except NotImplementedError as e:
         out["serve_refused"] = "paged" in str(e)
-    # The split cache path (dense and MoE) on both meshes, and the
-    # trainer's (pod, data) batch axes.
+    # The split cache path of every family on both meshes (and (4, 1)
+    # under long_context), and the trainer's (pod, data) batch axes.
     out.update(_split_serve_cases(inputs, params, meshes))
     out.update(_pod_data_train(yi, params["yi-9b"], inputs["train"]))
     # (d) the split gradient norm: this rank's blocks of whole tensors
@@ -446,25 +428,33 @@ def _fsdp_cases(inputs, params, meshes, tmp) -> dict:
 
 def _split_serve(cfg, params_np, mesh, case) -> dict:
     """This rank's batch rows of ``case``'s prompt through the split
-    ``init_cache``/``prefill`` and ``case["steps"]`` greedy
-    ``decode_step``s (each fed its own argmax); the logits of each step."""
+    ``init_cache``/``prefill`` (the source, where the family has one,
+    given for the whole batch) and ``case["steps"]`` greedy
+    ``decode_step``s (each fed its own argmax); the logits of each step
+    and the shape of every cache leaf.  ``case["long"]``: the model built
+    with ``long_context`` (the sequence over ``data``, every rank the
+    one row)."""
     import dataclasses
 
     from repro_torch import convert
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import build_model
+    from repro_torch.utils import tree
 
     cfg = dataclasses.replace(cfg, decode_kernel=case.get("kernel", "xla"))
     params = sh.shard_params(convert.from_jax(params_np, cfg, "cpu"), cfg,
                              mesh)
-    model = build_model(cfg, "cpu", mesh)
+    long = bool(case.get("long"))
+    model = build_model(cfg, "cpu", mesh, long_context=long)
     toks, seg = case["toks"], case["seg_lens"]
     n, i = mesh.size(0), mesh.get_local_rank("data")
-    rows = slice(i * len(toks) // n, (i + 1) * len(toks) // n)
+    rows = (slice(0, len(toks)) if len(toks) % n else
+            slice(i * len(toks) // n, (i + 1) * len(toks) // n))
+    source = {k: _t(v) for k, v in case.get("src", {}).items()}
     logits = []
     with torch.no_grad():
         cache = model.init_cache(params, batch=len(toks),
-                                 max_len=case["max_len"])
+                                 max_len=case["max_len"], **source)
         out, cache = model.prefill(params, cache, _t(toks[rows]),
                                    seg_lens=_t(seg[rows]))
         logits.append(out)
@@ -473,18 +463,24 @@ def _split_serve(cfg, params_np, mesh, case) -> dict:
                                            out.argmax(-1).to(torch.int32))
             logits.append(out)
     return {"logits": logits, "rows": (rows.start, rows.stop),
-            "block": tuple(cache["layers"]["k"].shape)}
+            "blocks": {tree.path_str(p): tuple(x.shape)
+                       for p, x in tree.leaves_with_paths(cache)}}
 
 
 def _split_serve_cases(inputs, params, meshes) -> dict:
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import get_config
 
+    meshes = {**meshes, (4, 1): make_local_mesh(4, 1)}
     out = {}
     for name, case in inputs["split_serve"].items():
-        cfg = get_config(case["arch"], smoke=True)
+        arch, over = case["variant"]
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
         for shape in case["meshes"]:
             out[f"split_{name}_{shape}"] = _split_serve(
-                cfg, params[case["arch"]], meshes[shape], case)
+                cfg, params[case["params"]], meshes[shape], case)
     return out
 
 

@@ -18,7 +18,16 @@ and ``models.registry.runnable_cells`` held against the JAX package's.
 * ``roofline_terms`` equal to the reference's under ``hw.V5E``.
 * A cell's per-rank parameter, optimizer and cache bytes equal the bytes
   of the reference's ``param_spec``/``opt_shardings``/``cache_spec``
-  blocks, worked out from its PartitionSpecs and the mesh's axis sizes.
+  blocks, worked out from its PartitionSpecs and the mesh's axis sizes:
+  the olmoe decode cell's, the cache of each serving cell of the
+  mamba2, zamba2, whisper and VLM families (their split cache, every
+  leaf; long_500k's sequence over ``data``), and the VLM FSDP train
+  cell's parameters.
+* A multi-pod train cell's reused microbatch count capped at the rank's
+  rows.
+* Every runnable cell runs; a train cell asked for FSDP of a family
+  without it fails at once naming its ROADMAP item.
+* zamba2-2.7b x long_500k at full size in a subprocess with no jax.
 * One multi-pod train cell (minicpm-2b SMOKE, ``(pod, data, model)``) in
   a subprocess.
 * One FSDP train cell (olmoe-1b-7b at full width, 2 layers) in a
@@ -139,6 +148,20 @@ def test_dryrun_knobs_are_the_reference_rules(olmoe_record, multi_record):
                                                      "decode_32k")
     assert multi_record["knobs"] == _reference_knobs("minicpm-2b",
                                                      "train_4k", smoke=True)
+
+
+@pytest.mark.parametrize("single_mb, want", [(4, 4), (16, 8)])
+def test_multi_pod_cell_caps_the_reused_microbatch(tmp_path, single_mb,
+                                                   want):
+    """A multi-pod train cell reuses the single-pod record's knobs, its
+    microbatch count capped at the rank's 8 rows (256 over 2 x 16)."""
+    knobs = dict(_reference_knobs("minicpm-2b", "train_4k"),
+                 remat="recompute", microbatch=single_mb)
+    (tmp_path / "minicpm-2b__train_4k__single.json").write_text(
+        json.dumps({"knobs": knobs}))
+    got = tdry.cell_knobs("minicpm-2b", "train_4k", True, str(tmp_path))
+    assert got == dict(knobs, microbatch=want)
+    assert tdry.rank_rows("train_4k", False) == 16
 
 
 def _block_bytes(shape, spec, sizes, itemsize) -> int:
@@ -461,26 +484,27 @@ def test_eval_shape_state_is_meta_and_cached():
     assert _port_leaves(state, False) == _ref_leaves(want)
 
 
+@pytest.mark.parametrize("multi_pod", [False, True])
 @pytest.mark.parametrize("arch, shape, item", [
-    ("mamba2-1.3b", "prefill_32k", "item 2"),
-    ("whisper-small", "decode_32k", "item 2"),
-    ("mamba2-1.3b", "decode_32k", "item 2"),
-    ("zamba2-2.7b", "long_500k", "item 2"),
-    ("whisper-small", "prefill_32k", "item 2"),
-    ("llama-3.2-vision-90b", "decode_32k", "item 2"),
+    ("mamba2-1.3b", "train_4k", "item 3"),
+    ("zamba2-2.7b", "train_4k", "item 3"),
+    ("whisper-small", "train_4k", "item 3"),
 ])
-def test_waiting_cells_fail_at_once_naming_their_item(arch, shape, item):
-    """A cell that waits on another family's split cache path raises
-    before anything is built (no process group is made)."""
+def test_waiting_cells_fail_at_once_naming_their_item(arch, shape, item,
+                                                      multi_pod):
+    """A train cell asked for FSDP of a family without it (mamba2, zamba2,
+    whisper: no cell at the rules' defaults) raises before anything is
+    built (no process group is made)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        tdry.build_cell(arch, shape, multi_pod=False, zero1=True)
+        tdry.build_cell(arch, shape, multi_pod=multi_pod, zero1=True,
+                        fsdp=True)
     assert not torch.distributed.is_initialized()
 
 
 def test_waiting_cells_are_the_complement_of_this_slice():
-    """22 cells run: the 16 of the slice before FSDP and the six FSDP
-    ``train_4k`` cells; the other 10 runnable cells wait on the split
-    cache path."""
+    """Every runnable cell runs at the rules' defaults: all 32 (the
+    serving cells of every family on its split cache, the six FSDP
+    ``train_4k`` cells)."""
     runs = []
     for arch, shape in runnable_cells():
         cfg = tconfig(arch)
@@ -488,16 +512,122 @@ def test_waiting_cells_are_the_complement_of_this_slice():
                                train=TSHAPES[shape].kind == "train")
         if tdry.waits_on(cfg, TSHAPES[shape], fsdp) is None:
             runs.append((arch, shape))
-    assert sorted(runs) == sorted(
-        [(a, "train_4k") for a in ("minicpm-2b", "mamba2-1.3b",
-                                   "zamba2-2.7b", "whisper-small", "yi-9b",
-                                   "granite-20b", "qwen2.5-32b",
-                                   "phi3.5-moe-42b-a6.6b", "olmoe-1b-7b",
-                                   "llama-3.2-vision-90b")]
-        + [(a, s) for a in ("yi-9b", "granite-20b", "minicpm-2b",
-                            "qwen2.5-32b", "phi3.5-moe-42b-a6.6b",
-                            "olmoe-1b-7b")
-           for s in ("prefill_32k", "decode_32k")])
+    assert sorted(runs) == sorted(runnable_cells())
+    assert len(runs) == 32
+
+
+# The serving cells of the families whose split cache came last: their
+# caches hold SSM state, conv windows, cross K/V and vision tokens beside
+# the self K/V, and long_500k splits its one sequence over ``data``.
+NEW_SERVE_CELLS = [(a, s) for a in ("mamba2-1.3b", "zamba2-2.7b")
+                   for s in ("prefill_32k", "decode_32k", "long_500k")] + [
+    (a, s) for a in ("whisper-small", "llama-3.2-vision-90b")
+    for s in ("prefill_32k", "decode_32k")]
+# The VLM's FSDP train cell at its first rung (its stacked self-layer
+# norms are over the rule's 1 MiB line, so FSDP splits them too).
+VLM_TRAIN_KNOBS = dict(remat="recompute", microbatch=4, zero1=True)
+_CELL_PARTS_SCRIPT = (
+    "import json\n"
+    "from repro_torch.launch import dryrun\n"
+    f"cells = {NEW_SERVE_CELLS!r}\n"
+    "out = {f'{a}|{s}': dryrun.build_cell(a, s, False)[-1]\n"
+    "       for a, s in cells}\n"
+    "out['llama-3.2-vision-90b|train_4k'] = dryrun.build_cell(\n"
+    "    'llama-3.2-vision-90b', 'train_4k', False,\n"
+    f"    **{VLM_TRAIN_KNOBS!r})[-1]\n"
+    "print(json.dumps(out))\n")
+
+
+@pytest.fixture(scope="module")
+def new_cell_parts():
+    """Each new serving cell, and the VLM's FSDP train cell, built on meta
+    over the 16 x 16 fake group (no step run) in one subprocess with no
+    jax: its argument bytes by part."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _RUN_NO_JAX_SCRIPT,
+                        _CELL_PARTS_SCRIPT], capture_output=True, text=True,
+                       timeout=600, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _reference_cache_parts(arch, shape_name) -> dict:
+    """The reference's cache bytes a rank on 16 x 16 from
+    ``rspecs.input_specs`` (``eval_shape`` only): the ``cache_spec``
+    blocks of every leaf but the cursors, the port's sink positions (one
+    a self K/V block row: the block's bytes over its sequence length),
+    and the port's cursors (the rank's rows)."""
+    cfg = rconfig(arch)
+    shape = RSHAPES[shape_name]
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    sizes = {"data": 16, "model": 16}
+    cache = rspecs.input_specs(arch, shape_name)["cache"]
+    cspec = rsh.cache_spec(cfg, mesh, shape.global_batch,
+                           long_context=shape_name == "long_500k")
+    blocks = sinks = 0
+    for path, x in jax.tree_util.tree_flatten_with_path(cache)[0]:
+        p = rsh._path_str(path)
+        if p == "lengths":
+            continue
+        spec = cspec(path, x)
+        n = _block_bytes(tuple(x.shape), spec, sizes,
+                         jnp.dtype(x.dtype).itemsize)
+        blocks += n
+        if p.endswith(("/k", "/v")) and "cross" not in p:
+            seq = x.shape[-3]
+            for axis in ((spec[-3],) if isinstance(spec[-3], str)
+                         else spec[-3] or ()):
+                seq //= sizes[axis]
+            sinks += n // seq
+    b = rsh._batch_rule(mesh, shape.global_batch)
+    rows = shape.global_batch // (16 if b else 1)
+    return {"cache": blocks, "cache_sink": sinks, "cache_lengths": rows * 4}
+
+
+@pytest.mark.parametrize("arch, shape", NEW_SERVE_CELLS)
+def test_new_serving_cells_hold_the_reference_cache_blocks(
+        new_cell_parts, arch, shape):
+    """The port's per-rank cache bytes of each mamba2, zamba2, whisper and
+    VLM serving cell equal the reference's ``cache_spec`` blocks on the
+    16 x 16 mesh (``build_cell`` holds each leaf's block against the
+    rank's meta tensor)."""
+    got = new_cell_parts[f"{arch}|{shape}"]
+    want = _reference_cache_parts(arch, shape)
+    for key in ("cache", "cache_sink", "cache_lengths"):
+        assert got[key] == want[key], (key, got[key], want[key])
+
+
+def test_vlm_fsdp_train_cell_holds_the_reference_param_blocks(
+        new_cell_parts):
+    """The VLM's train cell with FSDP (its default) holds the reference's
+    ``param_spec(..., fsdp=True)`` blocks on the 16 x 16 mesh, its
+    stacked self-layer norms split over ``data`` among them."""
+    rcfg = rconfig("llama-3.2-vision-90b")
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    state = rspecs.input_specs("llama-3.2-vision-90b", "train_4k")["state"]
+    params = _tree_blocks(state["params"], lambda path, x: rsh.param_spec(
+        rsh._path_str(path), tuple(x.shape), rcfg, mesh, fsdp=True),
+        {"data": 16, "model": 16})
+    assert new_cell_parts["llama-3.2-vision-90b|train_4k"]["params"] == (
+        params)
+
+
+def test_long_context_cell_runs_without_jax(tmp_path):
+    """zamba2-2.7b x long_500k x single at full size through the CLI in a
+    subprocess with no jax: the one sequence's K/V split over ``data``
+    (its KV heads over ``model``), the decode step's partials merged by
+    all-reduces; its cache bytes the reference's blocks."""
+    _dryrun(tmp_path, "--arch", "zamba2-2.7b", "--shape", "long_500k",
+            "--mesh", "single")
+    rec = json.loads(
+        (tmp_path / "zamba2-2.7b__long_500k__single.json").read_text())
+    assert rec["mesh"] == {"data": 16, "model": 16}
+    assert rec["roofline"]["t_memory_s"] > 0
+    parts = rec["argument_parts"]
+    want = _reference_cache_parts("zamba2-2.7b", "long_500k")
+    assert {k: parts[k] for k in want} == want
+    colls = rec["collectives_scanned_module_raw"]
+    assert colls["per_kind"]["all-reduce"]["count"] > 0
 
 
 def test_report_tabulates_records(olmoe_record, multi_record, tmp_path):

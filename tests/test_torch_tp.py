@@ -33,9 +33,9 @@ tree, whose ``jax.make_mesh`` rejects a one-device mesh).
   and keeps its ``d_inner`` rows), with a replicated conv and with a
   ``d_inner`` that does not divide (the block whole after the gathers);
   the kernel route once each; a ZeRO-1 train step of mamba2 on (2, 2)
-  and of zamba2 on (1, 4); mamba2's gathered checkpoint restored at one process; their
-  cache entry points refused; the rule's picks and a rank's blocks at
-  full width.
+  and of zamba2 on (1, 4); mamba2's gathered checkpoint restored at one
+  process; the rule's picks and a rank's blocks at full width.  Their
+  split cache: (h).
 * (g) the source families: whisper SMOKE logits on (1, 4) and (2, 2)
   (heads split; the encoder's bidirectional attention and the decoder's
   self-attention unrotated, cross-attention over the encoder states), and
@@ -43,19 +43,29 @@ tree, whose ``jax.make_mesh`` rejects a one-device mesh).
   SMOKE (replicated K/V at (1, 4), KV heads split at (2, 2), the
   column-split ``vis_proj`` gathered); the kernel route once each; a
   ZeRO-1 train step of whisper on (2, 2) and of the VLM on (1, 4), and
-  whisper's gathered checkpoint restored at one process; their cache
-  entry points refused.
+  whisper's gathered checkpoint restored at one process.  Their split
+  cache: (h).
 * Each rank's ``init`` keeps exactly its ``param_spec`` block of the
   one-process ``init``'s leaves, bitwise.
-* (h) the split cache (dense and MoE): qwen2.5-32b, yi-9b and olmoe SMOKE
-  on (1, 4) and (2, 2), each rank holding its ``cache_spec`` block (its
-  batch rows, its block of the sequence, every KV head): ``prefill`` of a
-  ragged prompt that crosses the ranks' sequence blocks and 4 greedy
-  ``decode_step``s, and a prompt whose decode steps run past the cache
-  into every rank's sink, against the port's one process (fp32 logits
-  within 1e-5 of the largest |logit| at every step, greedy tokens equal);
-  the ``pallas_gather`` route (the decode kernel's plain partials on a
-  rank's block) once; the paged layout refused by name.
+* (h) the split cache of every family: qwen2.5-32b, yi-9b, olmoe,
+  mamba2, zamba2, whisper and VLM SMOKE on (1, 4) and (2, 2), each rank
+  holding its ``cache_spec`` block of every leaf (its batch rows; the
+  self K/V's block of the sequence, every KV head; the SSM state's heads
+  and the conv window's channels; the cross K/V's KV heads, replicated
+  at (1, 4) for the VLM; the projected vision tokens' rows):
+  ``prefill`` of a ragged prompt that crosses the ranks' sequence blocks
+  and 4 greedy ``decode_step``s, and a prompt whose decode steps run
+  past the cache into every rank's sink where there is a K/V, against
+  the port's one process (fp32 logits within 1e-5 of the largest
+  |logit| at every step, greedy tokens equal); the mamba2 variants and
+  whisper's ``dh`` split at (1, 4); mamba2 and zamba2 with
+  ``long_context`` (one sequence over ``data``, zamba2's KV heads over
+  ``model``) on (2, 2) and (4, 1); the ``pallas_gather`` route (the
+  decode kernel's plain partials on a rank's block, flash and the dense
+  decode kernel over a rank's cross K/V, the SSD scan on a rank's heads)
+  once a family; the new families' cases also against the JAX
+  one-device ``prefill``/``decode_step`` (fp32, 2e-3); the paged layout
+  refused by name.
 * (i) the trainer's ``("pod", "data")`` batch axes: yi-9b SMOKE on a
   (2, 2, 1) ``(pod, data, model)`` mesh, two ZeRO-1 steps against the
   port's one process.
@@ -234,20 +244,42 @@ def _fsdp_inputs():
             np.float32) for p in tree.leaves(_one_process_params(YI_W))]}}
 
 
-# The split cache cases: ``max_len`` 32 puts 8 positions in a rank's
-# sequence block at (1, 4) and 16 at (2, 2), so the 12-token prompt (12,
-# 5, 9 and 7 of its tokens valid) crosses blocks; ``max_len`` 16 with a
-# 14-token prompt sends the third and fourth decode steps' K/V past the
-# cache, into every rank's sink.
+# The split cache cases (``arch`` an arch or a variant): ``max_len`` 32
+# puts 8 positions in a rank's sequence block at (1, 4) and 16 at (2, 2),
+# so the 12-token prompt (12, 5, 9 and 7 of its tokens valid) crosses
+# blocks; ``max_len`` 16 with a 14-token prompt sends the third and fourth
+# decode steps' K/V past the cache, into every rank's sink.  ``long``: one
+# sequence (20 of a 24-token block valid) over ``data``, 16 positions a
+# rank at (2, 2) and 8 at (4, 1).
+RAGGED, FULL = dict(max_len=32, seg=[12, 5, 9, 7]), dict(max_len=16,
+                                                          seg=[14] * 4)
+LONG = dict(max_len=32, seg=[20], block=24, long=True,
+            meshes=[(2, 2), (4, 1)])
 SPLIT_CASES = {
-    **{f"{a}/cross": dict(arch=a, max_len=32, seg=[12, 5, 9, 7])
-       for a in (QWEN, YI, OLMOE)},
-    **{f"{a}/overflow": dict(arch=a, max_len=16, seg=[14, 14, 14, 14])
-       for a in (YI, OLMOE)},
-    f"{YI}/pallas_gather": dict(arch=YI, max_len=32, seg=[12, 5, 9, 7],
-                                kernel="pallas_gather", meshes=[(1, 4)]),
+    **{f"{a}/cross": dict(arch=a, **RAGGED)
+       for a in (QWEN, YI, OLMOE, MB, ZB, WH, VLM)},
+    **{f"{a}/overflow": dict(arch=a, **FULL)
+       for a in (YI, OLMOE, ZB, WH, VLM)},
+    f"{YI}/pallas_gather": dict(arch=YI, **RAGGED, kernel="pallas_gather",
+                                meshes=[(1, 4)]),
+    **{f"{a}/pallas_gather": dict(arch=a, **RAGGED, kernel="pallas_gather",
+                                  meshes=[shape])
+       for a, shape in ((MB, (2, 2)), (ZB, (1, 4)), (WH, (1, 4)),
+                        (VLM, (2, 2)))},
+    **{f"{v}/cross": dict(arch=v, **RAGGED, meshes=[(1, 4)])
+       for v in (*SSM_VARIANTS, WH_DH)},
+    **{f"{a}/long": dict(arch=a, **LONG) for a in (MB, ZB)},
+    f"{ZB}/long_overflow": dict(arch=ZB, **dict(LONG, max_len=16,
+                                                seg=[14], block=14)),
+    f"{ZB}/long_pallas_gather": dict(arch=ZB, **dict(
+        LONG, kernel="pallas_gather", meshes=[(2, 2)])),
 }
 SPLIT_STEPS = 4
+# The families whose split cache this file also holds against the JAX
+# package's one-device steps (the dense and MoE ones have
+# ``tests/test_torch_serve.py``'s and ``test_torch_moe.py``'s).
+JAX_SPLIT_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+JAX_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,11 +287,23 @@ def _split_cases():
     rng = np.random.default_rng(31)
     out = {}
     for name, case in SPLIT_CASES.items():
-        vocab = tconfig(case["arch"], smoke=True).vocab
-        s = max(case["seg"])
+        cfg = _pcfg(case["arch"])
+        b = len(case["seg"])
+        src = {}
+        if cfg.family == "encdec":
+            src["frames"] = rng.standard_normal(
+                (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            src["vis"] = rng.standard_normal(
+                (b, cfg.n_vis_tokens, cfg.d_model)).astype(np.float32)
+        s = case.get("block", max(case["seg"]))
         out[name] = {**case, "meshes": case.get("meshes", SHAPES),
-                     "steps": SPLIT_STEPS,
-                     "toks": rng.integers(0, vocab, (4, s)).astype(np.int32),
+                     "steps": SPLIT_STEPS, "src": src,
+                     "variant": VARIANTS.get(case["arch"],
+                                             (case["arch"], {})),
+                     "params": case["arch"],
+                     "toks": rng.integers(0, cfg.vocab, (b, s)).astype(
+                         np.int32),
                      "seg_lens": np.asarray(case["seg"], np.int32)}
     return out
 
@@ -522,9 +566,11 @@ def _one_process_serve(name):
                               decode_kernel=case.get("kernel", "xla"))
     model = tbuild(cfg, "cpu")
     params = _one_process_params(case["arch"])
+    src = {k: torch.from_numpy(v.copy()) for k, v in case["src"].items()}
     out = []
     with torch.no_grad():
-        cache = model.init_cache(params, batch=4, max_len=case["max_len"])
+        cache = model.init_cache(params, batch=len(case["toks"]),
+                                 max_len=case["max_len"], **src)
         logits, cache = model.prefill(
             params, cache, torch.from_numpy(case["toks"].copy()),
             seg_lens=torch.from_numpy(case["seg_lens"].copy()))
@@ -536,30 +582,114 @@ def _one_process_serve(name):
     return out
 
 
-@pytest.mark.parametrize("name, shape", [
-    (name, shape) for name, case in SPLIT_CASES.items()
-    for shape in case.get("meshes", SHAPES)])
+@functools.lru_cache(maxsize=None)
+def _jax_steps(arch):
+    """The reference model of ``arch`` (an arch or a variant) and its
+    jitted ``prefill`` and ``decode_step``, shared by the cases of one
+    shape."""
+    model = rbuild(_rcfg(arch))
+    return model, jax.jit(model.prefill), jax.jit(model.decode_step)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_serve(name):
+    """The JAX package's one-device ``prefill`` and ``decode_step`` of a
+    split case on the whole batch (jitted), each decode step fed the
+    port's one-process greedy tokens: each step's logits."""
+    case = _split_cases()[name]
+    model, prefill, step = _jax_steps(case["arch"])
+    params = jax.tree_util.tree_map(jnp.asarray, _ref_params(case["arch"]))
+    src = {k: jnp.asarray(v) for k, v in case["src"].items()}
+    cache = model.init_cache(params, batch=len(case["toks"]),
+                             max_len=case["max_len"], **src)
+    logits, cache = prefill(params, cache, jnp.asarray(case["toks"]),
+                            seg_lens=jnp.asarray(case["seg_lens"]))
+    out = [np.asarray(logits)]
+    for want in _one_process_serve(name)[:-1]:
+        logits, cache = step(params, cache, jnp.asarray(
+            want.argmax(-1).to(torch.int32).numpy()))
+        out.append(np.asarray(logits))
+    return out
+
+
+def _reference_blocks(name, shape):
+    """Each cache leaf's block a rank holds: the reference's
+    ``cache_spec`` on a device-free mesh of ``shape`` over the one-device
+    cache's leaves (the port's self K/V rings add their sink position;
+    its cursors are its batch rows)."""
+    from jax.sharding import AbstractMesh
+
+    from repro.distributed import sharding as rsh
+
+    case = _split_cases()[name]
+    rcfg = _rcfg(case["arch"])
+    b = len(case["toks"])
+    mesh = AbstractMesh(shape, ("data", "model"))
+    sizes = dict(zip(("data", "model"), shape))
+    src = {k: jax.ShapeDtypeStruct(v.shape, jnp.float32)
+           for k, v in case["src"].items()}
+    params = jax.eval_shape(rbuild(rcfg).init, jax.random.PRNGKey(0))
+    cache = jax.eval_shape(
+        lambda p, kw: rbuild(rcfg).init_cache(
+            p, batch=b, max_len=case["max_len"], **kw), params, src)
+    spec_of = rsh.cache_spec(rcfg, mesh, b,
+                             long_context=bool(case.get("long")))
+    rows = b // sizes["data"] if b % sizes["data"] == 0 else b
+    out = {}
+    for path, x in jax.tree_util.tree_flatten_with_path(cache)[0]:
+        p = rsh._path_str(path)
+        if p == "lengths":
+            out[p] = (rows,)
+            continue
+        block = list(x.shape)
+        for dim, part in enumerate(spec_of(path, x)):
+            for axis in ((part,) if isinstance(part, str) else part or ()):
+                block[dim] //= sizes[axis]
+        if (p.endswith("/k") or p.endswith("/v")) and "cross" not in p:
+            block[-3] += 1                              # the sink
+        out[p] = tuple(block)
+    return out
+
+
+SPLIT_PAIRS = [(name, shape) for name, case in SPLIT_CASES.items()
+               for shape in case.get("meshes", SHAPES)]
+
+
+@pytest.mark.parametrize("name, shape", SPLIT_PAIRS)
 def test_split_cache_prefill_and_decode_match_one_process(ranks, name,
                                                           shape):
     """(h) each rank's rows of the split prefill and decode steps against
     the one process's: within 1e-5 of the largest |logit| at every step,
-    greedy tokens equal; each rank holds its ``cache_spec`` block plus a
-    sink position."""
-    case = _split_cases()[name]
+    greedy tokens equal; each rank holds the reference's ``cache_spec``
+    block of every leaf plus a sink position on its self K/V."""
     want = _one_process_serve(name)
-    cfg = tconfig(case["arch"], smoke=True)
+    blocks = _reference_blocks(name, shape)
     for out in ranks[1]:
         got = out[f"split_{name}_{shape}"]
         rows = slice(*got["rows"])
-        assert got["block"] == (
-            cfg.n_layers, 4 // shape[0], case["max_len"] // shape[1] + 1,
-            cfg.n_kv_heads, cfg.head_dim_)
+        assert got["blocks"] == blocks, (name, got["blocks"], blocks)
         for step, (a, b) in enumerate(zip(got["logits"], want)):
             b = b[rows]
             err = float((a - b).abs().max())
             scale = float(b.abs().max())
             assert err <= ONE_PROCESS_TOL * scale, (name, step, err, scale)
             assert torch.equal(a.argmax(-1), b.argmax(-1)), (name, step)
+
+
+@pytest.mark.parametrize("name, shape", [
+    (name, shape) for name, shape in SPLIT_PAIRS
+    if _pcfg(SPLIT_CASES[name]["arch"]).family in JAX_SPLIT_FAMILIES])
+def test_split_cache_matches_the_jax_one_device_steps(ranks, name, shape):
+    """(h) each rank's rows of the split steps of the mamba2, zamba2,
+    whisper and VLM cases against the JAX package's one-device
+    ``prefill``/``decode_step`` on the same weights, fp32 within 2e-3."""
+    want = _jax_serve(name)
+    assert len(want) == 1 + SPLIT_STEPS
+    for out in ranks[1]:
+        got = out[f"split_{name}_{shape}"]
+        rows = slice(*got["rows"])
+        for a, b in zip(got["logits"], want):
+            np.testing.assert_allclose(a.numpy(), b[rows], **JAX_TOL)
 
 
 def test_pod_data_train_step_matches_one_process(ranks):
@@ -659,15 +789,6 @@ def test_whisper_checkpoint_restores_at_one_process(ranks):
         assert torch.equal(a.detach(), b), tree.path_str(p)
 
 
-@pytest.mark.parametrize("name", ["whisper", "vlm"])
-def test_split_source_families_refuse_serving(ranks, name):
-    """The split whisper and VLM models refuse every cache entry point,
-    ``fill_source`` included."""
-    for out in ranks[1]:
-        assert out[f"{name}_serve_refused"] == [
-            "init_cache", "prefill", "decode_step", "fill_source"]
-
-
 @pytest.mark.parametrize("arch", [MB, ZB])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_ssm_forward_matches_the_reference(ranks, arch, shape):
@@ -723,14 +844,6 @@ def test_mamba2_checkpoint_restores_at_one_process(ranks):
     for (p, a), b in zip(tree.leaves_with_paths(restored),
                          tree.leaves(outs[0]["mamba2_full"])):
         assert torch.equal(a.detach(), b), tree.path_str(p)
-
-
-@pytest.mark.parametrize("arch", [MB, ZB])
-def test_split_recurrent_families_refuse_serving(ranks, arch):
-    """(f) the split mamba2 and zamba2 refuse every cache entry point."""
-    for out in ranks[1]:
-        assert out[f"{arch}_serve_refused"] == [
-            "init_cache", "prefill", "decode_step"]
 
 
 class _Ranked(_At):
